@@ -1,0 +1,627 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (duo_attention_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, all of them on every run (any failure exits non-zero and prints no
+result):
+  1. device: require CUDA; print the card's name and power limit (nvidia-smi).
+  2. build: compile csrc/*.cu with nvcc (one process per source, in parallel).
+  3. kernels vs plain: every kernel of the main path against its plain PyTorch
+     version on the same inputs at the main path's shapes (head_dim 128, 4 query
+     heads per KV head, chunk 4096, max_cache_size 32768, sink 64, recent 256),
+     prefill and decode, scalar and per-sequence lengths; queries drawn 4x
+     larger than keys, so scores are peaked and a dropped key shows; attention
+     held to flash.kernel_tolerance, writes bitwise; times of the kernel, the
+     plain version and one library call (SDPA, index_copy_), and the bound.
+  4. end to end: Llama-3-8B geometry (32 layers, random bf16 weights from a
+     seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and 64
+     greedy tokens through DuoEngine.generate; checks the cache length, the
+     tokens and every kernel's launch count; prints TTFT, decode ms/token and a
+     torch.profiler breakdown of device time for the prefill and 8 decode steps.
+  5. kernel path vs plain path: the same geometry at 4 layers, a prompt that
+     crosses a chunk boundary, teacher-forced through both paths; compares the
+     logits of the prefill and of 8 decode steps.
+Then one JSON line of per-kernel numbers and, last, the device line. A
+detailed record goes to chiprun_out/chip_smoke.json (gitignored).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# Per-layer full KV heads of artifacts/niah_8b/pattern at sparsity 0.5.
+EXPECTED_FULL_HEADS = (5, 5, 3, 6, 3, 4, 3, 2, 4, 4, 5, 6, 5, 3, 4, 3,
+                       2, 5, 3, 4, 3, 4, 6, 4, 5, 4, 2, 4, 4, 4, 6, 3)
+PROMPT_LEN, NEW_TOKENS = 16000, 64
+CHUNK, MAX_CACHE, SINK, RECENT, GROUP, HEAD_DIM = 4096, 32768, 64, 256, 4, 128
+ITERS = 10  # timed calls per kernel case (a third as many for the plain version)
+Q_PEAK = 4.0  # phase 3 queries are this many times larger than the keys
+# the pallas_call each kernel replaces
+REPLACES = {
+    "full_cache_attention.prefill": "duo_attention_tpu/ops/flash.py:467",
+    "full_cache_attention.decode": "duo_attention_tpu/ops/flash.py:426",
+    "streaming_cache_attention.prefill": "duo_attention_tpu/ops/flash.py:857",
+    "streaming_cache_attention.decode": "duo_attention_tpu/ops/flash.py:857",
+    "write_row": "duo_attention_tpu/ops/inplace.py:73",
+    "write_streaming_rows": "duo_attention_tpu/ops/inplace.py:135",
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1-2
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    return smi
+
+
+def phase_build():
+    from duo_attention_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    secs = time.perf_counter() - t0
+    for name, path in paths.items():
+        report = path.with_suffix(".log")
+        lines = report.read_text().splitlines() if report.exists() else []
+        for line in lines:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas[{name}] {line.strip()}", file=sys.stderr)
+    log(f"build: {sorted(paths)} in {secs:.1f} s")
+    return secs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _attn_tol_ok(got, want):
+    """|kernel - plain| against flash.kernel_tolerance(plain) elementwise:
+    2^-7 |plain| + 2^-6 rms of the plain row. Returns (max abs error, the
+    largest error / tolerance, whether every element is within it)."""
+    from duo_attention_tpu_torch.ops.flash import kernel_tolerance
+
+    err = (got.float() - want.float()).abs()
+    tol = kernel_tolerance(want)
+    ratio = float((err / tol.clamp_min(1e-30)).max())
+    return float(err.max()), ratio, bool((err <= tol).all())
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
+    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.ops import flash, inplace
+    from duo_attention_tpu_torch.utils import cuda_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    D, G = HEAD_DIM, GROUP
+    Ts, R = SINK + CHUNK, ((RECENT + CHUNK + 511) // 512) * 512
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * mul).to(torch.bfloat16)
+
+    def vec(x, B):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
+
+    results = {}
+
+    def record(name, case, err, ok, ms, plain_ms, lib_ms, bound, ratio=0.0):
+        log(f"  {name:34s} {case:28s} err {err:.3e} (err/tol {ratio:.3f}) {'ok ' if ok else 'BAD'} "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
+            f"bound {bound[0]:.4f} ms ({bound[1]})")
+        results.setdefault(name, []).append(dict(
+            case=case, max_abs_err=err, err_over_tol=ratio, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound[0], bound_by=bound[1]))
+        require(ok, f"{name} {case}: kernel disagrees with its plain version (max err {err})")
+
+    def timed(kernel, plain, library):
+        ms = cuda_time_ms(kernel, iters=ITERS, warmup=1)
+        plain_ms = cuda_time_ms(plain, iters=ITERS // 3, warmup=1)
+        lib_ms = cuda_time_ms(library, iters=ITERS, warmup=1)
+        return ms, plain_ms, lib_ms
+
+    def sdpa(q, k_cat, v_cat, mask):
+        """One SDPA call on pre-expanded GQA K/V and a boolean mask (the yardstick)."""
+        return lambda: F.scaled_dot_product_attention(q, k_cat, v_cat, attn_mask=mask)
+
+    # --- full_cache_attention -------------------------------------------------
+    Hkv = 4
+    Hq = Hkv * G
+    T = MAX_CACHE
+    k = randn(4, Hkv, T, D)
+    v = randn(4, Hkv, T, D)
+    full_cases = [  # (case, B, S, cs)
+        ("prefill cs=0", 1, CHUNK, 0),
+        ("prefill cs=12288", 1, CHUNK, 12288),
+        ("prefill cs=12300", 1, CHUNK, 12300),
+        ("prefill cs=[B] B=4", 4, CHUNK, [0, 4096, 8192, 12300]),
+        ("decode cs=16000", 1, 1, 16000),
+        ("decode cs=16000 B=4", 4, 1, 16000),
+        ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),
+    ]
+    for case, B, S, cs in full_cases:
+        name = "full_cache_attention." + ("decode" if S == 1 else "prefill")
+        csv = vec(cs, B)
+        bucket = min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
+        q = randn(B, S, Hq, D, mul=Q_PEAK)
+        kb, vb = k[:B].contiguous(), v[:B].contiguous()
+        cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+        got = flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket)
+        want = flash.full_cache_attention_plain(q, kb, vb, cs_arg, bucket=bucket)
+        err, ratio, ok = _attn_tol_ok(got, want)
+        span = bucket
+        qpos = csv[:, None] + torch.arange(S, device=dev)
+        mask = full_mask(qpos, span)[:, None]  # [B, 1, S, span]
+        vis = int(mask.sum())
+        flops = 4 * D * Hq * vis
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hkv * D * int((csv + S).sum()))
+        k_cat = kb[:, :, :span].repeat_interleave(G, dim=1)
+        v_cat = vb[:, :, :span].repeat_interleave(G, dim=1)
+        ms, plain_ms, lib_ms = timed(
+            lambda: flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket),
+            lambda: flash.full_cache_attention_plain(q, kb, vb, cs_arg, bucket=bucket),
+            sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
+        )
+        record(name, case, err, ok, ms, plain_ms, lib_ms, _bound(flops, nbytes), ratio)
+        del k_cat, v_cat, mask
+    del k, v
+
+    # --- streaming_cache_attention --------------------------------------------
+    Hs = 4
+    Hq = Hs * G
+    ks, vs = randn(4, Hs, Ts, D), randn(4, Hs, Ts, D)
+    kr, vr = randn(4, Hs, R, D), randn(4, Hs, R, D)
+    stream_cases = [
+        ("prefill cs=0", 1, CHUNK, 0),
+        ("prefill cs=12288", 1, CHUNK, 12288),
+        ("prefill cs=12300", 1, CHUNK, 12300),
+        ("prefill cs=[B] B=4", 4, CHUNK, [0, 4096, 8192, 12300]),
+        ("decode cs=16000", 1, 1, 16000),
+        ("decode cs=16000 B=4", 4, 1, 16000),
+        ("decode cs=[B] B=4", 4, 1, [5, 64, 4700, 32000]),
+    ]
+    for case, B, S, cs in stream_cases:
+        name = "streaming_cache_attention." + ("decode" if S == 1 else "prefill")
+        csv = vec(cs, B)
+        q = randn(B, S, Hq, D, mul=Q_PEAK)
+        bufs = [t[:B].contiguous() for t in (ks, vs, kr, vr)]
+        cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+        tot_arg = cs_arg + S
+        got = flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, SINK, RECENT)
+        want = flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, SINK, RECENT)
+        err, ratio, ok = _attn_tol_ok(got, want)
+        masks = []
+        for b in range(B):
+            qpos = csv[b] + torch.arange(S, device=dev)
+            masks.append(torch.cat([sink_mask(qpos, SINK, SINK),
+                                    ring_mask(qpos, R, csv[b] + S, csv[b], SINK, RECENT)], dim=-1))
+        mask = torch.stack(masks)[:, None]  # [B, 1, S, sink + R]
+        vis = int(mask.sum())
+        slots = int(mask.any(dim=2).sum())  # slots some query sees, over b
+        flops = 4 * D * Hq * vis
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hs * D * slots)
+        k_cat = torch.cat([bufs[0][:, :, :SINK], bufs[2]], dim=2).repeat_interleave(G, dim=1)
+        v_cat = torch.cat([bufs[1][:, :, :SINK], bufs[3]], dim=2).repeat_interleave(G, dim=1)
+        ms, plain_ms, lib_ms = timed(
+            lambda: flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
+            lambda: flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
+            sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
+        )
+        record(name, case, err, ok, ms, plain_ms, lib_ms, _bound(flops, nbytes), ratio)
+        del k_cat, v_cat, mask
+    del ks, vs, kr, vr
+
+    # --- write_row --------------------------------------------------------------
+    H = 4
+    batch_index = {n: torch.arange(n, device=dev) for n in (1, 4)}
+
+    def put_rows(buf, slot, row):
+        """One indexed assignment: buf[b, :, slot[b]] = row[b, :, 0]."""
+        buf[batch_index[buf.shape[0]], :, slot] = row[:, :, 0]
+
+    for case, B, pos in [("pos=16000", 1, 16000), ("pos=[B] B=4", 4, [0, 4096, 12345, 32767]),
+                         ("pos=40000 (clamped) B=4", 4, 40000)]:
+        buf = randn(B, H, T, D)
+        ref = buf.clone()
+        row = randn(B, H, 1, D)
+        pos_arg = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        inplace.write_row(buf, row, pos_arg)
+        inplace.write_row_plain(ref, row, pos_arg)
+        ok = torch.equal(buf, ref)
+        p = vec(pos, B).clamp(0, T - 1)
+        nbytes = 2 * (2 * B * H * D)
+        ms, plain_ms, lib_ms = timed(
+            lambda: inplace.write_row(buf, row, pos_arg),
+            lambda: inplace.write_row_plain(ref, row, pos_arg),
+            (lambda: buf.index_copy_(2, p[:1], row)) if B == 1 else (lambda: put_rows(buf, p, row)),
+        )
+        record("write_row", case, 0.0 if ok else float("inf"), ok, ms, plain_ms, lib_ms, _bound(0, nbytes))
+        del buf, ref
+
+    # --- write_streaming_rows -------------------------------------------------
+    for case, B, start in [("start=16000", 1, 16000), ("start=[B] B=4", 4, [5, 64, 4700, 32000])]:
+        bufs = [randn(B, H, Ts, D), randn(B, H, Ts, D), randn(B, H, R, D), randn(B, H, R, D)]
+        refs = [t.clone() for t in bufs]
+        k_row, v_row = randn(B, H, 1, D), randn(B, H, 1, D)
+        st = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK)
+        inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK)
+        ok = all(torch.equal(a, b) for a, b in zip(bufs, refs))
+        t = vec(start, B)
+        sink_slot, ring_slot = t.clamp(max=SINK), t % R
+        nbytes = 2 * (2 * B * H * D) + 4 * (2 * B * H * D)
+
+        def library():  # four index_copy_ (B == 1) or indexed assignments (B > 1)
+            for buf, row, slot in ((bufs[0], k_row, sink_slot), (bufs[1], v_row, sink_slot),
+                                   (bufs[2], k_row, ring_slot), (bufs[3], v_row, ring_slot)):
+                if B == 1:
+                    buf.index_copy_(2, slot, row)
+                else:
+                    put_rows(buf, slot, row)
+
+        ms, plain_ms, lib_ms = timed(
+            lambda: inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK),
+            lambda: inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK),
+            library,
+        )
+        record("write_streaming_rows", case, 0.0 if ok else float("inf"), ok, ms, plain_ms, lib_ms,
+               _bound(0, nbytes))
+        del bufs, refs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 4-5: the model
+# ---------------------------------------------------------------------------
+
+
+def _counters():
+    from duo_attention_tpu_torch.ops import flash, inplace
+
+    return {
+        "full_cache_attention.prefill": (flash.full_cache_attention, "prefill_launches"),
+        "full_cache_attention.decode": (flash.full_cache_attention, "decode_launches"),
+        "streaming_cache_attention.prefill": (flash.streaming_cache_attention, "prefill_launches"),
+        "streaming_cache_attention.decode": (flash.streaming_cache_attention, "decode_launches"),
+        "write_row": (inplace.write_row, "launches"),
+        "write_streaming_rows": (inplace.write_streaming_rows, "launches"),
+    }
+
+
+def _plain_functions():
+    from duo_attention_tpu_torch.ops import flash, inplace
+
+    return (flash.full_cache_attention_plain, flash.streaming_cache_attention_plain,
+            inplace.write_row_plain, inplace.write_streaming_rows_plain)
+
+
+def reset_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+    for fn in _plain_functions():
+        fn.cuda_calls = 0
+
+
+def read_counts():
+    """Each kernel's launches, and the plain versions' calls on CUDA tensors."""
+    out = {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+    out["plain_cuda_calls"] = sum(fn.cuda_calls for fn in _plain_functions())
+    return out
+
+
+def _model_setup():
+    from duo_attention_tpu_torch import (
+        PRESETS, DuoConfig, load_attn_pattern, num_full_kv_heads_per_layer,
+        sparsify_attention_heads,
+    )
+
+    cfg = PRESETS["Llama-3-8B-Instruct-Gradient-1048k"]
+    heads, sink, recent = load_attn_pattern(os.path.join(REPO, "artifacts", "niah_8b", "pattern"))
+    binary, sparsity = sparsify_attention_heads(heads, sparsity=0.5)
+    nf = num_full_kv_heads_per_layer(binary)
+    require(nf == EXPECTED_FULL_HEADS, f"pattern gave full heads {nf}")
+    duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=nf,
+                    max_cache_size=MAX_CACHE, prefill_chunk_size=CHUNK)
+    return cfg, duo, sparsity
+
+
+def phase_end_to_end(params, cfg, duo):
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine
+
+    engine = DuoEngine(params, cfg, duo, device="cuda")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
+    engine.generate(ids[:, :300], max_new_tokens=2)  # warm up cuBLAS and the kernels' first launch
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens, cache = engine.generate(ids, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+
+    n_chunks = -(-PROMPT_LEN // CHUNK)
+    hf_layers = sum(1 for n in duo.num_full_kv_heads if n > 0)
+    hs_layers = sum(1 for n in duo.num_full_kv_heads if n < cfg.num_kv_heads)
+    expected = {
+        "full_cache_attention.prefill": n_chunks * hf_layers,
+        "full_cache_attention.decode": NEW_TOKENS * hf_layers,
+        "streaming_cache_attention.prefill": n_chunks * hs_layers,
+        "streaming_cache_attention.decode": NEW_TOKENS * hs_layers,
+        "write_row": 2 * NEW_TOKENS * hf_layers,
+        "write_streaming_rows": NEW_TOKENS * hs_layers,
+        "plain_cuda_calls": 0,
+    }
+    log(f"  launches {counts}")
+    require(counts == expected, f"launch counts {counts} != expected {expected}")
+    require(int(cache.length) == PROMPT_LEN + NEW_TOKENS, f"cache.length {int(cache.length)}")
+    require(tokens.shape == (1, NEW_TOKENS), f"tokens shape {tokens.shape}")
+    require(((tokens >= 0) & (tokens < cfg.vocab_size)).all(), "tokens out of range (overrun poison?)")
+    del cache
+
+    # the same path split in two, for TTFT and the decode rate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = engine.prefill(ids)
+    first = torch.argmax(logits, dim=-1)
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again, cache = engine.decode_tokens(cache, first, NEW_TOKENS, length=PROMPT_LEN)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+    require(np.array_equal(again, tokens), "a second run of the same prompt gave other tokens")
+    log(f"  generate {PROMPT_LEN}+{NEW_TOKENS} tokens: {gen_s:.3f} s; TTFT {ttft_ms:.1f} ms; "
+        f"decode {decode_ms:.2f} ms/token; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del cache
+    torch.cuda.empty_cache()
+
+    # where the device time goes, one window each for the prefill and 8 decode steps
+    state = {}
+
+    def prefill():
+        state["cache"], state["logits"] = engine.prefill(ids)
+
+    def decode():
+        engine.decode_tokens(state["cache"], torch.argmax(state["logits"], -1), 8, length=PROMPT_LEN)
+
+    breakdown = {"prefill": device_breakdown(prefill), "decode_8_steps": device_breakdown(decode)}
+    for window, b in breakdown.items():
+        log(f"  profile {window}: {json.dumps(b)}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(counts=counts, expected=expected, generate_s=gen_s, ttft_ms=ttft_ms, profile=breakdown,
+                decode_ms_per_token=decode_ms, tokens=tokens[0, :16].tolist())
+
+
+def _kernel_kind(name):
+    """The port's kernels by name (prefill_kernel<0> is full heads, <1>
+    streaming), cuBLAS matrix products, and everything else."""
+    ours = {"prefill_kernel<0>": "full_cache_attention.prefill",
+            "prefill_kernel<1>": "streaming_cache_attention.prefill",
+            "decode_kernel<0,": "full_cache_attention.decode",
+            "decode_kernel<1,": "streaming_cache_attention.decode",
+            "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row"}
+    compact = name.replace(" ", "")
+    for key, kind in ours.items():
+        if key in compact:
+            return kind
+    if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+        return "matmul"
+    return "other"
+
+
+def device_breakdown(fn):
+    """Run fn under torch.profiler: device milliseconds by kind of kernel,
+    the window's wall time, and the share of it the device was idle (the
+    profiler's own host cost inflates the wall time, so this idle share is
+    an upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind, other = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        kind = _kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        if kind == "other":
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
+    busy = sum(by_kind.values())
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=(1 - busy / wall_ms) if busy else None,
+                by_kind_ms=by_kind,
+                top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
+
+
+def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
+    import torch
+
+    from duo_attention_tpu_torch.cache import init_cache
+    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.models import llama
+
+    cfg4 = dataclasses.replace(cfg, num_layers=layers)
+    duo4 = dataclasses.replace(duo, num_full_kv_heads=duo.num_full_kv_heads[:layers])
+    params4 = dict(params, layers=params["layers"][:layers])
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt))
+    dev = torch.device("cuda")
+
+    def run(plain, feed=None):
+        """Prefill, then ``steps`` decode steps fed ``feed`` (or, when None,
+        each step's own argmax). Returns (logits [1 + steps, vocab], fed ids)."""
+        cache = init_cache(cfg4, duo4, 1, torch.bfloat16, dev)
+        with torch.no_grad():
+            for off in range(0, prompt, CHUNK):
+                chunk = ids[:, off : off + CHUNK]
+                n = chunk.shape[1]
+                chunk = np.pad(chunk, ((0, 0), (0, CHUNK - n)))
+                hidden, cache = llama.forward_chunk(
+                    params4, cfg4, duo4, cache, torch.as_tensor(chunk, device=dev), n,
+                    full_bucket=min(_next_bucket(off + CHUNK), MAX_CACHE), plain=plain)
+            out = [llama.logits_at(params4, hidden, n - 1)]
+            fed = []
+            bucket = min(_next_bucket(prompt + steps), MAX_CACHE)
+            for i in range(steps):
+                t = int(torch.argmax(out[-1])) if feed is None else feed[i]
+                fed.append(t)
+                hidden, cache = llama.forward_chunk(
+                    params4, cfg4, duo4, cache, torch.tensor([[t]], device=dev), 1,
+                    full_bucket=bucket, plain=plain)
+                out.append(llama.logits_at(params4, hidden, 0))
+        return torch.cat(out), fed
+
+    # the kernel path decodes greedily; the plain path is fed the same tokens
+    kern, feed = run(False)
+    plain, _ = run(True, feed)
+    err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    # Bound: 5% of the largest plain logit, plus 0.05 — bf16 activations
+    # through 4 layers, where the two paths round attention differently.
+    bound = 0.05 * scale + 0.05
+    log(f"  kernel vs plain, {layers} layers, {prompt}-token prompt + {steps} steps: max |dlogit| "
+        f"{err:.4f} (bound {bound:.4f}, max |logit| {scale:.3f}); argmax agreement {agree}/{steps + 1}")
+    require(bool(torch.isfinite(kern).all()), "kernel-path logits not finite")
+    require(err <= bound, f"kernel path differs from plain path: {err} > {bound}")
+    return dict(max_abs_logit_err=err, bound=bound, max_abs_logit=scale,
+                argmax_agree=agree, positions=steps + 1)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "duo_attention_tpu_torch")):
+        print("FAIL: the duo_attention_tpu_torch package is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    record = {}
+    try:
+        log("phase 1: device")
+        smi = phase_device()
+        log(smi)
+        record["nvidia_smi"] = smi
+        log("phase 2: build")
+        record["build_s"] = phase_build()
+        log("phase 3: kernels vs plain versions")
+        kernels = record["kernels"] = phase_kernels()
+
+        from duo_attention_tpu_torch.models.llama import init_params
+
+        cfg, duo, sparsity = _model_setup()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"weights: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params "
+            f"in {time.perf_counter() - t0:.1f} s; sparsity {sparsity:.3f}, full heads "
+            f"{sum(duo.num_full_kv_heads)}/{cfg.num_layers * cfg.num_kv_heads}")
+        log("phase 4: end to end, DuoEngine.generate")
+        record["end_to_end"] = phase_end_to_end(params, cfg, duo)
+        log("phase 5: kernel path vs plain path")
+        record["kernel_vs_plain"] = phase_kernel_vs_plain(params, cfg, duo)
+        del params
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+
+    counts = record["end_to_end"]["counts"]
+    line = []
+    for name, cases in kernels.items():
+        head = cases[1] if name.endswith(".prefill") else cases[0]  # the main path's shape
+        line.append(dict(
+            name=name, route="cuda",
+            source="duo_attention_tpu_torch/csrc/" + ("inplace.cu" if name.startswith("write") else "flash.cu"),
+            replaces=REPLACES[name], launches=counts[name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"], case=head["case"],
+        ))
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(record["nvidia_smi"])
+    log(json.dumps({"kernels": line}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(params):
+    for key, val in params.items():
+        if key == "layers":
+            for layer in val:
+                yield from layer.values()
+        else:
+            yield val
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""duo_attention_tpu_torch — the PyTorch/CUDA port of duo_attention_tpu.
+
+Runs DuoAttention's bf16 main path (chunked prefill, then greedy decode over
+the retrieval/streaming split KV cache) on an NVIDIA H100, with the
+attention and cache-write kernels hand-written in CUDA (``csrc/``, built
+with nvcc at first use). The JAX package ``duo_attention_tpu`` stays the
+reference; this package imports none of it.
+
+Quick start (the card by default; pass device="cpu" for the plain PyTorch
+path on the CPU):
+
+    from duo_attention_tpu_torch import (
+        PRESETS, DuoConfig, DuoEngine, init_params, load_attn_pattern,
+        num_full_kv_heads_per_layer, sparsify_attention_heads,
+    )
+    heads, sink, recent = load_attn_pattern(pattern_dir)
+    heads, _ = sparsify_attention_heads(heads, sparsity=0.5)
+    cfg = PRESETS["Llama-3-8B-Instruct-Gradient-1048k"]
+    duo = DuoConfig(sink_size=sink, recent_size=recent,
+                    num_full_kv_heads=num_full_kv_heads_per_layer(heads),
+                    max_cache_size=32768, prefill_chunk_size=4096)
+    params = init_params(cfg, seed=0, device="cuda")
+    engine = DuoEngine(params, cfg, duo, device="cuda")
+    tokens, cache = engine.generate(input_ids, max_new_tokens=64)
+"""
+
+from .cache import DuoCache, init_cache, kv_memory_bytes
+from .config import PRESETS, DuoConfig, ModelConfig, RopeScaling
+from .engine import DuoEngine
+from .models.llama import init_params
+from .patterns import (
+    load_attn_pattern,
+    num_full_kv_heads_per_layer,
+    save_attn_pattern,
+    sparsify_attention_heads,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DuoConfig",
+    "ModelConfig",
+    "RopeScaling",
+    "PRESETS",
+    "load_attn_pattern",
+    "save_attn_pattern",
+    "sparsify_attention_heads",
+    "num_full_kv_heads_per_layer",
+    "DuoCache",
+    "init_cache",
+    "kv_memory_bytes",
+    "DuoEngine",
+    "init_params",
+]

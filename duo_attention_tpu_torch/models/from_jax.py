@@ -1,0 +1,39 @@
+"""Parameters of the JAX package, as numpy arrays, into the port's layout.
+
+The JAX package stores projections ``[in, out]`` (``x @ W``); the port keeps
+PyTorch's ``[out, in]`` (``F.linear``), so every projection and the lm head
+are transposed here. The result computes the same function as the JAX
+params it came from (the tests feed both packages through this).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# [in, out] in the JAX tree -> [out, in] here
+_TRANSPOSED = frozenset(("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
+_AS_IS = frozenset(("embed", "final_norm", "input_norm", "post_norm", "bq", "bk", "bv"))
+
+
+def _convert(name: str, arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if name in _TRANSPOSED:
+        arr = arr.T
+    elif name not in _AS_IS:
+        raise ValueError(f"parameter {name!r} has no counterpart in this slice of the port")
+    return torch.tensor(arr, dtype=dtype, device=device)
+
+
+def params_from_numpy(tree: Mapping[str, Any], device="cpu", dtype=torch.float32) -> dict:
+    """tree: the JAX params pytree with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``). Returns the port's
+    params dict on ``device`` in ``dtype``."""
+    out = {name: _convert(name, arr, device, dtype) for name, arr in tree.items() if name != "layers"}
+    out["layers"] = [
+        {name: _convert(name, arr, device, dtype) for name, arr in layer.items()}
+        for layer in tree["layers"]
+    ]
+    return out

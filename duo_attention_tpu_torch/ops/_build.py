@@ -1,0 +1,99 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
+alone (no PyTorch headers, so a build takes seconds) into
+``duo_attention_tpu_torch/build/lib<name>-<hash>.so``. The hash covers the
+source and the flags, so an edited source builds anew and an unchanged one is
+reused. ``build()`` starts one ``nvcc`` per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+SOURCES = ("flash", "inplace")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source that has no current library, in parallel.
+
+    Returns {name: library path}. Raises RuntimeError with the compiler's
+    output if any build fails. The compiler's report (registers, shared
+    memory, spills) is kept beside each library as ``<lib>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+    errors = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        text = out.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{text}")
+            continue
+        paths[name].with_suffix(".log").write_text(text)
+        os.replace(tmp, paths[name])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; declare each C entry's
+    argument types. Every entry returns its cudaError_t as an int, and every
+    library exports ``error_string`` to name it."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} ({lib.error_string(err).decode()})")

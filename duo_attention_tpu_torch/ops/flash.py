@@ -1,0 +1,234 @@
+"""Attention over the duo split KV cache.
+
+Counterpart of duo_attention_tpu/ops/flash.py (``full_cache_attention``,
+``streaming_cache_attention``). Each op has a plain PyTorch version, which
+runs the float32 oracle of ops/attention_ref.py on the same masks, and a
+CUDA kernel in ``csrc/flash.cu`` (a prefill kernel for S > 1 and a decode
+kernel for S == 1). The wrapper takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors; a launch failure raises. Counters:
+``<wrapper>.prefill_launches`` and ``<wrapper>.decode_launches`` count
+kernel launches, ``<plain>.cuda_calls`` counts plain calls on CUDA tensors.
+
+Numerics of the kernels (the TPU kernels' own): the softmax scale is folded
+into q in q's dtype, scores and the online softmax are float32, p is
+rounded to bf16 before P.V, a row with no visible column gives 0. The
+plain versions fold the scale the same way and are float32 from there on,
+so a kernel and its plain version differ only by the rounding of p and of
+the output; ``kernel_tolerance`` bounds that difference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cache import full_mask, ring_mask, sink_mask
+from . import _build
+from .attention_ref import masked_attention
+from .inplace import device_positions, position_vector
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "streaming_cache_attention": [
+        _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
+}
+HEAD_DIM = 128  # the kernels' head_dim (every preset's)
+MAX_GROUP = 8  # the decode kernel's largest query-head group
+# Query rows per plain-version matmul: bounds its [Hq, rows, keys] f32 scores.
+_PLAIN_ROWS = 512
+
+
+def _lib():
+    return _build.load("flash", _SIGNATURES)
+
+
+def _span(bucket: int, T: int) -> int:
+    """Keys the op may read: the engine's bucket (>= cs + S), or the buffer."""
+    return T if bucket <= 0 else min(bucket, T)
+
+
+def _check_kernel_inputs(name: str, q: torch.Tensor, bufs, Hkv: int) -> None:
+    for t in (q, *bufs):
+        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: CUDA kernel takes contiguous bfloat16 tensors on one device, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+    B, S, Hq, D = q.shape
+    if D != HEAD_DIM or Hq % Hkv != 0:
+        raise ValueError(f"{name}: kernel needs head_dim {HEAD_DIM} and Hq % Hkv == 0, "
+                         f"got q {tuple(q.shape)} with {Hkv} KV heads")
+    if S == 1 and Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{name}: decode kernel takes at most {MAX_GROUP} query heads per KV head")
+
+
+def kernel_tolerance(plain: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for the attention outputs:
+    2^-7 |plain| + 2^-6 rms(plain over the row's D).
+
+    Both round their output to bf16, which puts them at most one ulp, 2^-7
+    |plain|, apart. The kernel also rounds each p to bf16 (relative error
+    <= 2^-8) before P.V; that error has random signs and is about 2^-8/2 of
+    the row's rms, so 2^-6 rms leaves room for its largest value over
+    millions of elements. A dropped or extra key of weight w moves the row
+    by about w times its rms, so such faults show once w passes ~2^-6."""
+    p = plain.float()
+    rms = p.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return 2.0**-7 * p.abs() + 2.0**-6 * rms
+
+
+def _plain_tiles(q, k_cat, v_cat, mask_fn):
+    """masked_attention per sequence and per block of query rows, with the
+    softmax scale folded into q in q's dtype as the kernels fold it.
+
+    k_cat/v_cat [B, Hkv, T, D]; mask_fn(b, rows) -> [len(rows), T] bool."""
+    B, S = q.shape[:2]
+    out = torch.empty_like(q)
+    scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype))
+    q = q * scale
+    for b in range(B):
+        kb = k_cat[b : b + 1].transpose(1, 2)
+        vb = v_cat[b : b + 1].transpose(1, 2)
+        for s0 in range(0, S, _PLAIN_ROWS):
+            rows = torch.arange(s0, min(s0 + _PLAIN_ROWS, S), device=q.device)
+            mask = mask_fn(b, rows)[None, None]
+            out[b : b + 1, s0 : s0 + len(rows)] = masked_attention(
+                q[b : b + 1, s0 : s0 + len(rows)], kb, vb, mask, scale=1.0
+            )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Full (retrieval) heads
+# ---------------------------------------------------------------------------
+
+
+def full_cache_attention_plain(q, k, v, cs, *, bucket: int = 0):
+    """Plain version: the float32 oracle with mask ``slot <= qpos`` over the
+    first ``span`` slots."""
+    if q.is_cuda:
+        full_cache_attention_plain.cuda_calls += 1
+    B, S = q.shape[:2]
+    span = _span(bucket, k.shape[2])
+    cs = position_vector(cs, B, q.device)
+    return _plain_tiles(
+        q, k[:, :, :span], v[:, :, :span],
+        lambda b, rows: full_mask(cs[b] + rows, span),
+    )
+
+
+full_cache_attention_plain.cuda_calls = 0
+
+
+def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
+    """Attention of incoming queries over the full-head cache.
+
+    q [B, S, Hq, D] (post-RoPE); k/v [B, Hkv, T, D] already holding the chunk
+    at [cs, cs+S); cs int, 0-d or [B] tensor (each sequence's cache length
+    before the chunk). Slot j is visible to query position qpos iff
+    j <= qpos. bucket: a bound >= max(cs) + S on the slots read (0: the
+    whole buffer). Returns [B, S, Hq, D].
+    """
+    if not q.is_cuda:
+        return full_cache_attention_plain(q, k, v, cs, bucket=bucket)
+    B, S, Hq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    _check_kernel_inputs("full_cache_attention", q, (k, v), Hkv)
+    if tuple(k.shape) != (B, Hkv, T, D) or tuple(v.shape) != (B, Hkv, T, D):
+        raise ValueError(f"full_cache_attention: k {tuple(k.shape)} v {tuple(v.shape)} for q {tuple(q.shape)}")
+    cs_t, cs_stride = device_positions(cs, B, q.device)
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.full_cache_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride, out.data_ptr(),
+        B, S, Hq, Hkv, T, _span(bucket, T), D, D**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "full_cache_attention")
+    if S == 1:
+        full_cache_attention.decode_launches += 1
+    else:
+        full_cache_attention.prefill_launches += 1
+    return out
+
+
+full_cache_attention.prefill_launches = 0
+full_cache_attention.decode_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Streaming heads (sink buffer + position ring)
+# ---------------------------------------------------------------------------
+
+
+def streaming_cache_attention_plain(q, k_sink, v_sink, k_ring, v_ring, cs, total_after,
+                                    sink_size: int, recent_size: int):
+    """Plain version: the float32 oracle over [sink slots | ring slots] with
+    the sink and ring masks of cache.py."""
+    if q.is_cuda:
+        streaming_cache_attention_plain.cuda_calls += 1
+    B, S = q.shape[:2]
+    R = k_ring.shape[2]
+    cs = position_vector(cs, B, q.device)
+    total = position_vector(total_after, B, q.device)
+    k_cat = torch.cat([k_sink[:, :, :sink_size], k_ring], dim=2)
+    v_cat = torch.cat([v_sink[:, :, :sink_size], v_ring], dim=2)
+
+    def mask_fn(b, rows):
+        qpos = cs[b] + rows
+        return torch.cat([
+            sink_mask(qpos, sink_size, sink_size),
+            ring_mask(qpos, R, total[b], cs[b], sink_size, recent_size),
+        ], dim=-1)
+
+    return _plain_tiles(q, k_cat, v_cat, mask_fn)
+
+
+streaming_cache_attention_plain.cuda_calls = 0
+
+
+def streaming_cache_attention(q, k_sink, v_sink, k_ring, v_ring, cs, total_after,
+                              sink_size: int, recent_size: int):
+    """Streaming-head attention over the sink buffer and the position ring.
+
+    q [B, S, Hsq, D]; k/v_sink [B, Hs, sink + C, D]; k/v_ring [B, Hs, R, D],
+    all already holding the chunk. cs / total_after: int, 0-d or [B] tensor
+    (chunk start, and tokens after the chunk including its padding). A sink
+    slot s is visible iff s < sink and s <= qpos; a ring slot holding token g
+    iff g >= sink, g >= max(cs - recent, 0), g <= qpos and g >= 0.
+    Returns [B, S, Hsq, D].
+    """
+    if not q.is_cuda:
+        return streaming_cache_attention_plain(
+            q, k_sink, v_sink, k_ring, v_ring, cs, total_after, sink_size, recent_size
+        )
+    B, S, Hq, D = q.shape
+    Hs, Ts, R = k_sink.shape[1], k_sink.shape[2], k_ring.shape[2]
+    _check_kernel_inputs("streaming_cache_attention", q, (k_sink, v_sink, k_ring, v_ring), Hs)
+    if (tuple(v_sink.shape) != (B, Hs, Ts, D) or tuple(k_ring.shape) != (B, Hs, R, D)
+            or tuple(v_ring.shape) != (B, Hs, R, D) or not 0 <= sink_size <= Ts):
+        raise ValueError("streaming_cache_attention: inconsistent buffer shapes")
+    cs_t, cs_stride = device_positions(cs, B, q.device)
+    tot_t, tot_stride = device_positions(total_after, B, q.device)
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.streaming_cache_attention(
+        q.data_ptr(), k_sink.data_ptr(), v_sink.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
+        cs_t.data_ptr(), cs_stride, tot_t.data_ptr(), tot_stride, out.data_ptr(),
+        B, S, Hq, Hs, Ts, R, D, sink_size, recent_size, D**-0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "streaming_cache_attention")
+    if S == 1:
+        streaming_cache_attention.decode_launches += 1
+    else:
+        streaming_cache_attention.prefill_launches += 1
+    return out
+
+
+streaming_cache_attention.prefill_launches = 0
+streaming_cache_attention.decode_launches = 0

@@ -1,0 +1,161 @@
+"""In-place single-row cache writes of the decode step.
+
+Counterpart of duo_attention_tpu/ops/inplace.py. Unlike the JAX functions,
+which return updated buffers, these MUTATE the cache tensors they are given
+and return them. Each has a plain PyTorch version (used for CPU tensors and
+as the reference on the card) and a CUDA kernel in ``csrc/inplace.cu``
+(used for CUDA tensors; a launch failure raises). The wrappers count their
+launches in ``<wrapper>.launches``; the plain versions count calls made
+with CUDA tensors in ``<plain>.cuda_calls``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "write_row": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _lib():
+    return _build.load("inplace", _SIGNATURES)
+
+
+def position_vector(pos, B: int, device, limit=None) -> torch.Tensor:
+    """Broadcast pos (int, 0-d or [B] tensor) to a [B] int64 index; clamp
+    into [0, limit-1] when given (the clamp of the JAX inplace.py::_as_vec)."""
+    pos = torch.as_tensor(pos, device=device).reshape(-1).long().expand(B)
+    if limit is not None:
+        pos = pos.clamp(0, limit - 1)
+    return pos
+
+
+def device_positions(pos, B: int, device):
+    """A position argument as the kernels read it: (int32 tensor on the
+    device, stride) where stride 0 broadcasts one value to every row."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1)
+    if pos.numel() == 1:
+        return pos, 0
+    if pos.numel() != B:
+        raise ValueError(f"positions must be a scalar or [B={B}], got {tuple(pos.shape)}")
+    return pos.contiguous(), 1
+
+
+def _check_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: CUDA kernel takes contiguous bfloat16 tensors on one device, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+
+
+# ---------------------------------------------------------------------------
+# write_row: buf[b, :, pos[b], :] = row, pos clamped into [0, T-1]
+# ---------------------------------------------------------------------------
+
+
+def write_row_plain(buf: torch.Tensor, row: torch.Tensor, pos) -> torch.Tensor:
+    """Plain version of write_row (the same clamp, the same result)."""
+    if buf.is_cuda:
+        write_row_plain.cuda_calls += 1
+    B, H, T, D = buf.shape
+    p = position_vector(pos, B, buf.device, limit=T)
+    buf[torch.arange(B, device=buf.device), :, p] = row[:, :, 0].to(buf.dtype)
+    return buf
+
+
+write_row_plain.cuda_calls = 0
+
+
+def write_row(buf: torch.Tensor, row: torch.Tensor, pos) -> torch.Tensor:
+    """buf [B, H, T, D]; row [B, H, 1, D]; pos int, 0-d or [B] tensor.
+
+    Writes row at (b, :, pos[b], :) IN PLACE and returns buf. pos is
+    clamped into [0, T-1] so an overrun never leaves the buffer.
+    """
+    if not buf.is_cuda:
+        return write_row_plain(buf, row, pos)
+    B, H, T, D = buf.shape
+    _check_bf16_cuda("write_row", buf, row)
+    if tuple(row.shape) != (B, H, 1, D) or D % 8 != 0:
+        raise ValueError(f"write_row: row {tuple(row.shape)} for buffer {tuple(buf.shape)}")
+    p, stride = device_positions(pos, B, buf.device)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    lib = _lib()
+    err = lib.write_row(buf.data_ptr(), row.data_ptr(), p.data_ptr(), stride,
+                        B, H, T, D, stream)
+    _build.check(lib, err, "write_row")
+    write_row.launches += 1
+    return buf
+
+
+write_row.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# write_streaming_rows: sink slot min(start, sink), ring slot start mod R
+# ---------------------------------------------------------------------------
+
+
+def write_streaming_rows_plain(k_sink, v_sink, k_ring, v_ring, k_row, v_row,
+                               start, sink_size: int):
+    """Plain version of write_streaming_rows (no clamp, as in the TPU kernel)."""
+    if k_sink.is_cuda:
+        write_streaming_rows_plain.cuda_calls += 1
+    B = k_sink.shape[0]
+    R = k_ring.shape[2]
+    t = position_vector(start, B, k_sink.device)
+    bi = torch.arange(B, device=k_sink.device)
+    sink_slot = torch.minimum(t, torch.full_like(t, sink_size))
+    ring_slot = torch.remainder(t, R)
+    k, v = k_row[:, :, 0], v_row[:, :, 0]
+    k_sink[bi, :, sink_slot] = k.to(k_sink.dtype)
+    v_sink[bi, :, sink_slot] = v.to(v_sink.dtype)
+    k_ring[bi, :, ring_slot] = k.to(k_ring.dtype)
+    v_ring[bi, :, ring_slot] = v.to(v_ring.dtype)
+    return k_sink, v_sink, k_ring, v_ring
+
+
+write_streaming_rows_plain.cuda_calls = 0
+
+
+def write_streaming_rows(k_sink, v_sink, k_ring, v_ring, k_row, v_row,
+                         start, sink_size: int):
+    """Decode-step streaming write, IN PLACE. k/v_row [B, Hs, 1, D]; start
+    int, 0-d or [B] tensor. Sink slot min(start, sink) (past the sink the row
+    lands in the never-visible overflow pad), ring slot start mod R, for K
+    and V, in one launch. Returns the four buffers."""
+    if not k_sink.is_cuda:
+        return write_streaming_rows_plain(
+            k_sink, v_sink, k_ring, v_ring, k_row, v_row, start, sink_size
+        )
+    B, H, Ts, D = k_sink.shape
+    R = k_ring.shape[2]
+    _check_bf16_cuda("write_streaming_rows", k_sink, v_sink, k_ring, v_ring, k_row, v_row)
+    if (tuple(v_sink.shape) != (B, H, Ts, D) or tuple(k_ring.shape) != (B, H, R, D)
+            or tuple(v_ring.shape) != (B, H, R, D) or tuple(k_row.shape) != (B, H, 1, D)
+            or tuple(v_row.shape) != (B, H, 1, D) or D % 8 != 0 or not 0 <= sink_size < Ts):
+        raise ValueError("write_streaming_rows: inconsistent buffer shapes")
+    p, stride = device_positions(start, B, k_sink.device)
+    stream = torch.cuda.current_stream(k_sink.device).cuda_stream
+    lib = _lib()
+    err = lib.write_streaming_rows(
+        k_sink.data_ptr(), v_sink.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
+        k_row.data_ptr(), v_row.data_ptr(), p.data_ptr(), stride,
+        B, H, Ts, R, D, sink_size, stream,
+    )
+    _build.check(lib, err, "write_streaming_rows")
+    write_streaming_rows.launches += 1
+    return k_sink, v_sink, k_ring, v_ring
+
+
+write_streaming_rows.launches = 0

@@ -1,0 +1,34 @@
+"""Device resolution and device-side timing."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU. A CUDA device with no GPU present raises; nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return dev
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds per call of fn, from CUDA events around
+    ``iters`` back-to-back calls on the current stream (after ``warmup``)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
