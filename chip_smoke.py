@@ -7,21 +7,26 @@ Phases, all of them on every run (any failure exits non-zero and prints no
 result):
   1. device: require CUDA; print the card's name and power limit (nvidia-smi).
   2. build: compile csrc/*.cu with nvcc (one process per source, in parallel).
-  3. kernels vs plain: every kernel of the main path against its plain PyTorch
-     version on the same inputs at the main path's shapes (head_dim 128, 4 query
-     heads per KV head, chunk 4096, max_cache_size 32768, sink 64, recent 256),
-     prefill and decode, scalar and per-sequence lengths; queries drawn 4x
-     larger than keys, so scores are peaked and a dropped key shows; attention
-     held to flash.kernel_tolerance, writes bitwise; times of the kernel, the
-     plain version and one library call (SDPA, index_copy_), and the bound.
-  4. end to end: Llama-3-8B geometry (32 layers, random bf16 weights from a
-     seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and 64
-     greedy tokens through DuoEngine.generate; checks the cache length, the
+  3. kernels vs plain: every kernel of the main path, in both formats, against
+     its plain PyTorch version on the same inputs at the main path's shapes
+     (head_dim 128, 4 query heads per KV head, chunk 4096, max_cache_size 32768,
+     sink 64, recent 256; the 8B model's five weight shapes), prefill and
+     decode, scalar and per-sequence lengths; queries drawn 4x larger than keys,
+     so scores are peaked and a dropped key shows; attention held to
+     flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes and the int8
+     matrix product bitwise; times of the kernel, the plain version and one
+     library call (SDPA, index_copy_, torch._int_mm), and the bound.
+  4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
+     a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
+     64 greedy tokens through DuoEngine.generate; checks the cache length, the
      tokens and every kernel's launch count; prints TTFT, decode ms/token and a
      torch.profiler breakdown of device time for the prefill and 8 decode steps.
-  5. kernel path vs plain path: the same geometry at 4 layers, a prompt that
-     crosses a chunk boundary, teacher-forced through both paths; compares the
-     logits of the prefill and of 8 decode steps.
+  5. kernel path vs plain path, bf16: the same geometry at 4 layers, a prompt
+     that crosses a chunk boundary, teacher-forced through both paths; compares
+     the logits of the prefill and of 8 decode steps.
+  6. end to end, W8A8KV4: phase 4 with random int8 weights (int8 embedding and
+     head) and DuoEngine(kv_quant="int4").
+  7. kernel path vs plain path, W8A8KV4: phase 5 in that format.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -39,6 +44,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Per-layer full KV heads of artifacts/niah_8b/pattern at sparsity 0.5.
 EXPECTED_FULL_HEADS = (5, 5, 3, 6, 3, 4, 3, 2, 4, 4, 5, 6, 5, 3, 4, 3,
@@ -55,7 +61,18 @@ REPLACES = {
     "streaming_cache_attention.decode": "duo_attention_tpu/ops/flash.py:857",
     "write_row": "duo_attention_tpu/ops/inplace.py:73",
     "write_streaming_rows": "duo_attention_tpu/ops/inplace.py:135",
+    "full_cache_attention_q4.prefill": "duo_attention_tpu/ops/flash.py:667",
+    "full_cache_attention_q4.decode": "duo_attention_tpu/ops/flash.py:620",
+    "write_q4_token": "duo_attention_tpu/ops/inplace.py:212",
+    "w8a8_matmul.tiled": "duo_attention_tpu/ops/gemm.py:78",
+    "w8a8_matmul.small": "duo_attention_tpu/ops/gemm.py:78",
 }
+SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "flash.cu",
+           "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
+           "write_streaming_rows": "inplace.cu", "write_q4_token": "inplace.cu", "w8a8_matmul": "gemm.cu"}
+# The 8B model's weight shapes (N = out features, K = in features).
+GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 4096),
+               "down": (4096, 14336), "head": (128256, 4096)}
 
 
 class SmokeFailure(Exception):
@@ -109,31 +126,63 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def _attn_tol_ok(got, want):
+class Recorder:
+    """Phase 3's results by kernel name; ``record`` logs one case and fails
+    the run if the kernel disagreed with its plain version."""
+
+    def __init__(self):
+        self.results = {}
+
+    def record(self, name, case, err, ok, times, bound, ratio=0.0, main=False, **extra):
+        ms, device_ms, plain_ms, lib_ms = times
+        log(f"  {name:34s} {case:28s} err {err:.3e} (err/tol {ratio:.3f}) {'ok ' if ok else 'BAD'} "
+            f"kernel {ms:.4f} ms (device {device_ms:.4f})  plain {plain_ms:.4f} ms  "
+            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  bound {bound[0]:.4f} ms ({bound[1]})")
+        self.results.setdefault(name, []).append(dict(
+            case=case, max_abs_err=err, err_over_tol=ratio, ok=ok, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound[0], bound_by=bound[1], main=main, **extra))
+        require(ok, f"{name} {case}: kernel disagrees with its plain version (max err {err})")
+
+
+def timed(kernel, plain, library=None):
+    """Milliseconds per call: (the kernel as Python issues it, mean of ITERS
+    back-to-back calls between CUDA events; the kernel on the device alone,
+    replayed from a CUDA graph, which for the decode-sized kernels is much
+    less; the plain version; the library call where there is one)."""
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    ms = cuda_time_ms(kernel, iters=ITERS, warmup=1)
+    device_ms = cuda_graph_time_ms(kernel)
+    plain_ms = cuda_time_ms(plain, iters=ITERS // 3, warmup=1)
+    lib_ms = None if library is None else cuda_time_ms(library, iters=ITERS, warmup=1)
+    return ms, device_ms, plain_ms, lib_ms
+
+
+def _attn_tol_ok(got, want, q4=False):
     """|kernel - plain| against flash.kernel_tolerance(plain) elementwise:
-    2^-7 |plain| + 2^-6 rms of the plain row. Returns (max abs error, the
-    largest error / tolerance, whether every element is within it)."""
-    from duo_attention_tpu_torch.ops.flash import kernel_tolerance
+    2^-7 |plain| + 2^-6 rms of the plain row (INT4: kernel_tolerance_q4, with
+    2^-4 rms). Returns (max abs error, the largest error / tolerance, whether
+    every element is within it)."""
+    from duo_attention_tpu_torch.ops import flash
 
     err = (got.float() - want.float()).abs()
-    tol = kernel_tolerance(want)
+    tol = (flash.kernel_tolerance_q4 if q4 else flash.kernel_tolerance)(want)
     ratio = float((err / tol.clamp_min(1e-30)).max())
     return float(err.max()), ratio, bool((err <= tol).all())
 
 
-def phase_kernels():
+def phase_kernels(rec):
     import torch
     import torch.nn.functional as F
 
     from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
     from duo_attention_tpu_torch.engine import _next_bucket
     from duo_attention_tpu_torch.ops import flash, inplace
-    from duo_attention_tpu_torch.utils import cuda_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -147,22 +196,7 @@ def phase_kernels():
     def vec(x, B):
         return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
 
-    results = {}
-
-    def record(name, case, err, ok, ms, plain_ms, lib_ms, bound, ratio=0.0):
-        log(f"  {name:34s} {case:28s} err {err:.3e} (err/tol {ratio:.3f}) {'ok ' if ok else 'BAD'} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
-            f"bound {bound[0]:.4f} ms ({bound[1]})")
-        results.setdefault(name, []).append(dict(
-            case=case, max_abs_err=err, err_over_tol=ratio, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound[0], bound_by=bound[1]))
-        require(ok, f"{name} {case}: kernel disagrees with its plain version (max err {err})")
-
-    def timed(kernel, plain, library):
-        ms = cuda_time_ms(kernel, iters=ITERS, warmup=1)
-        plain_ms = cuda_time_ms(plain, iters=ITERS // 3, warmup=1)
-        lib_ms = cuda_time_ms(library, iters=ITERS, warmup=1)
-        return ms, plain_ms, lib_ms
+    record = rec.record
 
     def sdpa(q, k_cat, v_cat, mask):
         """One SDPA call on pre-expanded GQA K/V and a boolean mask (the yardstick)."""
@@ -201,12 +235,13 @@ def phase_kernels():
         nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hkv * D * int((csv + S).sum()))
         k_cat = kb[:, :, :span].repeat_interleave(G, dim=1)
         v_cat = vb[:, :, :span].repeat_interleave(G, dim=1)
-        ms, plain_ms, lib_ms = timed(
+        times = timed(
             lambda: flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket),
             lambda: flash.full_cache_attention_plain(q, kb, vb, cs_arg, bucket=bucket),
             sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
         )
-        record(name, case, err, ok, ms, plain_ms, lib_ms, _bound(flops, nbytes), ratio)
+        record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
+               main=case in ("prefill cs=12288", "decode cs=16000"))
         del k_cat, v_cat, mask
     del k, v
 
@@ -246,12 +281,13 @@ def phase_kernels():
         nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hs * D * slots)
         k_cat = torch.cat([bufs[0][:, :, :SINK], bufs[2]], dim=2).repeat_interleave(G, dim=1)
         v_cat = torch.cat([bufs[1][:, :, :SINK], bufs[3]], dim=2).repeat_interleave(G, dim=1)
-        ms, plain_ms, lib_ms = timed(
+        times = timed(
             lambda: flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
             lambda: flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
             sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
         )
-        record(name, case, err, ok, ms, plain_ms, lib_ms, _bound(flops, nbytes), ratio)
+        record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
+               main=case in ("prefill cs=12288", "decode cs=16000"))
         del k_cat, v_cat, mask
     del ks, vs, kr, vr
 
@@ -274,12 +310,13 @@ def phase_kernels():
         ok = torch.equal(buf, ref)
         p = vec(pos, B).clamp(0, T - 1)
         nbytes = 2 * (2 * B * H * D)
-        ms, plain_ms, lib_ms = timed(
+        times = timed(
             lambda: inplace.write_row(buf, row, pos_arg),
             lambda: inplace.write_row_plain(ref, row, pos_arg),
             (lambda: buf.index_copy_(2, p[:1], row)) if B == 1 else (lambda: put_rows(buf, p, row)),
         )
-        record("write_row", case, 0.0 if ok else float("inf"), ok, ms, plain_ms, lib_ms, _bound(0, nbytes))
+        record("write_row", case, 0.0 if ok else float("inf"), ok, times, _bound(0, nbytes),
+               main=B == 1)
         del buf, ref
 
     # --- write_streaming_rows -------------------------------------------------
@@ -303,17 +340,180 @@ def phase_kernels():
                 else:
                     put_rows(buf, slot, row)
 
-        ms, plain_ms, lib_ms = timed(
+        times = timed(
             lambda: inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK),
             lambda: inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK),
             library,
         )
-        record("write_streaming_rows", case, 0.0 if ok else float("inf"), ok, ms, plain_ms, lib_ms,
-               _bound(0, nbytes))
+        record("write_streaming_rows", case, 0.0 if ok else float("inf"), ok, times,
+               _bound(0, nbytes), main=B == 1)
         del bufs, refs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return results
+
+
+def phase_kernels_w8a8kv4(rec):
+    """Phase 3 for the three kernels of the W8A8KV4 format."""
+    import torch
+    import torch.nn.functional as F
+
+    from duo_attention_tpu_torch.cache import full_mask
+    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.ops import flash, gemm, inplace, quant
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    D, G, T = HEAD_DIM, GROUP, MAX_CACHE
+    record = rec.record
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * mul).to(torch.bfloat16)
+
+    def rand_q8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    # --- w8a8_matmul: bitwise ---------------------------------------------------
+    # Operations: 2*M*N*K int8 operations. Bytes: x, w, both scale vectors, the output.
+    def gemm_case(label, N, K, M, out_dtype, route, main=False):
+        xq, wq = rand_q8(M, K), rand_q8(N, K)
+        xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
+        ws = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        got = gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype)
+        want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
+        ok = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        nbytes = M * K + N * K + 4 * (M + N) + M * N * got.element_size()
+        # torch._int_mm takes M > 16 only (and K, N multiples of 8): no library call below that
+        library = None
+        if M > 16:
+            wt = wq.t()
+            library = lambda: ((torch._int_mm(xq, wt).float() * xs) * ws).to(out_dtype)  # noqa: E731
+            require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
+        times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype),
+                                     lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
+        name = "w8a8_matmul." + route
+        require((gemm.SMALL_M_MAX >= M) == (route == "small"), f"{label}: M={M} did not take the {route} route")
+        dt = "f32" if out_dtype == torch.float32 else "bf16"
+        record(name, f"{label} {N}x{K} M={M} {dt}", err, ok, times,
+               _bound(2 * M * N * K, nbytes, PEAK_INT8_OPS), main=main, tops=2 * M * N * K / times[1] / 1e9,
+               gbytes_per_s=nbytes / times[1] / 1e6)
+
+    for label, (N, K) in GEMM_SHAPES.items():
+        out_dtype = torch.float32 if label == "head" else torch.bfloat16
+        # (the main path runs the head at M = B only; M = 4096 is here for the float32 tiled epilogue)
+        gemm_case(label, N, K, CHUNK, out_dtype, "tiled", main=label == "gate/up")
+        gemm_case(label, N, K, 1, out_dtype, "small", main=label == "gate/up")
+        gemm_case(label, N, K, 4, out_dtype, "small")
+    torch.cuda.empty_cache()
+
+    # Where the routes cross: device time of both kernels at M from 1 to 256, two
+    # weight shapes. Back-to-back launches from Python measure the host at these
+    # sizes, so each route's calls are captured into a CUDA graph and replayed;
+    # the calls rotate over 256 MB of weight copies, so none finds its weights in
+    # the 50 MB L2, as in a decode step.
+    sweep = {}
+    for label in ("wq/wo", "gate/up"):
+        N, K = GEMM_SHAPES[label]
+        copies = [rand_q8(N, K) for _ in range(-(-(256 << 20) // (N * K)))]
+        ws = torch.full((N,), 1e-3, device=dev)
+        for M in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            xq, xs = rand_q8(M, K), torch.full((M, 1), 1e-2, device=dev)
+            t = {}
+            for route in ("small", "tiled"):
+                def calls():
+                    for wq in copies:
+                        gemm.w8a8_matmul(xq, xs, wq, ws, route=route)
+                t[route] = cuda_graph_time_ms(calls, calls=2) / len(copies)
+            sweep[f"{label} M={M}"] = dict(small_ms=t["small"], tiled_ms=t["tiled"],
+                                           weight_bytes_bound_ms=N * K / PEAK_BYTES * 1e3)
+            log(f"  w8a8_matmul route sweep {label:8s} {N}x{K} M={M:4d}: small {t['small']:.4f} ms  "
+                f"tiled {t['tiled']:.4f} ms  (weights alone at the memory rate: {N * K / PEAK_BYTES * 1e3:.4f} ms)")
+        del copies
+    rec.results["w8a8_matmul.route_sweep"] = sweep
+    torch.cuda.empty_cache()
+
+    # --- write_q4_token: bitwise -------------------------------------------------
+    H, T2 = 4, T // 2
+    for case, B, start in [("t=16000 (even)", 1, 16000), ("t=16001 (odd)", 1, 16001),
+                           ("t=[B] B=4", 4, [0, 4097, 12345, 32767]), ("t=40000 (clamped) B=4", 4, 40000)]:
+        bq = torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8)
+        bs = randn(B, H, 4, T2)
+        before_q, before_s = bq.clone(), bs.clone()
+        ref_q, ref_s = bq.clone(), bs.clone()
+        row = randn(B, H, 1, D, mul=2.0)
+        st = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        inplace.write_q4_token(bq, bs, row, st)
+        inplace.write_q4_token_plain(ref_q, ref_s, row, st)
+        ok = torch.equal(bq, ref_q) and torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
+        # exactly one byte row per (b, head) changed, and in it only the token's nibble
+        tv = torch.as_tensor(start, device=dev).reshape(-1).expand(B).clamp(0, T - 1)
+        keep = torch.where(tv % 2 == 1, 0x0F, 0xF0).to(torch.uint8)[:, None, None]
+        bi = torch.arange(B, device=dev)
+        ok = ok and torch.equal(bq[bi, :, tv // 2] & keep, before_q[bi, :, tv // 2] & keep)
+        untouched = torch.ones((B, T2), dtype=torch.bool, device=dev)
+        untouched[bi, tv // 2] = False
+        ok = ok and torch.equal(bq.transpose(1, 2)[untouched], before_q.transpose(1, 2)[untouched])
+        ok = ok and int((bs.view(torch.int16) != before_s.view(torch.int16)).sum()) <= 2 * B * H
+        nbytes = B * H * (2 * D + 2 * D + 4)
+        times = timed(lambda: inplace.write_q4_token(bq, bs, row, st),
+                                     lambda: inplace.write_q4_token_plain(ref_q, ref_s, row, st))
+        record("write_q4_token", case, 0.0 if ok else float("inf"), ok, times, _bound(0, nbytes),
+               main=B == 1)
+        del bq, bs, ref_q, ref_s, before_q, before_s
+
+    # --- full_cache_attention_q4 -------------------------------------------------
+    Hkv = 4
+    Hq = Hkv * G
+    kq, ks = quant.quantize_int4_paired(randn(4, Hkv, T, D))
+    vq, vs = quant.quantize_int4_paired(randn(4, Hkv, T, D))
+    q4_cases = [  # (case, B, S, cs)
+        ("prefill cs=0", 1, CHUNK, 0),
+        ("prefill cs=12288", 1, CHUNK, 12288),
+        ("prefill cs=12300", 1, CHUNK, 12300),
+        ("prefill cs=12301 (odd)", 1, CHUNK, 12301),
+        ("prefill cs=[B] B=4", 4, CHUNK, [0, 4096, 8192, 12301]),
+        ("decode cs=16000", 1, 1, 16000),
+        ("decode cs=16001 (odd)", 1, 1, 16001),
+        ("decode cs=16000 B=4", 4, 1, 16000),
+        ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),
+    ]
+    for case, B, S, cs in q4_cases:
+        name = "full_cache_attention_q4." + ("decode" if S == 1 else "prefill")
+        csv = torch.as_tensor(cs, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
+        bucket = min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
+        q = randn(B, S, Hq, D, mul=Q_PEAK)
+        bufs = [t[:B].contiguous() for t in (kq, ks, vq, vs)]
+        cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+        got = flash.full_cache_attention_q4(q, *bufs, cs_arg, bucket=bucket)
+        want = flash.full_cache_attention_q4_plain(q, *bufs, cs_arg, bucket=bucket)
+        err, ratio, ok = _attn_tol_ok(got, want, q4=True)
+        span = bucket
+        mask = full_mask(csv[:, None] + torch.arange(S, device=dev), span)[:, None]  # [B, 1, S, span]
+        flops = 4 * D * Hq * int(mask.sum())
+        tokens = int((csv + S).sum())  # slots some query sees, over b
+        # q and out in bf16; per visible slot and KV head D/2 packed bytes and 4 scale bytes, for K and for V
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * Hkv * tokens * (D // 2 + 4)
+        # the yardstick: SDPA over a bf16 copy dequantized beforehand (its time apart)
+        rows = span // 2
+        dequant = lambda: (quant.dequantize_int4_paired(bufs[0][:, :, :rows], bufs[1][..., :rows]).bfloat16(),  # noqa: E731
+                           quant.dequantize_int4_paired(bufs[2][:, :, :rows], bufs[3][..., :rows]).bfloat16())
+        dequant_ms = cuda_time_ms(dequant, iters=3, warmup=1)
+        kd, vd = dequant()
+        k_cat, v_cat = kd.repeat_interleave(G, dim=1), vd.repeat_interleave(G, dim=1)
+        qt = q.transpose(1, 2)
+        times = timed(
+            lambda: flash.full_cache_attention_q4(q, *bufs, cs_arg, bucket=bucket),
+            lambda: flash.full_cache_attention_q4_plain(q, *bufs, cs_arg, bucket=bucket),
+            lambda: F.scaled_dot_product_attention(qt, k_cat, v_cat, attn_mask=mask),
+        )
+        record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
+               main=case in ("prefill cs=12288", "decode cs=16000"), library_dequant_ms=dequant_ms)
+        del kd, vd, k_cat, v_cat, mask
+    del kq, ks, vq, vs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +522,7 @@ def phase_kernels():
 
 
 def _counters():
-    from duo_attention_tpu_torch.ops import flash, inplace
+    from duo_attention_tpu_torch.ops import flash, gemm, inplace
 
     return {
         "full_cache_attention.prefill": (flash.full_cache_attention, "prefill_launches"),
@@ -331,14 +531,20 @@ def _counters():
         "streaming_cache_attention.decode": (flash.streaming_cache_attention, "decode_launches"),
         "write_row": (inplace.write_row, "launches"),
         "write_streaming_rows": (inplace.write_streaming_rows, "launches"),
+        "full_cache_attention_q4.prefill": (flash.full_cache_attention_q4, "prefill_launches"),
+        "full_cache_attention_q4.decode": (flash.full_cache_attention_q4, "decode_launches"),
+        "write_q4_token": (inplace.write_q4_token, "launches"),
+        "w8a8_matmul.tiled": (gemm.w8a8_matmul, "tiled_launches"),
+        "w8a8_matmul.small": (gemm.w8a8_matmul, "small_launches"),
     }
 
 
 def _plain_functions():
-    from duo_attention_tpu_torch.ops import flash, inplace
+    from duo_attention_tpu_torch.ops import flash, gemm, inplace
 
     return (flash.full_cache_attention_plain, flash.streaming_cache_attention_plain,
-            inplace.write_row_plain, inplace.write_streaming_rows_plain)
+            flash.full_cache_attention_q4_plain, inplace.write_row_plain,
+            inplace.write_streaming_rows_plain, inplace.write_q4_token_plain, gemm.w8a8_matmul_plain)
 
 
 def reset_counts():
@@ -371,15 +577,20 @@ def _model_setup():
     return cfg, duo, sparsity
 
 
-def phase_end_to_end(params, cfg, duo):
+def phase_end_to_end(params, cfg, duo, kv_quant="none"):
+    """Drive DuoEngine.generate on the 16,000-token prompt in one format
+    (``kv_quant`` "none": bf16 params and cache; "int4": W8A8 params and the
+    INT4 cache) and check the launch counts, the cache and the tokens."""
     import torch
 
-    from duo_attention_tpu_torch import DuoEngine
+    from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
 
-    engine = DuoEngine(params, cfg, duo, device="cuda")
+    q4 = kv_quant == "int4"
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
     engine.generate(ids[:, :300], max_new_tokens=2)  # warm up cuBLAS and the kernels' first launch
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
     t0 = time.perf_counter()
@@ -391,15 +602,22 @@ def phase_end_to_end(params, cfg, duo):
     n_chunks = -(-PROMPT_LEN // CHUNK)
     hf_layers = sum(1 for n in duo.num_full_kv_heads if n > 0)
     hs_layers = sum(1 for n in duo.num_full_kv_heads if n < cfg.num_kv_heads)
-    expected = {
-        "full_cache_attention.prefill": n_chunks * hf_layers,
-        "full_cache_attention.decode": NEW_TOKENS * hf_layers,
+    full = "full_cache_attention_q4" if q4 else "full_cache_attention"
+    expected = dict.fromkeys(_counters(), 0)
+    expected.update({
+        full + ".prefill": n_chunks * hf_layers,
+        full + ".decode": NEW_TOKENS * hf_layers,
         "streaming_cache_attention.prefill": n_chunks * hs_layers,
         "streaming_cache_attention.decode": NEW_TOKENS * hs_layers,
-        "write_row": 2 * NEW_TOKENS * hf_layers,
+        "write_q4_token" if q4 else "write_row": 2 * NEW_TOKENS * hf_layers,
         "write_streaming_rows": NEW_TOKENS * hs_layers,
         "plain_cuda_calls": 0,
-    }
+    })
+    if q4:  # 7 projections a layer and the head: 225 products per chunk and per step
+        expected["w8a8_matmul.tiled"] = n_chunks * 7 * cfg.num_layers  # M = 4096
+        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * (7 * cfg.num_layers + 1)  # M = 1
+    kv_bytes = kv_memory_bytes(cache)
+    require(type(cache).__name__ == ("DuoCacheQ4" if q4 else "DuoCache"), f"cache is a {type(cache).__name__}")
     log(f"  launches {counts}")
     require(counts == expected, f"launch counts {counts} != expected {expected}")
     require(int(cache.length) == PROMPT_LEN + NEW_TOKENS, f"cache.length {int(cache.length)}")
@@ -420,9 +638,10 @@ def phase_end_to_end(params, cfg, duo):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
     require(np.array_equal(again, tokens), "a second run of the same prompt gave other tokens")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  generate {PROMPT_LEN}+{NEW_TOKENS} tokens: {gen_s:.3f} s; TTFT {ttft_ms:.1f} ms; "
-        f"decode {decode_ms:.2f} ms/token; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"decode {decode_ms:.2f} ms/token; peak memory {peak_gib:.2f} GiB; "
+        f"KV cache {kv_bytes / 2**30:.3f} GiB ({type(cache).__name__})")
     del cache
     torch.cuda.empty_cache()
 
@@ -441,17 +660,24 @@ def phase_end_to_end(params, cfg, duo):
     del state
     torch.cuda.empty_cache()
     return dict(counts=counts, expected=expected, generate_s=gen_s, ttft_ms=ttft_ms, profile=breakdown,
-                decode_ms_per_token=decode_ms, tokens=tokens[0, :16].tolist())
+                decode_ms_per_token=decode_ms, tokens=tokens[0, :16].tolist(), peak_memory_gib=peak_gib,
+                kv_memory_bytes=kv_bytes)
 
 
 def _kernel_kind(name):
     """The port's kernels by name (prefill_kernel<0> is full heads, <1>
-    streaming), cuBLAS matrix products, and everything else."""
+    streaming; the INT4 decode is a split kernel and its merge), cuBLAS matrix
+    products, and everything else."""
     ours = {"prefill_kernel<0>": "full_cache_attention.prefill",
             "prefill_kernel<1>": "streaming_cache_attention.prefill",
             "decode_kernel<0,": "full_cache_attention.decode",
             "decode_kernel<1,": "streaming_cache_attention.decode",
-            "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row"}
+            "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row",
+            "prefill_q4_kernel": "full_cache_attention_q4.prefill",
+            "decode_q4_kernel": "full_cache_attention_q4.decode",
+            "merge_q4_kernel": "full_cache_attention_q4.decode",
+            "write_q4_token_kernel": "write_q4_token",
+            "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_kernel": "w8a8_matmul.small"}
     compact = name.replace(" ", "")
     for key, kind in ours.items():
         if key in compact:
@@ -492,10 +718,10 @@ def device_breakdown(fn):
                 top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
 
 
-def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
+def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=6000, steps=8):
     import torch
 
-    from duo_attention_tpu_torch.cache import init_cache
+    from duo_attention_tpu_torch.cache import init_cache, init_cache_q4
     from duo_attention_tpu_torch.engine import _next_bucket
     from duo_attention_tpu_torch.models import llama
 
@@ -504,11 +730,12 @@ def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
     params4 = dict(params, layers=params["layers"][:layers])
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt))
     dev = torch.device("cuda")
+    new_cache = init_cache_q4 if kv_quant == "int4" else init_cache
 
     def run(plain, feed=None):
         """Prefill, then ``steps`` decode steps fed ``feed`` (or, when None,
         each step's own argmax). Returns (logits [1 + steps, vocab], fed ids)."""
-        cache = init_cache(cfg4, duo4, 1, torch.bfloat16, dev)
+        cache = new_cache(cfg4, duo4, 1, torch.bfloat16, dev)
         with torch.no_grad():
             for off in range(0, prompt, CHUNK):
                 chunk = ids[:, off : off + CHUNK]
@@ -517,7 +744,7 @@ def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
                 hidden, cache = llama.forward_chunk(
                     params4, cfg4, duo4, cache, torch.as_tensor(chunk, device=dev), n,
                     full_bucket=min(_next_bucket(off + CHUNK), MAX_CACHE), plain=plain)
-            out = [llama.logits_at(params4, hidden, n - 1)]
+            out = [llama.logits_at(params4, hidden, n - 1, plain=plain)]
             fed = []
             bucket = min(_next_bucket(prompt + steps), MAX_CACHE)
             for i in range(steps):
@@ -526,7 +753,7 @@ def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
                 hidden, cache = llama.forward_chunk(
                     params4, cfg4, duo4, cache, torch.tensor([[t]], device=dev), 1,
                     full_bucket=bucket, plain=plain)
-                out.append(llama.logits_at(params4, hidden, 0))
+                out.append(llama.logits_at(params4, hidden, 0, plain=plain))
         return torch.cat(out), fed
 
     # the kernel path decodes greedily; the plain path is fed the same tokens
@@ -536,12 +763,17 @@ def phase_kernel_vs_plain(params, cfg, duo, layers=4, prompt=6000, steps=8):
     scale = float(plain.abs().max())
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
     # Bound: 5% of the largest plain logit, plus 0.05 — bf16 activations
-    # through 4 layers, where the two paths round attention differently.
-    bound = 0.05 * scale + 0.05
+    # through 4 layers, where the two paths round attention differently. In
+    # W8A8KV4 the int8 products are bitwise the same in both paths, but each
+    # such difference can move an int8 activation to the next step, so the
+    # bound is twice as wide there.
+    bound = (0.1 if kv_quant == "int4" else 0.05) * scale + 0.05
     log(f"  kernel vs plain, {layers} layers, {prompt}-token prompt + {steps} steps: max |dlogit| "
         f"{err:.4f} (bound {bound:.4f}, max |logit| {scale:.3f}); argmax agreement {agree}/{steps + 1}")
     require(bool(torch.isfinite(kern).all()), "kernel-path logits not finite")
     require(err <= bound, f"kernel path differs from plain path: {err} > {bound}")
+    counts = read_counts()
+    require(counts["plain_cuda_calls"] > 0, "the plain path made no plain-version call")
     return dict(max_abs_logit_err=err, bound=bound, max_abs_logit=scale,
                 argmax_agree=agree, positions=steps + 1)
 
@@ -563,6 +795,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     record = {}
+    rec = Recorder()
     try:
         log("phase 1: device")
         smi = phase_device()
@@ -571,38 +804,53 @@ def main():
         log("phase 2: build")
         record["build_s"] = phase_build()
         log("phase 3: kernels vs plain versions")
-        kernels = record["kernels"] = phase_kernels()
+        phase_kernels(rec)
+        phase_kernels_w8a8kv4(rec)
+        record["kernels"] = rec.results
 
         from duo_attention_tpu_torch.models.llama import init_params
+        from duo_attention_tpu_torch.ops.quant import init_params_w8a8_random
 
         cfg, duo, sparsity = _model_setup()
-        t0 = time.perf_counter()
-        params = init_params(cfg, seed=0, device="cuda")
-        torch.cuda.synchronize()
-        log(f"weights: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params "
-            f"in {time.perf_counter() - t0:.1f} s; sparsity {sparsity:.3f}, full heads "
-            f"{sum(duo.num_full_kv_heads)}/{cfg.num_layers * cfg.num_kv_heads}")
-        log("phase 4: end to end, DuoEngine.generate")
-        record["end_to_end"] = phase_end_to_end(params, cfg, duo)
-        log("phase 5: kernel path vs plain path")
-        record["kernel_vs_plain"] = phase_kernel_vs_plain(params, cfg, duo)
-        del params
+        formats = (("bf16", "none", lambda: init_params(cfg, seed=0, device="cuda")),
+                   ("w8a8kv4", "int4", lambda: init_params_w8a8_random(cfg, seed=0, device="cuda")))
+        phase = 4
+        for fmt, kv_quant, make_params in formats:
+            t0 = time.perf_counter()
+            params = make_params()
+            torch.cuda.synchronize()
+            log(f"{fmt} weights: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params, "
+                f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB, "
+                f"in {time.perf_counter() - t0:.1f} s; sparsity {sparsity:.3f}, full heads "
+                f"{sum(duo.num_full_kv_heads)}/{cfg.num_layers * cfg.num_kv_heads}")
+            log(f"phase {phase}: end to end, {fmt}, DuoEngine.generate")
+            record["end_to_end_" + fmt] = phase_end_to_end(params, cfg, duo, kv_quant)
+            log(f"phase {phase + 1}: kernel path vs plain path, {fmt}")
+            record["kernel_vs_plain_" + fmt] = phase_kernel_vs_plain(params, cfg, duo, kv_quant)
+            phase += 2
+            del params  # free this format's weights before the next one's are made
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    counts = record["end_to_end"]["counts"]
+    runs = {fmt: record["end_to_end_" + fmt]["counts"] for fmt, _, _ in formats}
     line = []
-    for name, cases in kernels.items():
-        head = cases[1] if name.endswith(".prefill") else cases[0]  # the main path's shape
+    for name, cases in rec.results.items():
+        if name not in REPLACES:
+            continue
+        head = next(c for c in cases if c["main"])  # the main path's shape
+        launches = {fmt: counts[name] for fmt, counts in runs.items()}
+        require(sum(launches.values()) > 0, f"{name}: no launch on either main path")
         line.append(dict(
             name=name, route="cuda",
-            source="duo_attention_tpu_torch/csrc/" + ("inplace.cu" if name.startswith("write") else "flash.cu"),
-            replaces=REPLACES[name], launches=counts[name],
+            source="duo_attention_tpu_torch/csrc/" + SOURCES[name.split(".")[0]],
+            replaces=REPLACES[name], launches=sum(launches.values()), launches_by_format=launches,
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], case=head["case"],
         ))
+    require(len(line) == len(REPLACES), f"kernels line has {len(line)} entries, expected {len(REPLACES)}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

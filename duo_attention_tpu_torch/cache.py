@@ -1,4 +1,4 @@
-"""DuoAttention split KV cache (bf16 part of duo_attention_tpu/cache.py).
+"""DuoAttention split KV cache (counterpart of duo_attention_tpu/cache.py).
 
 * Full (retrieval) KV heads get a preallocated cache of ``max_cache_size``
   slots; slot j holds token j.
@@ -9,6 +9,10 @@
   to compact the window.
 
 Layout is [batch, kv_head, slot, head_dim], as in the JAX package.
+
+``DuoCacheQ4`` is the W8A8KV4 serving variant: the full-head cache is INT4,
+token-paired (two tokens per byte row, byte for byte the JAX layout); the
+streaming buffers stay in the cache's dtype, since they are O(sink + recent).
 
 Unlike the JAX cache, which is immutable and threaded through jitted
 functions, this cache is MUTATED: the write functions update the buffers in
@@ -24,7 +28,15 @@ from typing import List
 import torch
 
 from .config import DuoConfig, ModelConfig
-from .ops.inplace import write_row, write_row_plain, write_streaming_rows, write_streaming_rows_plain
+from .ops.inplace import (
+    write_q4_token,
+    write_q4_token_plain,
+    write_row,
+    write_row_plain,
+    write_streaming_rows,
+    write_streaming_rows_plain,
+)
+from .ops.quant import quantize_int4_paired
 from .utils import resolve_device
 
 
@@ -71,26 +83,76 @@ def sink_rows(duo: DuoConfig, decode_only: bool = False) -> int:
     return duo.sink_size + duo.prefill_chunk_size
 
 
-def init_cache(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
-               dtype=torch.bfloat16, device="cuda", decode_only: bool = False) -> DuoCache:
-    """Preallocate every layer's buffers (zeros) on ``device``. Raises when
-    device is "cuda" and no GPU is present."""
+def _allocate(cfg: ModelConfig, duo: DuoConfig, batch_size: int, full_specs, dtype, dev,
+              decode_only: bool) -> dict:
+    """{buffer name: [one zero tensor per layer]}: the full-head buffers named
+    in full_specs as (name, shape after [B, Hf], dtype), and the four
+    streaming buffers in ``dtype``."""
     if len(duo.num_full_kv_heads) != cfg.num_layers:
         raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has {cfg.num_layers}")
     if duo.max_cache_size % 128 != 0:
         raise ValueError(f"max_cache_size must be a multiple of 128 (got {duo.max_cache_size})")
-    dev = resolve_device(device)
     D = cfg.head_dim
-    R = ring_capacity(duo, decode_only)
-    Ts = sink_rows(duo, decode_only)
-    bufs = {name: [] for name in DuoCache.BUFFERS}
+    R, Ts = ring_capacity(duo, decode_only), sink_rows(duo, decode_only)
+    stream_specs = [("k_sink", (Ts, D), dtype), ("v_sink", (Ts, D), dtype),
+                    ("k_ring", (R, D), dtype), ("v_ring", (R, D), dtype)]
+    bufs = {name: [] for name, _, _ in (*full_specs, *stream_specs)}
     for hf in duo.num_full_kv_heads:
-        hs = cfg.num_kv_heads - hf
-        for name, rows, heads in (("k_full", duo.max_cache_size, hf), ("v_full", duo.max_cache_size, hf),
-                                  ("k_sink", Ts, hs), ("v_sink", Ts, hs),
-                                  ("k_ring", R, hs), ("v_ring", R, hs)):
-            bufs[name].append(torch.zeros((batch_size, heads, rows, D), dtype=dtype, device=dev))
+        for specs, heads in ((full_specs, hf), (stream_specs, cfg.num_kv_heads - hf)):
+            for name, tail, dt in specs:
+                bufs[name].append(torch.zeros((batch_size, heads, *tail), dtype=dt, device=dev))
+    return bufs
+
+
+def init_cache(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
+               dtype=torch.bfloat16, device="cuda", decode_only: bool = False) -> DuoCache:
+    """Preallocate every layer's buffers (zeros) on ``device``. Raises when
+    device is "cuda" and no GPU is present."""
+    dev = resolve_device(device)
+    T, D = duo.max_cache_size, cfg.head_dim
+    bufs = _allocate(cfg, duo, batch_size, [("k_full", (T, D), dtype), ("v_full", (T, D), dtype)],
+                     dtype, dev, decode_only)
     return DuoCache(**bufs, length=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+@dataclasses.dataclass
+class DuoCacheQ4:
+    """Like DuoCache, but the full-head cache is INT4, token-paired.
+
+    k/v_full_q: [B, Hf_l, max_size // 2, D] uint8 — byte (r, d) =
+        q4(token 2r, d) | q4(token 2r + 1, d) << 4
+    k/v_full_s: [B, Hf_l, 4, max_size // 2] bfloat16 whatever ``dtype`` —
+        rows (scale_even, scale_odd, zp_even, zp_odd). (The JAX cache pads
+        each head to 8 rows for its compiler's tiling; rows 0-3 are these.)
+    k/v_sink, k/v_ring, length: as in DuoCache.
+    """
+
+    k_full_q: List[torch.Tensor]
+    v_full_q: List[torch.Tensor]
+    k_full_s: List[torch.Tensor]
+    v_full_s: List[torch.Tensor]
+    k_sink: List[torch.Tensor]
+    v_sink: List[torch.Tensor]
+    k_ring: List[torch.Tensor]
+    v_ring: List[torch.Tensor]
+    length: torch.Tensor
+
+    BUFFERS = ("k_full_q", "v_full_q", "k_full_s", "v_full_s", "k_sink", "v_sink", "k_ring", "v_ring")
+
+
+def init_cache_q4(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
+                  dtype=torch.bfloat16, device="cuda", decode_only: bool = False) -> DuoCacheQ4:
+    """Preallocate the INT4 full-head buffers and the streaming buffers, all
+    zeros (a never-written slot's scale must be finite: the masks hide the
+    slot, not its arithmetic). The bf16 full cache is never allocated."""
+    if cfg.head_dim % 2:
+        raise ValueError(f"the INT4 cache needs an even head_dim (got {cfg.head_dim})")
+    dev = resolve_device(device)
+    T2, D = duo.max_cache_size // 2, cfg.head_dim
+    full_specs = [("k_full_q", (T2, D), torch.uint8), ("v_full_q", (T2, D), torch.uint8),
+                  ("k_full_s", (4, T2), torch.bfloat16), ("v_full_s", (4, T2), torch.bfloat16)]
+    bufs = _allocate(cfg, duo, batch_size, full_specs, dtype, dev, decode_only)
+    return DuoCacheQ4(**bufs, length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +186,31 @@ def write_full(buf: torch.Tensor, incoming: torch.Tensor, start, plain: bool = F
     st = _clamp_start(_scalar_start(start), S, T)
     buf[:, :, st : st + S] = incoming
     return buf
+
+
+def write_full_q4(buf_q: torch.Tensor, buf_s: torch.Tensor, incoming: torch.Tensor, start,
+                  plain: bool = False):
+    """Quantize incoming [B, Hf, S, D] to INT4 and write it at token
+    ``start`` of (buf_q [B, Hf, T/2, D] uint8, buf_s [B, Hf, 4, T/2] bf16), in
+    place. Returns (buf_q, buf_s).
+
+    S == 1 (decode) goes through ``write_q4_token`` (the kernel for a CUDA
+    tensor; ``plain=True`` forces its plain version) at either parity, with
+    start a scalar or [B]. S > 1 (prefill) takes an even S and a scalar start,
+    which must be even: as in the JAX package the pair-row is ``start // 2``,
+    clamped into [0, T/2 - S/2] like dynamic_update_slice, and an odd start is
+    not rejected but lands one token early. Chunked prefill always starts
+    even; the padded rows of a tail chunk are quantized and written, then
+    overwritten by decode.
+    """
+    S, T2 = incoming.shape[2], buf_q.shape[2]
+    if S == 1:
+        return (write_q4_token_plain if plain else write_q4_token)(buf_q, buf_s, incoming, start)
+    packed2, scales4 = quantize_int4_paired(incoming)
+    r0 = _clamp_start(_scalar_start(start) // 2, S // 2, T2)
+    buf_q[:, :, r0 : r0 + S // 2] = packed2
+    buf_s[:, :, :, r0 : r0 + S // 2] = scales4.to(buf_s.dtype)
+    return buf_q, buf_s
 
 
 def write_streaming(k_sink, v_sink, k_ring, v_ring, k_new, v_new, start, sink_size: int,
@@ -196,7 +283,8 @@ def ring_mask(q_positions: torch.Tensor, R: int, total_after, chunk_start,
     return (g >= sink_size) & (g >= window_lo) & (g <= qp) & (g >= 0)
 
 
-def kv_memory_bytes(cache: DuoCache) -> int:
-    """Bytes held by the cache's KV buffers."""
+def kv_memory_bytes(cache) -> int:
+    """Bytes held by the KV buffers of a DuoCache or a DuoCacheQ4 (packed
+    nibbles and scales included)."""
     return sum(t.numel() * t.element_size()
-               for name in DuoCache.BUFFERS for t in getattr(cache, name))
+               for name in cache.BUFFERS for t in getattr(cache, name))

@@ -1,7 +1,8 @@
 // In-place single-row KV-cache writes for the decode step.
 //
-// Replaces duo_attention_tpu/ops/inplace.py::write_row (_row_kernel) and
-// ::write_streaming_rows (_stream_kernel). On the TPU these exist to keep
+// Replaces duo_attention_tpu/ops/inplace.py::write_row (_row_kernel),
+// ::write_streaming_rows (_stream_kernel) and ::write_q4_token (_q4_kernel,
+// with the quantization its caller does in XLA). On the TPU these exist to keep
 // XLA from re-laying-out the whole cache every step; on the card the write
 // itself is the whole job: B*H rows of D bf16 values (256 bytes at D=128).
 // Bound: bytes (one row read, one or two rows written per (b, head)), which
@@ -10,6 +11,13 @@
 //
 // Positions come from device memory ([B] int32, or one value broadcast with
 // pos_stride = 0) so the host never waits for the cache length.
+//
+// write_q4_token quantizes and writes in the same kernel: one warp per
+// (head, b) reads the bf16 row (4 values a lane per 128 channels), takes min
+// and max by shuffles, computes the nibbles from the float32 scale with IEEE
+// division and round-half-even, merges them into the pair-row's bytes keeping
+// the partner token's nibble, and stores scale and zero-point rounded to
+// bf16. Bound: bytes (D*2 read, D read and written, 4 written per (b, head)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +65,60 @@ __global__ void write_streaming_rows_kernel(
   copy_row(v_ring + (bh * R + ring_slot) * D, v_row + bh * D, D);
 }
 
+// INT4 token write. bq [B, H, T2, D] u8: byte (r, d) = q4(token 2r, d) |
+// q4(token 2r+1, d) << 4. bs [B, H, 4, T2] bf16: rows (scale_even, scale_odd,
+// zp_even, zp_odd). row [B, H, 1, D] bf16. The position is clamped into
+// [0, 2*T2 - 1], the clamp of duo_attention_tpu/ops/inplace.py::_as_vec(limit=2*T2).
+// scale = (max - min) / 15 + 1e-8 and q = clip(rint((x - min) / scale), 0, 15)
+// in float32, exactly ops/quant.py::quantize_int4_nibbles (no mul-add pair
+// for the compiler to contract).
+__global__ void write_q4_token_kernel(uint8_t* bq, __nv_bfloat16* bs, const __nv_bfloat16* row,
+                                      const int* pos, int pos_stride, int H, int T2, int D) {
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const int t = min(max(pos[b * pos_stride], 0), 2 * T2 - 1);
+  const int par = t & 1, r = t >> 1;
+  const size_t bh = (size_t)b * H + h;
+  const __nv_bfloat16* src = row + bh * D;
+
+  float mn = 3.402823466e38f, mx = -3.402823466e38f;
+  for (int d = lane * 4; d < D; d += 128) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + d);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float x = __bfloat162float(e[u]);
+      mn = fminf(mn, x);
+      mx = fmaxf(mx, x);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  const float scale = __fadd_rn(__fdiv_rn(__fsub_rn(mx, mn), 15.0f), 1e-8f);
+
+  uint8_t* dst = bq + (bh * T2 + r) * D;
+  const uint32_t keep = par ? 0x0F0F0F0Fu : 0xF0F0F0F0u;
+  for (int d = lane * 4; d < D; d += 128) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + d);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    uint32_t nib = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float q = rintf(__fdiv_rn(__fsub_rn(__bfloat162float(e[u]), mn), scale));
+      nib |= static_cast<uint32_t>(fminf(fmaxf(q, 0.f), 15.f)) << (8 * u);
+    }
+    uint32_t* word = reinterpret_cast<uint32_t*>(dst + d);
+    *word = (*word & keep) | (nib << (4 * par));
+  }
+  if (lane == 0) {
+    __nv_bfloat16* s4 = bs + bh * 4 * T2;
+    s4[(size_t)par * T2 + r] = __float2bfloat16(scale);
+    s4[(size_t)(2 + par) * T2 + r] = __float2bfloat16(mn);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -82,6 +144,16 @@ int write_streaming_rows(void* k_sink, void* v_sink, void* k_ring, void* v_ring,
       static_cast<__nv_bfloat16*>(k_ring), static_cast<__nv_bfloat16*>(v_ring),
       static_cast<const __nv_bfloat16*>(k_row), static_cast<const __nv_bfloat16*>(v_row),
       static_cast<const int*>(start), start_stride, H, Ts, R, D, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int write_q4_token(void* bq, void* bs, const void* row, const void* pos, int pos_stride, int B,
+                   int H, int T2, int D, void* stream) {
+  if (D % 128 != 0 || T2 <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(H, B);
+  write_q4_token_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(bq), static_cast<__nv_bfloat16*>(bs),
+      static_cast<const __nv_bfloat16*>(row), static_cast<const int*>(pos), pos_stride, H, T2, D);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,23 +1,25 @@
 """Inference engine: chunked prefill, then greedy decode over the split cache.
 
-Counterpart of duo_attention_tpu/engine.py's ``DuoEngine`` for the bf16
-cache. Prefill is a host loop over fixed-size chunks (the tail chunk padded;
-the masks hide the padding). Decode is a host loop of single-token steps in
+Counterpart of duo_attention_tpu/engine.py's ``DuoEngine`` for the bf16 cache
+and, with ``kv_quant="int4"``, the INT4 full-head cache of the W8A8KV4
+serving format (the weights' format is whatever the params hold). Prefill is
+a host loop over fixed-size chunks (the tail chunk padded; the masks hide the
+padding). Decode is a host loop of single-token steps in
 bursts: tokens stay on the device within a burst and come to the host once
 per burst, where the stop-token early exit is decided. The power-of-two
 ``bucket`` bounds the full-head keys the attention reads, as on the TPU.
 
-Not in this slice: sampling (greedy only), the INT4 cache, meshes.
+Not ported yet: sampling (greedy only), meshes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .cache import DuoCache, init_cache
+from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4
 from .config import DuoConfig, ModelConfig
 from .models import llama
 from .utils import resolve_device
@@ -34,16 +36,21 @@ class DuoEngine:
     """Stateful-cache inference engine on one device (the card by default)."""
 
     def __init__(self, params, cfg: ModelConfig, duo: DuoConfig, batch_size: int = 1,
-                 dtype=torch.bfloat16, device="cuda", decode_burst: int = 64):
+                 dtype=torch.bfloat16, device="cuda", decode_burst: int = 64,
+                 kv_quant: str = "none"):
         if len(duo.num_full_kv_heads) != cfg.num_layers:
             raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has "
                              f"{cfg.num_layers} — wrong attn_patterns dir for this model?")
         if not all(0 <= n <= cfg.num_kv_heads for n in duo.num_full_kv_heads):
             raise ValueError(f"num_full_kv_heads {duo.num_full_kv_heads} outside "
                              f"[0, {cfg.num_kv_heads}]")
+        if kv_quant not in ("none", "int4"):
+            raise ValueError(f"kv_quant must be 'none' or 'int4', got {kv_quant!r}")
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params are on {params['embed'].device}, the engine on {self.device}")
+        params_device = params["final_norm"].device  # W8A8 params may hold no "embed"
+        if params_device.type != self.device.type:
+            raise ValueError(f"params are on {params_device}, the engine on {self.device}")
         self.params = params
         self.cfg = cfg
         self.duo = duo
@@ -52,8 +59,9 @@ class DuoEngine:
         # decode steps per host round trip (the stop-token check runs between bursts)
         self.decode_burst = max(int(decode_burst), 0)
 
-    def new_cache(self) -> DuoCache:
-        return init_cache(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
+    def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
+        init = init_cache_q4 if self.kv_quant == "int4" else init_cache
+        return init(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
 
     def bucket_for(self, length: int) -> int:
         return min(_next_bucket(length), self.duo.max_cache_size)

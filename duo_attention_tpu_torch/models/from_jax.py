@@ -2,8 +2,11 @@
 
 The JAX package stores projections ``[in, out]`` (``x @ W``); the port keeps
 PyTorch's ``[out, in]`` (``F.linear``), so every projection and the lm head
-are transposed here. The result computes the same function as the JAX
-params it came from (the tests feed both packages through this).
+are transposed here. W8A8 params come across as they are: ``*_q8`` stay
+int8 (projections and ``lm_head_q8`` transposed, ``embed_q8`` as it is) and
+``*_scale`` stay float32, whatever ``dtype`` the other leaves take. The
+result computes the same function as the JAX params it came from (the tests
+feed both packages through this).
 """
 
 from __future__ import annotations
@@ -16,10 +19,21 @@ import torch
 # [in, out] in the JAX tree -> [out, in] here
 _TRANSPOSED = frozenset(("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
 _AS_IS = frozenset(("embed", "final_norm", "input_norm", "post_norm", "bq", "bk", "bv"))
+# names that may come as an int8 ``name_q8`` with a float32 ``name_scale``
+_QUANTIZABLE = _TRANSPOSED | {"embed"}
 
 
 def _convert(name: str, arr, device, dtype) -> torch.Tensor:
     arr = np.asarray(arr)
+    for suffix, kind in (("_q8", torch.int8), ("_scale", torch.float32)):
+        base = name[: -len(suffix)]
+        if name.endswith(suffix) and base in _QUANTIZABLE:
+            if kind is torch.int8:
+                if arr.dtype != np.int8:
+                    raise ValueError(f"parameter {name!r} must be int8, got {arr.dtype}")
+                if base in _TRANSPOSED:
+                    arr = arr.T
+            return torch.tensor(np.ascontiguousarray(arr), dtype=kind, device=device)
     if name in _TRANSPOSED:
         arr = arr.T
     elif name not in _AS_IS:

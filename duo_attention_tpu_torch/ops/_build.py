@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("flash", "inplace")
+SOURCES = ("flash", "flash_q4", "gemm", "inplace")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

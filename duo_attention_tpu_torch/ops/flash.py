@@ -1,10 +1,11 @@
 """Attention over the duo split KV cache.
 
 Counterpart of duo_attention_tpu/ops/flash.py (``full_cache_attention``,
-``streaming_cache_attention``). Each op has a plain PyTorch version, which
-runs the float32 oracle of ops/attention_ref.py on the same masks, and a
-CUDA kernel in ``csrc/flash.cu`` (a prefill kernel for S > 1 and a decode
-kernel for S == 1). The wrapper takes the plain version for CPU tensors and
+``full_cache_attention_q4``, ``streaming_cache_attention``). Each op has a
+plain PyTorch version, which runs the float32 oracle of ops/attention_ref.py
+on the same masks, and a CUDA kernel in ``csrc/flash.cu`` or
+``csrc/flash_q4.cu`` (a prefill kernel for S > 1 and a decode kernel for
+S == 1). The wrapper takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors; a launch failure raises. Counters:
 ``<wrapper>.prefill_launches`` and ``<wrapper>.decode_launches`` count
 kernel launches, ``<plain>.cuda_calls`` counts plain calls on CUDA tensors.
@@ -15,6 +16,12 @@ rounded to bf16 before P.V, a row with no visible column gives 0. The
 plain versions fold the scale the same way and are float32 from there on,
 so a kernel and its plain version differ only by the rounding of p and of
 the output; ``kernel_tolerance`` bounds that difference.
+
+``full_cache_attention_q4`` reads the token-paired INT4 cache of
+``cache.DuoCacheQ4``. Its kernels fold the dequantization into scores and
+output (s = (q.Kq) scale_t + rowsum(q) zp_t, out = sum (p scale_t) Vq + sum
+p zp_t) with ``p * scale_t`` rounded to bf16; its plain version dequantizes
+the cache to float32 first. ``kernel_tolerance_q4`` bounds the difference.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from ..cache import full_mask, ring_mask, sink_mask
 from . import _build
 from .attention_ref import masked_attention
 from .inplace import device_positions, position_vector
+from .quant import dequantize_int4_paired
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -36,14 +44,26 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
 }
+_Q4_SIGNATURES = {
+    "full_cache_attention_q4": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _P, _I, _I, _P],
+    "q4_partial_floats": [],
+}
 HEAD_DIM = 128  # the kernels' head_dim (every preset's)
 MAX_GROUP = 8  # the decode kernel's largest query-head group
 # Query rows per plain-version matmul: bounds its [Hq, rows, keys] f32 scores.
 _PLAIN_ROWS = 512
+# The INT4 decode kernel splits the key range over blocks: about this many
+# keys per block, at most this many blocks per (sequence, KV head).
+Q4_SPLIT_KEYS, Q4_MAX_SPLITS = 512, 32
 
 
 def _lib():
     return _build.load("flash", _SIGNATURES)
+
+
+def _lib_q4():
+    return _build.load("flash_q4", _Q4_SIGNATURES)
 
 
 def _span(bucket: int, T: int) -> int:
@@ -158,6 +178,99 @@ def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
 
 full_cache_attention.prefill_launches = 0
 full_cache_attention.decode_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Full heads over the INT4 cache
+# ---------------------------------------------------------------------------
+
+
+def kernel_tolerance_q4(plain: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for ``full_cache_attention_q4``:
+    2^-7 |plain| + 2^-4 rms(plain over the row's D).
+
+    Derived as ``kernel_tolerance``. The first term is the one bf16 ulp
+    between two outputs that each round to bf16. The second covers the
+    rounding of p * scale_t to bf16 (relative error <= 2^-8, random sign per
+    key), which here multiplies the NIBBLES: key t's error is that fraction of
+    p_t (V_t - min_t), not of p_t V_t. V_t - min_t is never negative and is as
+    large as the row's range, so for a row of 128 Gaussian channels (min about
+    -2.6 sigma) its rms is about 2.8 times the rms of V_t itself. The bf16
+    bound's 2^-6 rms is therefore widened by 4, to 2^-4 rms. A dropped or
+    extra key of weight w still moves the row by about w times its rms, so
+    such faults show once w passes ~2^-4."""
+    p = plain.float()
+    rms = p.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return 2.0**-7 * p.abs() + 2.0**-4 * rms
+
+
+def full_cache_attention_q4_plain(q, k_packed, k_scales, v_packed, v_scales, cs, *, bucket: int = 0):
+    """Plain version: dequantize the first ``span`` slots to float32
+    (``dequantize_int4_paired``), then the float32 oracle with mask
+    ``slot <= qpos``."""
+    if q.is_cuda:
+        full_cache_attention_q4_plain.cuda_calls += 1
+    B = q.shape[0]
+    span = _span(bucket, 2 * k_packed.shape[2])
+    rows = (span + 1) // 2
+    k = dequantize_int4_paired(k_packed[:, :, :rows], k_scales[..., :rows])[:, :, :span]
+    v = dequantize_int4_paired(v_packed[:, :, :rows], v_scales[..., :rows])[:, :, :span]
+    cs = position_vector(cs, B, q.device)
+    return _plain_tiles(q, k, v, lambda b, r: full_mask(cs[b] + r, span))
+
+
+full_cache_attention_q4_plain.cuda_calls = 0
+
+
+def full_cache_attention_q4(q, k_packed, k_scales, v_packed, v_scales, cs, *, bucket: int = 0):
+    """``full_cache_attention`` over the token-paired INT4 cache, with the
+    dequantization folded into the kernel.
+
+    q [B, S, Hq, D] (post-RoPE); k/v_packed [B, Hkv, T/2, D] uint8 (byte
+    (r, d) = q4(token 2r, d) | q4(token 2r+1, d) << 4) and k/v_scales
+    [B, Hkv, 4, T/2] bfloat16 (rows scale_even, scale_odd, zp_even, zp_odd),
+    already holding the chunk at [cs, cs+S); cs and bucket as in
+    ``full_cache_attention``. Returns [B, S, Hq, D].
+    """
+    if not q.is_cuda:
+        return full_cache_attention_q4_plain(q, k_packed, k_scales, v_packed, v_scales, cs, bucket=bucket)
+    B, S, Hq, D = q.shape
+    Hkv, T2 = k_packed.shape[1], k_packed.shape[2]
+    _check_kernel_inputs("full_cache_attention_q4", q, (k_scales, v_scales), Hkv)
+    for t in (k_packed, v_packed):
+        if (t.device != q.device or t.dtype != torch.uint8 or not t.is_contiguous()
+                or tuple(t.shape) != (B, Hkv, T2, D)):
+            raise ValueError(f"full_cache_attention_q4: packed cache must be contiguous uint8 "
+                             f"[{B}, {Hkv}, {T2}, {D}] on {q.device}, got {t.dtype} {tuple(t.shape)}")
+    if tuple(k_scales.shape) != (B, Hkv, 4, T2) or tuple(v_scales.shape) != (B, Hkv, 4, T2):
+        raise ValueError(f"full_cache_attention_q4: scales {tuple(k_scales.shape)} {tuple(v_scales.shape)}, "
+                         f"expected {(B, Hkv, 4, T2)}")
+    cs_t, cs_stride = device_positions(cs, B, q.device)
+    span = _span(bucket, 2 * T2)
+    out = torch.empty_like(q)
+    lib = _lib_q4()
+    part, nsplit, split_keys = None, 0, 0
+    if S == 1:
+        nsplit = min(Q4_MAX_SPLITS, -(-span // Q4_SPLIT_KEYS))
+        split_keys = -(-span // (nsplit * 128)) * 128
+        part = torch.empty(B * Hkv * nsplit * (Hq // Hkv) * lib.q4_partial_floats(),
+                           dtype=torch.float32, device=q.device)
+    err = lib.full_cache_attention_q4(
+        q.data_ptr(), k_packed.data_ptr(), k_scales.data_ptr(), v_packed.data_ptr(), v_scales.data_ptr(),
+        cs_t.data_ptr(), cs_stride, out.data_ptr(), B, S, Hq, Hkv, T2, span, D, D**-0.5,
+        None if part is None else part.data_ptr(), nsplit, split_keys,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "full_cache_attention_q4")
+    if S == 1:
+        full_cache_attention_q4.decode_launches += 1
+    else:
+        full_cache_attention_q4.prefill_launches += 1
+    return out
+
+
+full_cache_attention_q4.prefill_launches = 0
+full_cache_attention_q4.decode_launches = 0
 
 
 # ---------------------------------------------------------------------------

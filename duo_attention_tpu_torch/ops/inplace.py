@@ -7,6 +7,9 @@ as the reference on the card) and a CUDA kernel in ``csrc/inplace.cu``
 (used for CUDA tensors; a launch failure raises). The wrappers count their
 launches in ``<wrapper>.launches``; the plain versions count calls made
 with CUDA tensors in ``<plain>.cuda_calls``.
+
+``write_q4_token`` is the INT4 cache's decode write: it quantizes the row and
+merges its nibbles into the token-paired byte row in one kernel.
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ import ctypes
 import torch
 
 from . import _build
+from .quant import quantize_int4_nibbles
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "write_row": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "write_q4_token": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -159,3 +164,62 @@ def write_streaming_rows(k_sink, v_sink, k_ring, v_ring, k_row, v_row,
 
 
 write_streaming_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# write_q4_token: quantize one token to INT4 and merge it into its pair-row
+# ---------------------------------------------------------------------------
+
+
+def write_q4_token_plain(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start):
+    """Plain version of write_q4_token: ``quantize_int4_nibbles`` plus
+    indexed writes (the same clamp, the same bytes and scales)."""
+    if bq.is_cuda:
+        write_q4_token_plain.cuda_calls += 1
+    B, H, T2, D = bq.shape
+    t = position_vector(start, B, bq.device, limit=2 * T2)
+    par, r = t % 2, t // 2
+    nib, scales = quantize_int4_nibbles(row)  # [B, H, 1, D] u8, [B, H, 2, 1] bf16
+    bi = torch.arange(B, device=bq.device)
+    old = bq[bi, :, r]  # [B, H, D]
+    odd = (par == 1)[:, None, None]
+    new = torch.where(odd, (old & 0x0F) | (nib[:, :, 0] << 4), (old & 0xF0) | nib[:, :, 0])
+    bq[bi, :, r] = new
+    bs[bi, :, par, r] = scales[:, :, 0, 0].to(bs.dtype)
+    bs[bi, :, 2 + par, r] = scales[:, :, 1, 0].to(bs.dtype)
+    return bq, bs
+
+
+write_q4_token_plain.cuda_calls = 0
+
+
+def write_q4_token(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start):
+    """Quantize one token's row to INT4 and write it, IN PLACE.
+
+    bq [B, H, T2, D] uint8, byte (r, d) = q4(token 2r, d) | q4(token 2r+1, d)
+    << 4; bs [B, H, 4, T2] bfloat16, rows (scale_even, scale_odd, zp_even,
+    zp_odd); row [B, H, 1, D] (bfloat16 for the kernel); start int, 0-d or
+    [B] tensor, clamped into [0, 2*T2 - 1]. Token t lands in pair-row t // 2,
+    in the low nibble when t is even and the high nibble when odd; its
+    partner's nibble and every other byte are kept. Unlike the JAX function,
+    which takes nibbles its caller quantized, this one quantizes too (one
+    kernel on the card). Returns (bq, bs)."""
+    if not bq.is_cuda:
+        return write_q4_token_plain(bq, bs, row, start)
+    B, H, T2, D = bq.shape
+    _check_bf16_cuda("write_q4_token", bs, row)
+    if (bq.device != bs.device or bq.dtype != torch.uint8 or not bq.is_contiguous()
+            or tuple(bs.shape) != (B, H, 4, T2) or tuple(row.shape) != (B, H, 1, D) or D % 128 != 0):
+        raise ValueError(f"write_q4_token: packed {tuple(bq.shape)} {bq.dtype}, scales {tuple(bs.shape)}, "
+                         f"row {tuple(row.shape)}: the kernel needs uint8 [B,H,T2,D], bf16 [B,H,4,T2] and "
+                         "[B,H,1,D] with D a multiple of 128")
+    p, stride = device_positions(start, B, bq.device)
+    lib = _lib()
+    err = lib.write_q4_token(bq.data_ptr(), bs.data_ptr(), row.data_ptr(), p.data_ptr(), stride,
+                             B, H, T2, D, torch.cuda.current_stream(bq.device).cuda_stream)
+    _build.check(lib, err, "write_q4_token")
+    write_q4_token.launches += 1
+    return bq, bs
+
+
+write_q4_token.launches = 0

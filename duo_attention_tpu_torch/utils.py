@@ -32,3 +32,18 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> 
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_time_ms(fn: Callable[[], object], calls: int = 10, replays: int = 5) -> float:
+    """Device milliseconds of one call of fn with the host's launch cost taken
+    out: ``calls`` calls of fn (which may launch several kernels) are captured
+    into one CUDA graph and the graph is replayed. For kernels so short that
+    back-to-back launches from Python measure the host. fn must not copy from
+    the host or synchronize."""
+    fn()  # builds and loads whatever fn needs, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(graph.replay, iters=replays, warmup=1) / calls

@@ -8,13 +8,14 @@ These need a GPU and nvcc; elsewhere they skip. On a machine with a card
 chip_smoke.py holds the kernels to the plain versions at the main path's
 shapes; these cover the shapes it does not reach: ragged query tiles, query
 groups of 1, 2 and 8, no sink, small rings that wrap, per-sequence lengths,
-and the wrappers' refusals.
+odd and even token parity in the INT4 cache, every route and tile boundary of
+the int8 matrix product, and the wrappers' refusals.
 """
 
 import pytest
 import torch
 
-from duo_attention_tpu_torch.ops import flash, inplace
+from duo_attention_tpu_torch.ops import flash, gemm, inplace, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +103,89 @@ def test_write_streaming_rows_kernel(dev, start):
     assert all(torch.equal(a, b) for a, b in zip(bufs, refs))
 
 
+def assert_q4_close(got, want):
+    """Within flash.kernel_tolerance_q4, the bound chip_smoke.py holds the INT4 kernels to."""
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash.kernel_tolerance_q4(want)).all()), f"max err {float(err.max())}"
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,T,cs,bucket", [
+    (2, 100, 8, 8, 1024, [0, 500], 1024),  # ragged query tile, G = 1
+    (1, 64, 4, 1, 256, 192, 0),  # chunk ends at the buffer's end
+    (1, 70, 4, 2, 512, 101, 512),  # odd start: the last key shares a byte row with an unseen one
+    (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8, even position, one split
+    (1, 1, 8, 4, 512, 301, 0),  # decode, G = 2, odd position
+    (3, 1, 8, 4, 4096, [0, 4095, 1500], 4096),  # decode, per-sequence lengths, 8 splits, some empty
+    (2, 1, 4, 4, 32768, [20000, 32767], 32768),  # decode, G = 1, 32 splits of 1024 keys
+    (1, 1, 12, 4, 1536, 1400, 0),  # decode, G = 3, splits of 512 over 1536 keys
+    (2, 130, 4, 2, 4096, [1000, 3000], 4096),
+])
+def test_full_cache_attention_q4_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = randn(gen, B, S, Hq, 128, mul=Q_PEAK)
+    kq, ks = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    vq, vs = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    kq, ks, vq, vs = (t.contiguous() for t in (kq, ks, vq, vs))
+    cs = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs, bucket=bucket)
+    want = flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, cs, bucket=bucket)
+    torch.cuda.synchronize()
+    assert_q4_close(got, want)
+
+
+@pytest.mark.parametrize("start", [0, 1, 510, 511, 1023, 1500, [3, 0, 1022], [-4, 2000, 17], [8, 9, 9]])
+def test_write_q4_token_kernel(dev, start):
+    """Bitwise: bytes (the partner nibble and every other byte kept) and bf16 scales."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, H, T2, D = 3, 2, 512, 128
+    bq = torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8)
+    bs = randn(gen, B, H, 4, T2)
+    row = randn(gen, B, H, 1, D, mul=3.0)
+    row[0, 0] = 1.25  # a constant row: scale is the 1e-8 floor
+    ref_q, ref_s = bq.clone(), bs.clone()
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev)
+    inplace.write_q4_token(bq, bs, row, start)
+    inplace.write_q4_token_plain(ref_q, ref_s, row, start)
+    assert torch.equal(bq, ref_q)
+    assert torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
+
+
+@pytest.mark.parametrize("route", ["tiled", "small"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N,K", [
+    (1, 128, 64), (2, 130, 4096), (4, 1024, 14336), (8, 8, 16), (9, 257, 4096), (16, 256, 512),
+    (17, 128, 64), (127, 129, 80), (128, 128, 192), (129, 255, 208), (300, 512, 4096), (256, 1000, 48),
+])
+def test_w8a8_matmul_kernel(dev, route, out_dtype, M, N, K):
+    """Bitwise against the plain version: both routes at every M, with tile
+    edges in M, N and K (K a multiple of 16, not of the 64-byte slab)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
+    ws = torch.rand((N,), generator=gen, device=dev) * 0.02 + 1e-3
+    got = gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype, route=route)
+    want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_w8a8_matmul_saturated_operands_and_auto_route(dev):
+    """Every product at its extreme (+-127 * +-127 over K = 14336) stays exact,
+    and the wrapper picks the small route up to SMALL_M_MAX, the tiled one past it."""
+    K, N = 14336, 256
+    wq = torch.full((N, K), -127, dtype=torch.int8, device=dev)
+    ws = torch.full((N,), 1e-3, device=dev)
+    for M in (gemm.SMALL_M_MAX, gemm.SMALL_M_MAX + 1):
+        xq = torch.full((M, K), 127, dtype=torch.int8, device=dev)
+        xs = torch.full((M, 1), 1e-3, device=dev)
+        before = (gemm.w8a8_matmul.small_launches, gemm.w8a8_matmul.tiled_launches)
+        got = gemm.w8a8_matmul(xq, xs, wq, ws, torch.float32)
+        after = (gemm.w8a8_matmul.small_launches, gemm.w8a8_matmul.tiled_launches)
+        assert torch.equal(got, gemm.w8a8_matmul_plain(xq, xs, wq, ws, torch.float32))
+        assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if M <= gemm.SMALL_M_MAX else (0, 1))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     k = randn(gen, 1, 2, 256, 128)
@@ -116,3 +200,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash.full_cache_attention(randn(gen, 1, 1, 16, 128), k[:, :1], k[:, :1], 0)
     with pytest.raises(ValueError):  # row of another shape
         inplace.write_row(k, randn(gen, 1, 1, 1, 128), 0)
+    # the INT4 and int8 kernels
+    kq, ks = quant.quantize_int4_paired(k)
+    q = randn(gen, 1, 4, 4, 128)
+    with pytest.raises(ValueError):  # packed cache handed over as bf16
+        flash.full_cache_attention_q4(q, k, ks, k, ks, 0)
+    with pytest.raises(ValueError):  # scales in the JAX cache's 8-row layout
+        flash.full_cache_attention_q4(q, kq, torch.cat([ks, ks], dim=2), kq, torch.cat([ks, ks], dim=2), 0)
+    with pytest.raises(ValueError):  # float32 row
+        inplace.write_q4_token(kq, ks, torch.zeros(1, 2, 1, 128, device=dev), 0)
+    x8 = torch.zeros(4, 24, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        gemm.w8a8_matmul(x8, torch.ones(4, 1, device=dev), x8, torch.ones(4, device=dev))
+    x8 = torch.zeros(4, 32, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):  # float16 output
+        gemm.w8a8_matmul(x8, torch.ones(4, 1, device=dev), x8, torch.ones(4, device=dev), torch.float16)
