@@ -11,8 +11,11 @@ result):
      its plain PyTorch version on the same inputs at the main path's shapes
      (head_dim 128, 4 query heads per KV head, chunk 4096, max_cache_size 32768,
      sink 64, recent 256; the 8B model's five weight shapes), prefill and
-     decode, scalar and per-sequence lengths; queries drawn 4x larger than keys,
-     so scores are peaked and a dropped key shows; attention held to
+     decode, scalar and per-sequence lengths, ragged query tiles, a query group
+     of 8, a ring walk that wraps, a sink not yet full, decode split plans with
+     one, full, ragged and empty splits (and a sweep of other plans); queries
+     drawn 4x larger than keys, so scores are peaked and a dropped key shows;
+     attention held to
      flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes and the int8
      matrix product bitwise; times of the kernel, the plain version and one
      library call (SDPA, index_copy_, torch._int_mm), and the bound.
@@ -70,6 +73,7 @@ REPLACES = {
 SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "flash.cu",
            "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
            "write_streaming_rows": "inplace.cu", "write_q4_token": "inplace.cu", "w8a8_matmul": "gemm.cu"}
+FLASH_CU_KERNELS = ("prefill_kernel", "decode_kernel", "decode_merge_kernel")  # as the profiler names them
 # The 8B model's weight shapes (N = out features, K = in features).
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 4096),
                "down": (4096, 14336), "head": (128256, 4096)}
@@ -117,6 +121,9 @@ def phase_build():
         for line in lines:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas[{name}] {line.strip()}", file=sys.stderr)
+            # e.g. C7514: one branch around a wgmma or its wait and ptxas waits after every
+            # wgmma of the function; nothing overlaps the tensor cores any more
+            require("Potential Performance Loss" not in line, f"ptxas on {name}.cu: {line.strip()}")
     log(f"build: {sorted(paths)} in {secs:.1f} s")
     return secs
 
@@ -176,6 +183,28 @@ def _attn_tol_ok(got, want, q4=False):
     return float(err.max()), ratio, bool((err <= tol).all())
 
 
+def _decode_plan_sweep(call, span, heads):
+    """Device ms of the bf16 decode call under other split plans than the one
+    ``flash.decode_split_plan`` makes (the plan is a host function of the
+    bucket, so it can be swapped for the sweep and put back)."""
+    from duo_attention_tpu_torch.ops import flash
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms
+
+    kept = flash.decode_split_plan
+    sweep = {}
+    try:
+        for split_keys in (128, 256, 512, 1024, 2048, span):
+            plan = (-(-span // split_keys), split_keys)
+            flash.decode_split_plan = lambda span_, heads_, plan=plan: plan
+            sweep[f"{plan[0]}x{plan[1]}"] = cuda_graph_time_ms(call)
+    finally:
+        flash.decode_split_plan = kept
+    sweep["kept"] = "%dx%d" % kept(span, heads)
+    log(f"  decode split plan sweep at span {span} (splits x keys: device ms): "
+        + ", ".join(f"{k}: {v:.4f}" if k != "kept" else f"kept {v}" for k, v in sweep.items()))
+    return sweep
+
+
 def phase_kernels(rec):
     import torch
     import torch.nn.functional as F
@@ -208,21 +237,36 @@ def phase_kernels(rec):
     T = MAX_CACHE
     k = randn(4, Hkv, T, D)
     v = randn(4, Hkv, T, D)
-    full_cases = [  # (case, B, S, cs)
+    full_cases = [  # (case, B, S, cs[, KV heads, query heads per KV head])
         ("prefill cs=0", 1, CHUNK, 0),
         ("prefill cs=12288", 1, CHUNK, 12288),
         ("prefill cs=12300", 1, CHUNK, 12300),
         ("prefill cs=[B] B=4", 4, CHUNK, [0, 4096, 8192, 12300]),
+        ("prefill S=1000 cs=12288", 1, 1000, 12288),  # S not a multiple of the query tile
+        ("prefill S=65 cs=5000", 1, 65, 5000),  # one row in the tile's second half
+        ("prefill cs=[B] B=4 G=8", 4, CHUNK, [0, 4096, 8192, 12300], 2, 8),
         ("decode cs=16000", 1, 1, 16000),
         ("decode cs=16000 B=4", 4, 1, 16000),
-        ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),
+        ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),  # empty splits
+        ("decode cs=300 (one split)", 1, 1, 300),
+        ("decode cs=32767 (last split full)", 1, 1, 32767),
+        ("decode cs=16001 (odd tail)", 1, 1, 16001),
     ]
-    for case, B, S, cs in full_cases:
+    for case, B, S, cs, *heads in full_cases:
+        Hkv, G = heads or (4, GROUP)
+        Hq = Hkv * G
         name = "full_cache_attention." + ("decode" if S == 1 else "prefill")
         csv = vec(cs, B)
         bucket = min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
         q = randn(B, S, Hq, D, mul=Q_PEAK)
-        kb, vb = k[:B].contiguous(), v[:B].contiguous()
+        kb, vb = k[:B, :Hkv].contiguous(), v[:B, :Hkv].contiguous()
+        extra = {}
+        if S == 1:
+            nsplit, split_keys = flash.decode_split_plan(bucket, B * Hkv)
+            extra = dict(nsplit=nsplit, split_keys=split_keys, blocks=B * Hkv * nsplit)
+            log(f"  split plan for {case}: bucket {bucket}, {B * Hkv} (b, KV head) pairs -> "
+                f"{nsplit} splits of {split_keys} keys, {B * Hkv * nsplit} blocks")
+            require((nsplit == 1) == (bucket <= flash.DECODE_ONE_BLOCK_SPAN), f"{case}: {nsplit} splits")
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
         got = flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket)
         want = flash.full_cache_attention_plain(q, kb, vb, cs_arg, bucket=bucket)
@@ -241,9 +285,14 @@ def phase_kernels(rec):
             sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
         )
         record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
-               main=case in ("prefill cs=12288", "decode cs=16000"))
+               main=case in ("prefill cs=12288", "decode cs=16000"), **extra)
         del k_cat, v_cat, mask
+        if case == "decode cs=16000":
+            require(extra["blocks"] > B * Hkv, "the decode kernel did not split the key range")
+            rec.results["full_cache_attention.decode_plan_sweep"] = _decode_plan_sweep(
+                lambda: flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket), bucket, B * Hkv)
     del k, v
+    Hkv, G = 4, GROUP
 
     # --- streaming_cache_attention --------------------------------------------
     Hs = 4
@@ -255,6 +304,8 @@ def phase_kernels(rec):
         ("prefill cs=12288", 1, CHUNK, 12288),
         ("prefill cs=12300", 1, CHUNK, 12300),
         ("prefill cs=[B] B=4", 4, CHUNK, [0, 4096, 8192, 12300]),
+        ("prefill cs=4000 (walk wraps)", 1, CHUNK, 4000),  # tokens 3744..8095 cross slot R = 4608
+        ("prefill S=1000 cs=10 (cs < sink)", 1, 1000, 10),
         ("decode cs=16000", 1, 1, 16000),
         ("decode cs=16000 B=4", 4, 1, 16000),
         ("decode cs=[B] B=4", 4, 1, [5, 64, 4700, 32000]),
@@ -666,12 +717,13 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
 
 def _kernel_kind(name):
     """The port's kernels by name (prefill_kernel<0> is full heads, <1>
-    streaming; the INT4 decode is a split kernel and its merge), cuBLAS matrix
-    products, and everything else."""
+    streaming; both full-head decodes are a split kernel and its merge),
+    cuBLAS matrix products, and everything else."""
     ours = {"prefill_kernel<0>": "full_cache_attention.prefill",
             "prefill_kernel<1>": "streaming_cache_attention.prefill",
             "decode_kernel<0,": "full_cache_attention.decode",
             "decode_kernel<1,": "streaming_cache_attention.decode",
+            "decode_merge_kernel": "full_cache_attention.decode",
             "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row",
             "prefill_q4_kernel": "full_cache_attention_q4.prefill",
             "decode_q4_kernel": "full_cache_attention_q4.decode",
@@ -710,6 +762,8 @@ def device_breakdown(fn):
         kind = _kernel_kind(e.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         if kind == "other":
+            require(not any(k in e.name for k in FLASH_CU_KERNELS),
+                    f"kernel {e.name!r} of flash.cu is filed under 'other'")
             other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
     busy = sum(by_kind.values())
     return dict(wall_ms=wall_ms, device_busy_ms=busy,

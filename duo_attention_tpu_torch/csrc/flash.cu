@@ -18,36 +18,70 @@
 //     slots no query sees are never read.
 //
 // Two kernels, one per shape of work:
-//   * prefill (S > 1): one block of 4 warps per (64-query tile, query head,
-//     b). K/V tiles of 64 keys are staged in shared memory; Q.K^T and P.V run
-//     on the tensor cores through WMMA (bf16 in, f32 accumulate); the online
-//     softmax runs on two lanes per row. Bound: operations at long context
-//     (4*D flops per visible (query, key) pair); WMMA from shared memory with
-//     the O accumulator kept in shared memory is the simple first version.
-//   * decode (S == 1): one block of 128 threads per (KV head, b); the G query
-//     heads of that KV head are the rows, so K/V are read once per group.
-//     Each thread scores one key of a 128-key tile; each warp accumulates
-//     P.V over a quarter of the tile, four columns a lane, and the warps'
-//     sums are added at the end. Bound: bytes (every visible K/V row is read
-//     once); only B * H_kv blocks run, a few per layer on 132 SMs, which
-//     leaves most of the card's bandwidth unused.
+//   * prefill (S > 1) is bound by operations at long context (4*D flops per
+//     visible (query, key) pair), so the design keeps the tensor cores fed and
+//     everything else out of their way. A block is two consumer warpgroups,
+//     each owning 64 query rows, and one producer warpgroup that does nothing
+//     but copy K/V tiles of 128 keys into a ring of three stages the
+//     consumers share; stages change hands through `mbarrier`s (full: the
+//     copies have landed; empty: every consumer warp is done), so the
+//     warpgroups never meet at a block-wide barrier. S = Q.K^T is a `wgmma`
+//     m64n128k16 with Q and K read from shared memory; the online softmax
+//     runs on the accumulator's registers (a row lies in the four lanes of a
+//     quad: two shuffles give its max, its sum is reduced once at the end); P
+//     is rounded to bf16 in registers and is the register A operand of the
+//     second `wgmma`, O += P.V (m64n128k16), which reads V in its natural
+//     [keys, D] layout through the descriptor's transpose bit. O, m and l
+//     stay in registers for the whole key walk and are written once: nothing
+//     but Q, K and V ever sits in shared memory. Inside a warpgroup the walk
+//     is software-pipelined: S of tile it+1 and P.V of tile it are started
+//     together, and the softmax of tile it+1 runs under P.V of tile it. The
+//     tiles arrive by `cp.async` in 16-byte pieces into the 128-byte-swizzled
+//     layout `wgmma` reads. `cp.async` rather than TMA throughout: the ring
+//     of the streaming heads is walked in position order, so a tile may
+//     straddle the wrap, and rows past a head's frontier must be zero-filled
+//     (the cache past its length is uninitialised, and 0 * NaN in P.V is
+//     NaN); a per-row copy does both with no tensor map to build and keep per
+//     buffer, and a producer warpgroup takes its cost off the consumers all
+//     the same. Masks are applied only to tiles that cross the causal
+//     diagonal, the ring's frontier or the ragged end; a tile wholly above a
+//     warpgroup's rows is not multiplied. 2^x on f32 (s - m) * log2(e)
+//     replaces expf(s - m): q is still scaled by the bf16-rounded scale, and
+//     the two differ by a few ulp of f32, far below p's rounding to bf16.
+//     What still holds it back: the products and the softmax still run
+//     mostly one after the other; eight consumer warps are too few to hide
+//     the softmax's dependent chains (maxima, shuffles, 2^x on the
+//     special-function unit) behind the other warpgroup's products.
+//   * decode (S == 1) is bound by bytes (every visible K/V row is read once)
+//     and, with one query row per head, by how many SMs read at once. The key
+//     range of a (KV head, b) is split over blockIdx.z (the wrapper's plan,
+//     made from the bucket alone); each block of 128 threads runs the online
+//     softmax over its keys with the G query heads of the group as rows, so
+//     K/V are read once per group, and writes (acc, m, l) in f32; a merge
+//     kernel combines the splits. With one split the block writes the output
+//     itself (the streaming heads, which see at most sink + recent + 1 keys,
+//     and short full-head spans). K tiles of 128 keys are staged in shared
+//     memory by `cp.async` (16 lanes read one 256-byte row: coalesced), rows
+//     padded by 16 bytes so that each thread scores its own key without bank
+//     conflicts; the next tile's copy runs under the softmax and the P.V of
+//     this one. V rows are read straight from device memory, a whole row per
+//     warp load.
 //
 // Lengths come from device memory ([B] int32, or one value with stride 0),
 // so launching never waits for the host. Launches go on the caller's stream
-// and allocate nothing.
+// and allocate nothing: the decode scratch is the wrapper's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int D = 128;  // head_dim of every preset
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MODE_FULL = 0;
 constexpr int MODE_STREAM = 1;
 
@@ -66,6 +100,8 @@ struct Args {
   int nkeys;  // full heads: slots at or past this (the bucket) are never read
   int sink, recent;
   float scale;
+  float* part;  // decode scratch [B, Hkv, nsplit, G, PART] when nsplit > 1
+  int nsplit, split_keys;
 };
 
 __device__ __forceinline__ int pmod(int a, int m) {
@@ -94,28 +130,53 @@ __device__ __forceinline__ Keys key_range(const Args& a, int cs, int t, int qpos
   } else {
     k.glo = max(max(a.sink, max(cs - a.recent, 0)), t - a.R);
     k.end = a.sink + max(min(t - 1, qpos_max) - k.glo + 1, 0);
+    // before the sink is full no ring token is visible, nor a sink slot past the last query
+    if (qpos_max < a.sink) k.end = min(k.end, qpos_max + 1);
   }
   return k;
 }
 
+// The token that virtual key j holds; key j is visible to qpos iff token <= qpos.
 template <int MODE>
-__device__ __forceinline__ bool visible(const Args& a, int j, int qpos, int glo) {
-  if (MODE == MODE_FULL || j < a.sink) return j <= qpos;
-  return glo + (j - a.sink) <= qpos;
+__device__ __forceinline__ int token_of(const Args& a, int j, int glo) {
+  return (MODE == MODE_FULL || j < a.sink) ? j : glo + (j - a.sink);
+}
+
+// Where the K/V rows of one (b, KV head) lie: key j of the walk is row j of
+// the first buffer (the cache, or the sink buffer) or, for a streaming head's
+// j >= sink, the ring slot of token glo + (j - sink).
+struct Rows {
+  const bf16 *k0, *v0, *k1, *v1;
+  int sink, R;
+  int glo_mod;  // glo mod R, taken once: a walk covers fewer than R ring tokens
+};
+
+template <int MODE>
+__device__ __forceinline__ Rows rows_of(const Args& a, int b, int hk, int glo) {
+  const size_t bh = (size_t)b * a.Hkv + hk;
+  Rows r = {};
+  r.k0 = a.k0 + bh * a.T0 * D;
+  r.v0 = a.v0 + bh * a.T0 * D;
+  if (MODE == MODE_STREAM) {
+    r.k1 = a.k1 + bh * a.R * D;
+    r.v1 = a.v1 + bh * a.R * D;
+    r.sink = a.sink;
+    r.R = a.R;
+    r.glo_mod = pmod(glo, a.R);
+  }
+  return r;
 }
 
 template <int MODE>
-__device__ __forceinline__ void kv_rows(const Args& a, int b, int hk, int j, int glo,
-                                        const bf16*& kp, const bf16*& vp) {
-  const size_t bh = (size_t)b * a.Hkv + hk;
-  if (MODE == MODE_STREAM && j >= a.sink) {
-    const size_t o = (bh * a.R + pmod(glo + j - a.sink, a.R)) * D;
-    kp = a.k1 + o;
-    vp = a.v1 + o;
+__device__ __forceinline__ void kv_row(const Rows& r, int j, const bf16*& kp, const bf16*& vp) {
+  if (MODE == MODE_STREAM && j >= r.sink) {
+    int slot = r.glo_mod + (j - r.sink);  // below 2R
+    if (slot >= r.R) slot -= r.R;
+    kp = r.k1 + slot * D;
+    vp = r.v1 + slot * D;
   } else {
-    const size_t o = (bh * a.T0 + j) * D;
-    kp = a.k0 + o;
-    vp = a.v0 + o;
+    kp = r.k0 + j * D;
+    vp = r.v0 + j * D;
   }
 }
 
@@ -123,178 +184,486 @@ __device__ __forceinline__ float bf16_scale(float scale) {
   return __bfloat162float(__float2bfloat16(scale));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes == 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// Prefill: WMMA tiles
+// Prefill: a producer and two consumer warpgroups, wgmma, accumulators in registers
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64, BK = 64, NWARP = 4;
-// Padded leading dimensions (keep WMMA pointers 32-byte aligned and spread
-// rows over the shared-memory banks).
-constexpr int LDK = D + 8, LDS = BK + 4, LDP = BK + 8, LDO = D + 4;
-constexpr size_t PREFILL_SMEM =
-    sizeof(bf16) * (BQ * LDK + 2 * BK * LDK + BQ * LDP) + sizeof(float) * (BQ * LDS + BQ * LDO + 2 * BQ);
+constexpr int NWG = 2;  // consumer warpgroups a block, 64 query rows each
+constexpr int BQ = 64 * NWG, BK = 128;
+constexpr int PF_THREADS = 128 * (NWG + 1);  // and one producer warpgroup that copies K/V
+constexpr int NSTAGE = 3;  // K/V stages: two tiles are multiplied while a third is copied
+// A panel is rows of 64 bf16 (128 bytes a row) in the 128-byte swizzle: the
+// 16-byte piece c of row r sits at piece c ^ (r & 7). A warpgroup's Q and a
+// K or V tile are two panels each (D = 128 = two panels side by side), of 64
+// and of BK rows.
+constexpr int PANEL = 64 * 128;
+constexpr int Q_BYTES = (BQ / 64) * 2 * PANEL;
+constexpr int KPANEL = BK * 128;  // a K or V panel: BK rows of 128 bytes
+constexpr int STAGE_BYTES = 4 * KPANEL;  // K panels 0, 1, then V panels 0, 1
+// + 2 * NSTAGE barriers of 8 bytes, + room to align to 1024
+constexpr int PREFILL_SMEM = Q_BYTES + NSTAGE * STAGE_BYTES + 16 * NSTAGE + 1024;
+
+__device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands (Q, K:
+// rows of 64 contiguous k): lbo unused (1), sbo = 1024, the stride between
+// 8-row groups. MN-major (V: rows are k, 64 contiguous n): lbo = the stride
+// between 64-wide n panels, sbo = 1024, the stride between 8-k groups.
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// mbarriers (in shared memory, by their shared-space address)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// This thread's arrival is made when all the cp.async it has started so far have landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving uses of an accumulator across an async wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// O[64x128] += P[64x16] V[16x128]: P from registers (the m16n8k16 A-fragment
+// layout per warp), V from shared memory in its natural [keys, D] layout
+// (MN-major B: the trans-b bit).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// S[64x128] (+)= A[64x16] B[128x16]^T, both operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// 2^x by the hardware's approximation (2 ulp; results below 2^-126 are 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 template <int MODE>
-__global__ void __launch_bounds__(NWARP * 32) prefill_kernel(Args a) {
+__global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][LDK]
-  bf16* sK = sQ + BQ * LDK;                   // [BK][LDK]
-  bf16* sV = sK + BK * LDK;                   // [BK][LDK]
-  bf16* sP = sV + BK * LDK;                   // [BQ][LDP]
-  float* sS = reinterpret_cast<float*>(sP + BQ * LDP);  // [BQ][LDS]
-  float* sO = sS + BQ * LDS;                  // [BQ][LDO]
-  float* sM = sO + BQ * LDO;                  // [BQ]
-  float* sL = sM + BQ;                        // [BQ]
+  // panels need 1024-byte alignment (the swizzle pattern repeats every 1024 bytes)
+  unsigned char* base = smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
+  unsigned char* sQ = base;
+  const uint32_t sQ_addr = smem_addr(base);
+  const uint32_t stage0_addr = sQ_addr + Q_BYTES;
+  // full[s]: the copies of the tile in stage s have landed (one arrival per
+  // producer thread, made by its last copy); empty[s]: every consumer warp is
+  // done reading stage s (one arrival per warp)
+  const uint32_t full_addr = stage0_addr + NSTAGE * STAGE_BYTES, empty_addr = full_addr + 8 * NSTAGE;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  // the heaviest query tiles (the latest positions) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int cs = a.cs[b * a.cs_stride];
   const int t = MODE == MODE_STREAM ? a.total[b * a.total_stride] : 0;
   const int rows = min(BQ, a.S - q0);
-  const float sc = bf16_scale(a.scale);
+  const Keys keys = key_range<MODE>(a, cs, t, cs + q0 + rows - 1);
+  const int kend = keys.end;
+  const int ntiles = (kend + BK - 1) / BK;
 
-  for (int i = tid; i < BQ * (D / 8); i += NWARP * 32) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(full_addr + 8 * st, 128);
+      mbar_init(empty_addr + 8 * st, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // From here the roles never meet again: one producer warpgroup that copies,
+  // NWG consumer warpgroups that multiply. Stages go round by the barriers
+  // above. The producer hands most of its registers to the consumers
+  // (2 * 128 * 240 + 128 * 24 of the SM's 65,536).
+  if (wg == NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // One K/V tile into a stage, in pieces of 16 bytes: 16 neighbouring threads
+    // copy one 256-byte row of K and of V. Rows at or past kend are zeros.
+    const Rows src_rows = rows_of<MODE>(a, b, hk, keys.glo);
+    const int ptid = tid & 127, c = ptid & 15;
+    const uint32_t piece = (c >> 3) * KPANEL;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int stage = tile % NSTAGE;
+      // the tile that held this stage before has been multiplied by everyone
+      if (tile >= NSTAGE) mbar_wait(empty_addr + 8 * stage, (tile / NSTAGE - 1) & 1);
+      const uint32_t st = stage0_addr + stage * STAGE_BYTES;
+#pragma unroll 4
+      for (int r = ptid >> 4; r < BK; r += 8) {
+        const int j = tile * BK + r;
+        const bf16 *kp = a.k0, *vp = a.v0;
+        int nbytes = 0;
+        if (j < kend) {
+          kv_row<MODE>(src_rows, j, kp, vp);
+          kp += c * 8;
+          vp += c * 8;
+          nbytes = 16;
+        }
+        const uint32_t dst = st + piece + swz(r, c & 7);
+        cp_async16(dst, kp, nbytes);
+        cp_async16(dst + 2 * KPANEL, vp, nbytes);
+      }
+      cp_async_mbar_arrive(full_addr + 8 * stage);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const float sc = bf16_scale(a.scale);
+  // Q of this warpgroup's 64 rows, scaled in bf16, into its two swizzled panels; rows past S are zero
+  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
+    const int r = i >> 4, c = i & 15;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + r) * a.Hq + h) * D + c);
+    if (wg * 64 + r < rows) {
+      val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + wg * 64 + r) * a.Hq + h) * D + c * 8);
       bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
       for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(__bfloat162float(e[u]) * sc);
     }
-    *reinterpret_cast<uint4*>(sQ + r * LDK + c) = val;
+    *reinterpret_cast<uint4*>(sQ + (wg * 2 + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
   }
-  for (int i = tid; i < BQ * LDO; i += NWARP * 32) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += NWARP * 32) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // wgmma may read what was stored
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // the warpgroup's own barrier
+
+  // This thread's two rows of its warpgroup's 64: r0 and r0 + 8. In a
+  // 64 x N accumulator, element 4j + e lies in row r0 + 8 * (e >> 1) and
+  // column 8j + 2 * (lane & 3) + (e & 1).
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qrow0 = q0 + wg * 64 + r0;  // row in the chunk
+  const int qpos0 = cs + qrow0;
+  const int wg_qmin = cs + q0 + wg * 64, wg_qmax = wg_qmin + 63;
+  const int cq = 2 * (lane & 3);
+  // The tiles this warpgroup multiplies: those that hold a key one of its rows
+  // sees (tokens rise along the walk, so they are the first n_wg). It still
+  // waits for the rest and releases them, one by one, as the barriers count.
+  const int jmax = (MODE == MODE_FULL || wg_qmax < a.sink)
+                       ? wg_qmax
+                       : (wg_qmax >= keys.glo ? a.sink + (wg_qmax - keys.glo) : a.sink - 1);
+  const int n_wg = min(ntiles, (jmax + BK) / BK);
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
+  float s[64];
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = 0u;
+
+  const uint64_t dq0 = make_desc(sQ_addr + wg * 2 * PANEL, 16, 1024);
+  // S = (q * scale) K^T of one tile: 8 steps of 16 over D; a step is 32 bytes
+  // inside a panel's 128-byte rows, and the second panel follows the first
+  auto start_qk = [&](int tile) {
+    const uint64_t dk0 = make_desc(stage0_addr + (tile % NSTAGE) * STAGE_BYTES, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t oq = (uint64_t)(((kk >> 2) * PANEL + (kk & 3) * 32) >> 4);
+      const uint64_t ok = (uint64_t)(((kk >> 2) * KPANEL + (kk & 3) * 32) >> 4);
+      wgmma_m64n128k16_ss(s, dq0 + oq, dk0 + ok, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V of one tile: 8 steps of 16 keys; a step is 16 rows of 128 bytes in each V panel
+  auto start_pv = [&](int tile) {
+    const uint64_t dv0 =
+        make_desc(stage0_addr + (tile % NSTAGE) * STAGE_BYTES + 2 * KPANEL, KPANEL, 1024);
+    fence_regs(p);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                          dv0 + (uint64_t)((kk * 16 * 128) >> 4));
+    }
+    wgmma_commit();
+  };
+  float al0 = 1.f, al1 = 1.f;
+  // The online softmax of the tile in s, in place: masks, the new row maxima,
+  // the scales of what came before (al0, al1), e^(s - m) in f32, the row sums.
+  auto softmax = [&](int tile) {
+    const int k0 = tile * BK;
+    // masks only where they bite: the diagonal, the ring's frontier, the ragged end
+    const bool masked = k0 + BK > kend || token_of<MODE>(a, k0 + BK - 1, keys.glo) > wg_qmin;
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int j = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+        if (!(j < kend && token_of<MODE>(a, j, keys.glo) <= qpos)) s[i] = NEG_INF;
+      }
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // the difference first: NEG_INF - NEG_INF is 0, and NEG_INF * LOG2E would be -inf
+    al0 = fast_exp2((m0 - mn0) * LOG2E);
+    al1 = fast_exp2((m1 - mn1) * LOG2E);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      float p0 = fast_exp2(fmaf(s[i], LOG2E, -ml0)), p1 = fast_exp2(fmaf(s[i + 1], LOG2E, -ml0));
+      float p2 = fast_exp2(fmaf(s[i + 2], LOG2E, -ml1)), p3 = fast_exp2(fmaf(s[i + 3], LOG2E, -ml1));
+      if (masked) {  // a masked score is exactly NEG_INF; its row's max may be NEG_INF too
+        p0 = s[i] == NEG_INF ? 0.f : p0;
+        p1 = s[i + 1] == NEG_INF ? 0.f : p1;
+        p2 = s[i + 2] == NEG_INF ? 0.f : p2;
+        p3 = s[i + 3] == NEG_INF ? 0.f : p3;
+      }
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      s[i] = p0;
+      s[i + 1] = p1;
+      s[i + 2] = p2;
+      s[i + 3] = p3;
+    }
+    l0 = al0 * l0 + sum0;
+    l1 = al1 * l1 + sum1;
+  };
+  // With the product that read p and wrote o complete: scale o, round s to bf16 into p
+  // (the A fragment of k-step kk: a0, a1 from column group 2kk, a2, a3 from 2kk + 1).
+  auto rescale_and_pack = [&]() {
+    fence_regs(p);
+    fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      o[i] *= al0;
+      o[i + 1] *= al0;
+      o[i + 2] *= al1;
+      o[i + 3] *= al1;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      p[(i >> 3) * 4 + ((i >> 2) & 1) * 2] = pack_bf16(s[i], s[i + 1]);
+      p[(i >> 3) * 4 + ((i >> 2) & 1) * 2 + 1] = pack_bf16(s[i + 2], s[i + 3]);
+    }
+  };
+
+  // Tile `tile` has landed in its stage, and wgmma may read it.
+  auto wait_tile = [&](int tile) {
+    mbar_wait(full_addr + 8 * (tile % NSTAGE), (tile / NSTAGE) & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  // The walk, software-pipelined inside the warpgroup: S of tile it+1 and P.V
+  // of tile it are started together, and the softmax of tile it+1 runs under
+  // P.V of tile it. The warpgroups run free of each other: one's softmax can
+  // fall under the other's products.
+  if (0 < ntiles) wait_tile(0);
+  if (0 < n_wg) {
+    start_qk(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0);
+    rescale_and_pack();
+    // (the steady state has no branch around a product or its wait: the
+    // assembler gives up overlapping them otherwise)
+    for (int it = 0; it < n_wg - 1; ++it) {
+      wait_tile(it + 1);
+      start_qk(it + 1);
+      start_pv(it);
+      wgmma_wait<1>();  // S(it+1) is complete; P.V(it) runs on
+      fence_regs(s);
+      softmax(it + 1);
+      fence_regs(s);  // the exponentials are taken before the wait below, under P.V(it), not after it
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty_addr + 8 * (it % NSTAGE));  // this warp is done with tile it
+      rescale_and_pack();
+    }
+    const int last = n_wg - 1;
+    if (last + 1 < ntiles) wait_tile(last + 1);
+    start_pv(last);
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty_addr + 8 * (last % NSTAGE));
   }
-
-  const Keys keys = key_range<MODE>(a, cs, t, cs + q0 + rows - 1);
-  const int kend = keys.end;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // sQ/sO ready; every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * (D / 8); i += NWARP * 32) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int j = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (j < kend) {
-        const bf16 *kp, *vp;
-        kv_rows<MODE>(a, b, hk, j, keys.glo, kp, vp);
-        kv = *reinterpret_cast<const uint4*>(kp + c);
-        vv = *reinterpret_cast<const uint4*>(vp + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LDK + c) = kv;
-      *reinterpret_cast<uint4*>(sV + r * LDK + c) = vv;
-    }
-    __syncthreads();
-
-    // S = (q * scale) K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * LDK + kk, LDK);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, sK + n * 16 * LDK + kk, LDK);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax: lanes 2r and 2r+1 share row r of the warp, 32 columns each.
-    {
-      const int r = warp * 16 + (lane >> 1);
-      const int c0 = (lane & 1) * (BK / 2);
-      const int qpos = cs + q0 + r;
-      const float* srow = sS + r * LDS;
-      float mx = NEG_INF;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = k0 + c;
-        if (j < kend && visible<MODE>(a, j, qpos, keys.glo)) mx = fmaxf(mx, srow[c]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_prev = sM[r];
-      const float m_next = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_next);
-      float sum = 0.f;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = k0 + c;
-        float p = 0.f;
-        if (j < kend && visible<MODE>(a, j, qpos, keys.glo)) p = expf(srow[c] - m_next);
-        sum += p;
-        sP[r * LDP + c] = __float2bfloat16(p);
-      }
-      // Both lanes of the pair have read sM[r] before either passes this shuffle.
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const int d0 = (lane & 1) * (D / 2);
-      for (int d = d0; d < d0 + D / 2; ++d) sO[r * LDO + d] *= alpha;
-      if ((lane & 1) == 0) {
-        sM[r] = m_next;
-        sL[r] = alpha * sL[r] + sum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(fp[kk], sP + warp * 16 * LDP + kk * 16, LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::load_matrix_sync(o, sO + warp * 16 * LDO + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-          wmma::load_matrix_sync(fv, sV + kk * 16 * LDK + n * 16, LDK);
-          wmma::mma_sync(o, fp[kk], fv, o);
-        }
-        wmma::store_matrix_sync(sO + warp * 16 * LDO + n * 16, o, LDO, wmma::mem_row_major);
-      }
-    }
+  // tiles wholly above this warpgroup's rows: waited for and released, as the barriers count
+  for (int it = n_wg; it < ntiles; ++it) {
+    if (it + 1 < ntiles) wait_tile(it + 1);
+    if (lane == 0) mbar_arrive(empty_addr + 8 * (it % NSTAGE));
   }
-  __syncthreads();
+  fence_regs(o);
 
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = warp * 16 + i / D, d = i % D;
-    if (r < rows) {
-      float l = sL[r];
-      if (l == 0.f) l = 1.f;
-      a.out[(((size_t)b * a.S + q0 + r) * a.Hq + h) * D + d] = __float2bfloat16(sO[r * LDO + d] / l);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = qrow0 + 8 * half;
+    if (row < a.S) {
+      bf16* dst = a.out + (((size_t)b * a.S + row) * a.Hq + h) * D + cq;
+      const float inv = half ? inv1 : inv0;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+        *reinterpret_cast<uint32_t*>(dst + 8 * jn) =
+            pack_bf16(o[4 * jn + 2 * half] * inv, o[4 * jn + 2 * half + 1] * inv);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Decode: one block per (KV head, b), the G grouped query heads as rows
+// Decode: blocks over (KV head, b, key split), the G grouped query heads as
+// rows; then a merge when there is more than one split
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_THREADS = D;  // thread d owns output column d
+constexpr int DEC_THREADS = D;  // thread d owns output column d; a K tile is one key a thread
 constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int LDKD = D + 8;  // K rows padded by 16 bytes: 8 threads' uint4 reads hit 8 bank groups
+constexpr int DEC_SMEM = DEC_THREADS * LDKD * (int)sizeof(bf16);
+constexpr int PART = D + 2;  // per (split, query head): D sums, then the max and the denominator
 
 template <int MODE, int G>
 __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // [DEC_THREADS][LDKD]
+  float* sacc = reinterpret_cast<float*>(smem);  // [DEC_WARPS][G][D], after the key walk
+  static_assert(DEC_WARPS * G * D * sizeof(float) <= DEC_SMEM, "sacc must fit in the K tile");
   __shared__ float sq[G][D];
   __shared__ float sp[G][DEC_THREADS];
   __shared__ float red[G][DEC_WARPS];
   __shared__ float sm[G], sl[G], salpha[G];
-  __shared__ float sacc[DEC_WARPS][G][D];
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cs = a.cs[b * a.cs_stride];  // the query's position
   const int t = MODE == MODE_STREAM ? a.total[b * a.total_stride] : 0;
@@ -316,18 +685,38 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
   const Keys keys = key_range<MODE>(a, cs, t, cs);
-  const int kend = keys.end;
-  __syncthreads();
+  // this block's keys: [lo, hi) of the visible range; every key below keys.end
+  // is visible to the one query
+  const int lo = split * a.split_keys;
+  const int hi = min(keys.end, lo + a.split_keys);
 
-  for (int k0 = 0; k0 < kend; k0 += DEC_THREADS) {
+  const Rows src_rows = rows_of<MODE>(a, b, hk, keys.glo);
+  // A K tile into shared memory: 16 neighbouring threads copy one 256-byte row.
+  auto load_k = [&](int k0) {
+    const uint32_t dst = smem_addr(sK);
+#pragma unroll 4
+    for (int i = tid; i < DEC_THREADS * (D / 8); i += DEC_THREADS) {
+      const int r = i >> 4, c = i & 15;
+      if (k0 + r < hi) {
+        const bf16 *kp, *vp;
+        kv_row<MODE>(src_rows, k0 + r, kp, vp);
+        cp_async16(dst + (r * LDKD + c * 8) * (int)sizeof(bf16), kp + c * 8, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  load_k(lo);
+
+  for (int k0 = lo; k0 < hi; k0 += DEC_THREADS) {
+    cp_async_wait<0>();
+    __syncthreads();  // the K tile (and, the first time, sq, sm, sl) is ready
     const int j = k0 + tid;
-    const bool vis = j < kend && visible<MODE>(a, j, cs, keys.glo);
+    const bool vis = j < hi;
     float s[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = NEG_INF;
     if (vis) {
-      const bf16 *kp, *vp;
-      kv_rows<MODE>(a, b, hk, j, keys.glo, kp, vp);
+      const bf16* kp = sK + tid * LDKD;
 #pragma unroll
       for (int g = 0; g < G; ++g) s[g] = 0.f;
 #pragma unroll 4
@@ -349,7 +738,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
       for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
       if (lane == 0) red[g][warp] = m;
     }
-    __syncthreads();
+    __syncthreads();  // every thread has scored its key: the K tile is free
+    if (k0 + DEC_THREADS < hi) load_k(k0 + DEC_THREADS);  // lands under the softmax and P.V below
     if (tid < G) {
       float mx = red[tid][0];
 #pragma unroll
@@ -379,11 +769,11 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[g][c] *= salpha[g];
-    const int jend = min(32 * warp + 32, kend - k0);
+    const int jend = min(32 * warp + 32, hi - k0);
 #pragma unroll 8
     for (int jj = 32 * warp; jj < jend; ++jj) {
       const bf16 *kp, *vp;
-      kv_rows<MODE>(a, b, hk, k0 + jj, keys.glo, kp, vp);
+      kv_row<MODE>(src_rows, k0 + jj, kp, vp);
       const uint2 raw = *reinterpret_cast<const uint2*>(vp + 4 * lane);
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
@@ -396,30 +786,69 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
     __syncthreads();
   }
 
+  cp_async_wait<0>();
+  __syncthreads();  // no copy is in flight and no thread reads the K tile: sacc may take its place
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sacc[warp][g][4 * lane + c] = acc[g][c];
+    for (int c = 0; c < 4; ++c) sacc[(warp * G + g) * D + 4 * lane + c] = acc[g][c];
   __syncthreads();
+  if (a.nsplit == 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) o += sacc[(w * G + g) * D + tid];
+      float l = sl[g];
+      if (l == 0.f) l = 1.f;
+      a.out[((size_t)b * a.Hq + hk * G + g) * D + tid] = __float2bfloat16(o / l);
+    }
+    return;
+  }
+  // an empty split leaves m = NEG_INF, l = 0, acc = 0: it weighs nothing in the merge
+  float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit + split) * G) * PART;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     float o = 0.f;
 #pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) o += sacc[w][g][tid];
-    float l = sl[g];
-    if (l == 0.f) l = 1.f;
-    a.out[((size_t)b * a.Hq + hk * G + g) * D + tid] = __float2bfloat16(o / l);
+    for (int w = 0; w < DEC_WARPS; ++w) o += sacc[(w * G + g) * D + tid];
+    part[g * PART + tid] = o;
   }
+  if (tid < G) {
+    part[tid * PART + D] = sm[tid];
+    part[tid * PART + D + 1] = sl[tid];
+  }
+}
+
+// out[b, h, :] from the splits' states: out = sum_s e^(m_s - M) acc_s /
+// sum_s e^(m_s - M) l_s with M = max_s m_s. With every split empty M is
+// NEG_INF, the weights are 1, the sums 0, and the row is 0.
+__global__ void __launch_bounds__(DEC_THREADS) decode_merge_kernel(Args a) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int hk = h / a.G, g = h % a.G;
+  const float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit) * a.G + g) * PART;
+  const size_t stride = (size_t)a.G * PART;
+  float M = NEG_INF;
+  for (int s = 0; s < a.nsplit; ++s) M = fmaxf(M, part[s * stride + D]);
+  float o = 0.f, l = 0.f;
+  for (int s = 0; s < a.nsplit; ++s) {
+    const float* p = part + s * stride;
+    const float w = expf(p[D] - M);
+    o += w * p[d];
+    l += w * p[D + 1];
+  }
+  if (l == 0.f) l = 1.f;
+  a.out[((size_t)b * a.Hq + h) * D + d] = __float2bfloat16(o / l);
 }
 
 template <int MODE>
 int launch(const Args& a, int B, cudaStream_t stream) {
   if (a.S == 1) {
-    const dim3 grid(a.Hkv, B);
+    const dim3 grid(a.Hkv, B, a.nsplit);
     switch (a.G) {
 #define DUO_DECODE_CASE(NG) \
   case NG:                  \
-    decode_kernel<MODE, NG><<<grid, DEC_THREADS, 0, stream>>>(a); \
+    decode_kernel<MODE, NG><<<grid, DEC_THREADS, DEC_SMEM, stream>>>(a); \
     break;
       DUO_DECODE_CASE(1)
       DUO_DECODE_CASE(2)
@@ -433,12 +862,17 @@ int launch(const Args& a, int B, cudaStream_t stream) {
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (a.nsplit > 1) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      decode_merge_kernel<<<dim3(a.Hq, B), DEC_THREADS, 0, stream>>>(a);
+    }
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PREFILL_SMEM);
+        prefill_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, PREFILL_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
-    prefill_kernel<MODE><<<grid, NWARP * 32, PREFILL_SMEM, stream>>>(a);
+    prefill_kernel<MODE><<<grid, PF_THREADS, PREFILL_SMEM, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -449,13 +883,23 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
+// Floats of decode scratch per (b, KV head, split, query head of the group).
+int decode_partial_floats() { return PART; }
+
 // q [B, S, Hq, D]; k/v [B, Hkv, T, D] (already holding the chunk at
 // [cs, cs+S)); cs [B] (or one value, cs_stride 0); out [B, S, Hq, D].
-// Keys at or past `span` are never read.
+// Keys at or past `span` are never read. Decode (S == 1): split s covers keys
+// [s*split_keys, (s+1)*split_keys), split_keys a multiple of the 128-key tile
+// with nsplit*split_keys >= span; with nsplit > 1, `part` is scratch of
+// B*Hkv*nsplit*G*decode_partial_floats() floats.
 int full_cache_attention(const void* q, const void* k, const void* v, const void* cs,
                          int cs_stride, void* out, int B, int S, int Hq, int Hkv, int T,
-                         int span, int head_dim, float scale, void* stream) {
+                         int span, int head_dim, float scale, void* part, int nsplit,
+                         int split_keys, void* stream) {
   if (head_dim != D || Hq % Hkv != 0 || span > T) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 1 && (nsplit < 1 || (nsplit > 1 && part == nullptr) || split_keys % DEC_THREADS != 0 ||
+                 (long long)nsplit * split_keys < span))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.q = static_cast<const bf16*>(q);
   a.out = static_cast<bf16*>(out);
@@ -470,11 +914,15 @@ int full_cache_attention(const void* q, const void* k, const void* v, const void
   a.T0 = T;
   a.nkeys = span;
   a.scale = scale;
+  a.part = static_cast<float*>(part);
+  a.nsplit = nsplit;
+  a.split_keys = split_keys;
   return launch<MODE_FULL>(a, B, static_cast<cudaStream_t>(stream));
 }
 
 // q [B, S, Hq, D]; k/v_sink [B, Hs, Ts, D]; k/v_ring [B, Hs, R, D] (already
-// holding the chunk); cs and total [B] (or one value, stride 0).
+// holding the chunk); cs and total [B] (or one value, stride 0). A decode
+// block sees at most sink + recent + 1 keys and walks them alone.
 int streaming_cache_attention(const void* q, const void* k_sink, const void* v_sink,
                               const void* k_ring, const void* v_ring, const void* cs,
                               int cs_stride, const void* total, int total_stride, void* out,
@@ -502,6 +950,8 @@ int streaming_cache_attention(const void* q, const void* k_sink, const void* v_s
   a.sink = sink;
   a.recent = recent;
   a.scale = scale;
+  a.nsplit = 1;
+  a.split_keys = 1 << 30;  // one block walks the whole visible range
   return launch<MODE_STREAM>(a, B, static_cast<cudaStream_t>(stream));
 }
 

@@ -16,6 +16,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 # [in, out] in the JAX tree -> [out, in] here
 _TRANSPOSED = frozenset(("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
 _AS_IS = frozenset(("embed", "final_norm", "input_norm", "post_norm", "bq", "bk", "bv"))
@@ -41,10 +43,13 @@ def _convert(name: str, arr, device, dtype) -> torch.Tensor:
     return torch.tensor(arr, dtype=dtype, device=device)
 
 
-def params_from_numpy(tree: Mapping[str, Any], device="cpu", dtype=torch.float32) -> dict:
+def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=torch.float32) -> dict:
     """tree: the JAX params pytree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``). Returns the port's
-    params dict on ``device`` in ``dtype``."""
+    params dict on ``device`` in ``dtype``. Like every entry point of the
+    port it defaults to the card and raises without one; pass
+    ``device="cpu"`` for the plain path."""
+    device = resolve_device(device)
     out = {name: _convert(name, arr, device, dtype) for name, arr in tree.items() if name != "layers"}
     out["layers"] = [
         {name: _convert(name, arr, device, dtype) for name, arr in layer.items()}

@@ -5,8 +5,10 @@ Counterpart of duo_attention_tpu/ops/flash.py (``full_cache_attention``,
 plain PyTorch version, which runs the float32 oracle of ops/attention_ref.py
 on the same masks, and a CUDA kernel in ``csrc/flash.cu`` or
 ``csrc/flash_q4.cu`` (a prefill kernel for S > 1 and a decode kernel for
-S == 1). The wrapper takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; a launch failure raises. Counters:
+S == 1; the full-head decode kernels split the key range over blocks by a
+plan made from the bucket, and merge). The wrapper takes the plain version
+for CPU tensors and launches the kernel for CUDA tensors; a launch failure
+raises. Counters:
 ``<wrapper>.prefill_launches`` and ``<wrapper>.decode_launches`` count
 kernel launches, ``<plain>.cuda_calls`` counts plain calls on CUDA tensors.
 
@@ -38,7 +40,8 @@ from .quant import dequantize_int4_paired
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P],
+    "decode_partial_floats": [],
     "streaming_cache_attention": [
         _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
@@ -56,6 +59,14 @@ _PLAIN_ROWS = 512
 # The INT4 decode kernel splits the key range over blocks: about this many
 # keys per block, at most this many blocks per (sequence, KV head).
 Q4_SPLIT_KEYS, Q4_MAX_SPLITS = 512, 32
+# The bf16 decode kernel's split plan (``decode_split_plan``): a block walks
+# its keys in tiles of DECODE_TILE_KEYS; a span up to DECODE_ONE_BLOCK_SPAN is
+# one block's work; past it the plan aims at DECODE_TARGET_BLOCKS blocks per
+# launch (two for each of the H100's 132 SMs) with at least
+# DECODE_MIN_SPLIT_KEYS keys and at most DECODE_MAX_SPLITS splits a head.
+DECODE_TILE_KEYS = 128
+DECODE_ONE_BLOCK_SPAN, DECODE_MIN_SPLIT_KEYS, DECODE_MAX_SPLITS = 512, 256, 64
+DECODE_TARGET_BLOCKS = 264
 
 
 def _lib():
@@ -69,6 +80,25 @@ def _lib_q4():
 def _span(bucket: int, T: int) -> int:
     """Keys the op may read: the engine's bucket (>= cs + S), or the buffer."""
     return T if bucket <= 0 else min(bucket, T)
+
+
+def decode_split_plan(span: int, heads: int) -> tuple[int, int]:
+    """(nsplit, split_keys) for the bf16 decode kernel over ``span`` keys and
+    ``heads`` = B * Hkv (sequence, KV head) pairs: split s walks keys
+    [s * split_keys, (s + 1) * split_keys).
+
+    Made from the span alone (the engine's bucket, a host integer), never from
+    the cache lengths on the device, so launching reads nothing back and a
+    decode step can be captured into a CUDA graph; a sequence shorter than the
+    span leaves its last splits empty. ``split_keys`` is a multiple of the
+    kernel's tile and ``nsplit * split_keys >= span``."""
+    tile = DECODE_TILE_KEYS
+    nsplit = 1
+    if span > DECODE_ONE_BLOCK_SPAN:
+        wanted = -(-DECODE_TARGET_BLOCKS // max(heads, 1))
+        nsplit = max(1, min(wanted, DECODE_MAX_SPLITS, span // DECODE_MIN_SPLIT_KEYS))
+    split_keys = -(-max(span, 1) // (nsplit * tile)) * tile
+    return -(-max(span, 1) // split_keys), split_keys
 
 
 def _check_kernel_inputs(name: str, q: torch.Tensor, bufs, Hkv: int) -> None:
@@ -161,11 +191,19 @@ def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
     if tuple(k.shape) != (B, Hkv, T, D) or tuple(v.shape) != (B, Hkv, T, D):
         raise ValueError(f"full_cache_attention: k {tuple(k.shape)} v {tuple(v.shape)} for q {tuple(q.shape)}")
     cs_t, cs_stride = device_positions(cs, B, q.device)
+    span = _span(bucket, T)
     out = torch.empty_like(q)
     lib = _lib()
+    part, nsplit, split_keys = None, 0, 0
+    if S == 1:
+        nsplit, split_keys = decode_split_plan(span, B * Hkv)
+        if nsplit > 1:  # the splits' (acc, m, l); one split writes the output itself
+            part = torch.empty(B * Hq * nsplit * lib.decode_partial_floats(),
+                               dtype=torch.float32, device=q.device)
     err = lib.full_cache_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride, out.data_ptr(),
-        B, S, Hq, Hkv, T, _span(bucket, T), D, D**-0.5,
+        B, S, Hq, Hkv, T, span, D, D**-0.5,
+        None if part is None else part.data_ptr(), nsplit, split_keys,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "full_cache_attention")

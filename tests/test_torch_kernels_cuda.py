@@ -7,7 +7,8 @@ These need a GPU and nvcc; elsewhere they skip. On a machine with a card
 
 chip_smoke.py holds the kernels to the plain versions at the main path's
 shapes; these cover the shapes it does not reach: ragged query tiles, query
-groups of 1, 2 and 8, no sink, small rings that wrap, per-sequence lengths,
+groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, decode
+split plans with one, full and empty splits, capture into a CUDA graph,
 odd and even token parity in the INT4 cache, every route and tile boundary of
 the int8 matrix product, and the wrappers' refusals.
 """
@@ -48,6 +49,16 @@ def assert_bf16_close(got, want):
     (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8
     (3, 1, 8, 4, 768, [0, 766, 5], 768),  # decode, per-sequence lengths
     (2, 130, 4, 2, 4096, [1000, 3000], 4096),
+    (1, 1000, 8, 2, 2048, 517, 2048),  # S not a multiple of the 128-row query tile, odd start
+    (1, 65, 4, 4, 512, 0, 512),  # the second warpgroup of the tile holds one row; G = 1
+    (4, 256, 16, 2, 2048, [0, 100, 1024, 1792], 2048),  # B = 4, G = 8
+    (1, 192, 4, 1, 1024, 832, 0),  # bucket 0: the whole buffer; the chunk ends at its end
+    (1, 1, 4, 4, 512, 511, 512),  # decode, G = 1, one split, the last slot
+    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, G = 4, every split full
+    (1, 1, 16, 4, 16384, 16001, 16384),  # decode, an odd tail: the last tile holds two keys
+    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, G = 8, B = 3, mixed lengths: empty splits
+    (2, 1, 8, 2, 4096, [700, 4095], 0),  # decode, bucket 0: the plan comes from the buffer
+    (1, 1, 12, 4, 1536, 0, 1536),  # decode, G = 3, one key in all: two of three splits empty
 ])
 def test_full_cache_attention_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -66,6 +77,11 @@ def test_full_cache_attention_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     (1, 130, 2, 2, 0, 16, 130, 512, 1000),  # no sink, ragged tile, G = 1
     (2, 1, 16, 2, 64, 256, 4096, 4608, [3, 9000]),  # decode, G = 8
     (3, 1, 4, 1, 16, 32, 64, 128, [0, 17, 500]),
+    (1, 256, 8, 2, 64, 256, 256, 512, 1900),  # tokens 1900..2155 cross the wrap at 2048 = 4 * R
+    (2, 200, 4, 4, 64, 256, 256, 512, [900, 1500]),  # ragged tile, G = 1, one walk wraps
+    (1, 100, 8, 2, 64, 256, 128, 512, 10),  # cs < sink: the chunk fills the sink as it goes
+    (2, 65, 16, 2, 4, 8, 128, 256, [0, 1000]),  # G = 8, a one-row warpgroup, tiny window
+    (1, 1, 4, 4, 64, 256, 4096, 4608, 40),  # decode before the sink is full, G = 1
 ])
 def test_streaming_cache_attention_kernel(dev, B, S, Hq, Hs, sink, recent, chunk, R, cs):
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -77,6 +93,35 @@ def test_streaming_cache_attention_kernel(dev, B, S, Hq, Hs, sink, recent, chunk
     want = flash.streaming_cache_attention_plain(q, *bufs, cs, cs + S, sink, recent)
     torch.cuda.synchronize()
     assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 192])
+def test_attention_kernels_capture_into_a_cuda_graph(dev, S):
+    """Launching reads nothing back from the device (lengths stay there; the
+    decode split plan comes from the bucket): both wrappers are captured on a
+    side stream, twice each, and the replay gives the eager result."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, Hq, Hkv, T, sink, recent, R = 2, 8, 2, 4096, 64, 256, 512
+    q = randn(gen, B, S, Hq, 128, mul=Q_PEAK)
+    k, v = randn(gen, B, Hkv, T, 128), randn(gen, B, Hkv, T, 128)
+    bufs = [randn(gen, B, Hkv, sink + 256, 128), randn(gen, B, Hkv, sink + 256, 128),
+            randn(gen, B, Hkv, R, 128), randn(gen, B, Hkv, R, 128)]
+    cs = torch.tensor([3000, 3800], dtype=torch.int32, device=dev)
+    tot = cs + S
+    want = (flash.full_cache_attention(q, k, v, cs, bucket=T),
+            flash.streaming_cache_attention(q, *bufs, cs, tot, sink, recent))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # captures on a side stream
+        for _ in range(2):
+            got = (flash.full_cache_attention(q, k, v, cs, bucket=T),
+                   flash.streaming_cache_attention(q, *bufs, cs, tot, sink, recent))
+    for g in got:
+        g.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert_bf16_close(got[0], flash.full_cache_attention_plain(q, k, v, cs, bucket=T))
 
 
 @pytest.mark.parametrize("pos", [0, 511, 600, [3, 0, 511], [-4, 1000, 17]])

@@ -160,9 +160,9 @@ def test_quantize_params_and_embeddings_are_bitwise_jax():
             np.testing.assert_array_equal(cl[name + "_q8"].numpy(), np.asarray(jl[name + "_q8"]).T)
             np.testing.assert_array_equal(tl[name + "_scale"].numpy(), np.asarray(jl[name + "_scale"]))
     with pytest.raises(ValueError, match="must be int8"):
-        params_from_numpy({"final_norm": np.ones(4), "layers": [{"wq_q8": np.ones((4, 4), np.float32)}]})
+        params_from_numpy({"final_norm": np.ones(4), "layers": [{"wq_q8": np.ones((4, 4), np.float32)}]}, "cpu")
     with pytest.raises(ValueError, match="no counterpart"):
-        params_from_numpy({"final_norm": np.ones(4), "layers": [{"moe_gate_q8": np.ones((4, 4), np.int8)}]})
+        params_from_numpy({"final_norm": np.ones(4), "layers": [{"moe_gate_q8": np.ones((4, 4), np.int8)}]}, "cpu")
 
 
 @pytest.mark.parametrize("quantize_embeds", [False, True])
