@@ -18,7 +18,8 @@ result):
      attention held to
      flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes and the int8
      matrix product bitwise; times of the kernel, the plain version and one
-     library call (SDPA, index_copy_, torch._int_mm), and the bound.
+     library call (SDPA, index_copy_, torch._int_mm; x padded to 17 rows below
+     M = 17), each as Python issues it and on the device alone, and the bound.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
@@ -146,13 +147,15 @@ class Recorder:
         self.results = {}
 
     def record(self, name, case, err, ok, times, bound, ratio=0.0, main=False, **extra):
-        ms, device_ms, plain_ms, lib_ms = times
+        ms, device_ms, plain_ms, lib_ms, lib_device_ms = times
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms (device {lib_device_ms:.4f})"
         log(f"  {name:34s} {case:28s} err {err:.3e} (err/tol {ratio:.3f}) {'ok ' if ok else 'BAD'} "
             f"kernel {ms:.4f} ms (device {device_ms:.4f})  plain {plain_ms:.4f} ms  "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  bound {bound[0]:.4f} ms ({bound[1]})")
+            f"library {lib}  bound {bound[0]:.4f} ms ({bound[1]})")
         self.results.setdefault(name, []).append(dict(
             case=case, max_abs_err=err, err_over_tol=ratio, ok=ok, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound[0], bound_by=bound[1], main=main, **extra))
+            library_ms=lib_ms, library_device_ms=lib_device_ms, bound_ms=bound[0], bound_by=bound[1], main=main,
+            **extra))
         require(ok, f"{name} {case}: kernel disagrees with its plain version (max err {err})")
 
 
@@ -160,14 +163,18 @@ def timed(kernel, plain, library=None):
     """Milliseconds per call: (the kernel as Python issues it, mean of ITERS
     back-to-back calls between CUDA events; the kernel on the device alone,
     replayed from a CUDA graph, which for the decode-sized kernels is much
-    less; the plain version; the library call where there is one)."""
+    less; the plain version; the library call where there is one, as Python
+    issues it and on the device alone, measured as the kernel is)."""
     from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
     ms = cuda_time_ms(kernel, iters=ITERS, warmup=1)
     device_ms = cuda_graph_time_ms(kernel)
     plain_ms = cuda_time_ms(plain, iters=ITERS // 3, warmup=1)
-    lib_ms = None if library is None else cuda_time_ms(library, iters=ITERS, warmup=1)
-    return ms, device_ms, plain_ms, lib_ms
+    lib_ms = lib_device_ms = None
+    if library is not None:
+        lib_ms = cuda_time_ms(library, iters=ITERS, warmup=1)
+        lib_device_ms = cuda_graph_time_ms(library, calls=3)
+    return ms, device_ms, plain_ms, lib_ms, lib_device_ms
 
 
 def _attn_tol_ok(got, want, q4=False):
@@ -436,12 +443,12 @@ def phase_kernels_w8a8kv4(rec):
         ok = torch.equal(got, want)
         err = float((got.float() - want.float()).abs().max())
         nbytes = M * K + N * K + 4 * (M + N) + M * N * got.element_size()
-        # torch._int_mm takes M > 16 only (and K, N multiples of 8): no library call below that
-        library = None
-        if M > 16:
-            wt = wq.t()
-            library = lambda: ((torch._int_mm(xq, wt).float() * xs) * ws).to(out_dtype)  # noqa: E731
-            require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
+        # torch._int_mm takes M > 16 only (and K, N multiples of 8): below that x is
+        # padded with zero rows to 17 and the first M rows of the result kept
+        wt = wq.t()
+        xp = xq if M > 16 else torch.cat([xq, xq.new_zeros(17 - M, K)])
+        library = lambda: ((torch._int_mm(xp, wt)[:M].float() * xs) * ws).to(out_dtype)  # noqa: E731
+        require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
         times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype),
                                      lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
         name = "w8a8_matmul." + route
@@ -561,6 +568,7 @@ def phase_kernels_w8a8kv4(rec):
         )
         record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
                main=case in ("prefill cs=12288", "decode cs=16000"), library_dequant_ms=dequant_ms)
+        log(f"    device ms: kernel {times[1]:.4f} against dequantize + SDPA {dequant_ms + times[4]:.4f}")
         del kd, vd, k_cat, v_cat, mask
     del kq, ks, vq, vs
     torch.cuda.synchronize()
@@ -902,7 +910,8 @@ def main():
             replaces=REPLACES[name], launches=sum(launches.values()), launches_by_format=launches,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=head["library_ms"], case=head["case"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"], library_device_ms=head["library_device_ms"],
+            case=head["case"],
         ))
     require(len(line) == len(REPLACES), f"kernels line has {len(line)} entries, expected {len(REPLACES)}")
     out_dir = os.path.join(REPO, "chiprun_out")

@@ -21,11 +21,47 @@
 // scale_odd, zp_even, zp_odd).
 //
 // Two kernels:
-//   * prefill (S > 1): one block of 4 warps per (64-query tile, query head, b),
-//     as csrc/flash.cu's prefill kernel. A tile of 64 keys is 32 packed rows;
-//     they are unpacked to bf16 in shared memory once per block, so Q.K^T and
-//     P.V run on the tensor cores through WMMA. Bound: operations at long
-//     context (4*D flops per visible pair).
+//   * prefill (S > 1) is bound by operations at long context (4*D flops per
+//     visible (query, key) pair, as the bf16 kernel: it reads a quarter of the
+//     bytes and does the same products). It is csrc/flash.cu's prefill design
+//     with an unpacking producer in front: two consumer warpgroups of 64
+//     query rows run S = Q.K^T (`wgmma` m64n128k16, Q and K K-major in the
+//     128-byte swizzle), the online softmax on the accumulator's registers
+//     and O += P.V (`wgmma`, P from registers, V through the transpose bit);
+//     O, m, l and the zero-point sum stay in registers for the whole walk,
+//     S(it+1) and P.V(it) are started together, and the steady-state loop has
+//     no branch around a `wgmma` or its wait. The producer warpgroup turns a
+//     128-key tile (64 packed rows of 128 bytes for K and as many for V, 16 KB)
+//     into bf16 nibbles written straight into the swizzled stage the
+//     consumers read: 0x4300 | n is the bf16 128 + n, and one bf16x2 fma
+//     subtracts 128 from two of them exactly, so a byte becomes two bf16 in
+//     a few integer operations and no int-to-float conversion. Shared memory
+//     decides the ring: Q is 32 KB and a bf16 K or V tile 32 KB, so three
+//     bf16 stages of K and V with a packed ring beside them do not fit.
+//     K and V therefore have two bf16 stages each, handed over by their own
+//     `mbarrier`s: a K stage is free as soon as S of its tile is complete
+//     (S lives in registers from then), a V stage when P.V is, so the
+//     producer unpacks K(it+2) and V(it+1) while the consumers work on tile
+//     it+1. `cp.async` keeps the packed tiles of the two tiles after the one
+//     being unpacked in flight in a ring of three packed stages (16 KB each).
+//     The tile's scales travel beside it as float4 (scale, scale, zp, zp of a
+//     key pair: one shared load gives a thread both its columns) in a ring of
+//     four; consumers apply them per accumulator column: s * ks + qsum * kz
+//     before the max, p * vs before the bf16 rounding, p * vz summed per row
+//     beside l. Packed rows past the frontier are zero-filled and the scales
+//     of every key at or past it are 0, so a NaN in the uninitialised cache
+//     never meets a 0 weight; keys are masked one by one (an odd frontier
+//     splits a byte pair). 2^x on (s - m) * log2(e) replaces e^(s - m).
+//     Registers: the producer keeps 72 after `setmaxnreg` and unpacks four
+//     16-byte pieces at once, the consumers keep 216 (2 * 128 * 216 + 128 *
+//     72 = 168 a thread at launch, the pool the block has); 40 and one piece
+//     at a time was 11% slower (scripts/q4_prefill_variants.py). What still
+//     holds it back: with two stages of each, the producer has one consumer
+//     iteration to unpack a tile and no slack: on an H100 the walk takes 1.42
+//     ms at the main path's shape, where the consumers alone (the unpack left
+//     out) take 1.25-1.28 and the bf16 kernel 0.98-0.99; and, as there, a
+//     warpgroup's softmax (here with the scales' two extra multiplies a score)
+//     mostly follows its products.
 //   * decode (S == 1): bound by bytes (each visible packed row read once, D
 //     bytes per token for K and V together). The key range is SPLIT over
 //     blockIdx.z so that B * Hkv * nsplit blocks run, not B * Hkv; each block
@@ -40,16 +76,19 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+using namespace hopper;
+
 constexpr int D = 128;  // head_dim of every preset
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const bf16* q;      // [B, S, Hq, D]
@@ -79,209 +118,438 @@ __device__ __forceinline__ void token_scales(const bf16* s4, int T2, int j, floa
 }
 
 // ---------------------------------------------------------------------------
-// Prefill: WMMA tiles over keys unpacked to bf16 in shared memory
+// Prefill: an unpacking producer and two wgmma consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64, BK = 64, NWARP = 4;
-constexpr int LDK = D + 8, LDS = BK + 4, LDP = BK + 8, LDO = D + 4;
-constexpr size_t PREFILL_SMEM = sizeof(bf16) * (BQ * LDK + 2 * BK * LDK + BQ * LDP) +
-                                sizeof(float) * (BQ * LDS + BQ * LDO + 3 * BQ + 4 * BK);
+constexpr int NWG = 2;  // consumer warpgroups a block, 64 query rows each
+constexpr int BQ = 64 * NWG, BK = 128;
+constexpr int PF_THREADS = 128 * (NWG + 1);  // and one producer warpgroup that unpacks K/V
+constexpr int PANEL = 64 * 128;  // 64 rows of 64 bf16 in the 128-byte swizzle
+constexpr int Q_BYTES = NWG * 2 * PANEL;
+constexpr int KPANEL = BK * 128;  // BK keys x 64 channels
+constexpr int TILE_BYTES = 2 * KPANEL;  // a K or V tile in bf16: channel panels 0, 1
+constexpr int NBUF = 2;  // bf16 stages of K, and of V
+constexpr int PROWS = BK / 2;  // packed rows a tile
+constexpr int PACK_BYTES = PROWS * D;  // a packed K or V tile
+constexpr int NPACK = 3, LOOKAHEAD = NPACK - 1;  // packed stages; tiles in flight ahead of the unpack
+constexpr int NSCALE = 4;  // scale slots: float4 (scale_even, scale_odd, zp_even, zp_odd) per pair, K then V
+constexpr int SCALE_BYTES = 2 * PROWS * 16;
+constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + NBUF * TILE_BYTES, P_OFF = V_OFF + NBUF * TILE_BYTES;
+constexpr int S_OFF = P_OFF + NPACK * 2 * PACK_BYTES, BAR_OFF = S_OFF + NSCALE * SCALE_BYTES;
+// + 4 * NBUF barriers of 8 bytes, + room to align to 1024
+constexpr int PREFILL_SMEM = BAR_OFF + 4 * NBUF * 8 + 1024;
+static_assert(PREFILL_SMEM <= 232448, "the block's shared memory exceeds the SM's");
+constexpr uint32_t BF16X2_128 = 0x43004300u;  // (128, 128)
 
-// 16 packed bytes (16 channels of a token pair) -> 16 bf16 of the even token
-// and 16 of the odd one.
-__device__ __forceinline__ void unpack16(const uint4& raw, bf16* even, bf16* odd) {
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-  __align__(16) bf16 e[16];
-  __align__(16) bf16 o[16];
-#pragma unroll
-  for (int u = 0; u < 16; ++u) {
-    e[u] = __float2bfloat16(static_cast<float>(b[u] & 0xF));
-    o[u] = __float2bfloat16(static_cast<float>(b[u] >> 4));
-  }
-  reinterpret_cast<uint4*>(even)[0] = reinterpret_cast<const uint4*>(e)[0];
-  reinterpret_cast<uint4*>(even)[1] = reinterpret_cast<const uint4*>(e)[1];
-  reinterpret_cast<uint4*>(odd)[0] = reinterpret_cast<const uint4*>(o)[0];
-  reinterpret_cast<uint4*>(odd)[1] = reinterpret_cast<const uint4*>(o)[1];
+// Two nibbles, in bits 0-3 and 16-19 of x (other bits anything), to two bf16
+// in one word: (0x4300 | n) is the bf16 128 + n, and (128 + n) * 1 - 128 is
+// n, exact in one fma.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t x) {
+  const uint32_t biased = (x & 0x000F000Fu) | BF16X2_128;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(out) : "r"(biased), "r"(0x3F803F80u), "r"(0xC300C300u));
+  return out;
 }
 
-__global__ void __launch_bounds__(NWARP * 32) prefill_q4_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][LDK]
-  bf16* sK = sQ + BQ * LDK;                   // [BK][LDK] nibbles as bf16
-  bf16* sV = sK + BK * LDK;                   // [BK][LDK]
-  bf16* sP = sV + BK * LDK;                   // [BQ][LDP]
-  float* sS = reinterpret_cast<float*>(sP + BQ * LDP);  // [BQ][LDS]
-  float* sO = sS + BQ * LDS;                  // [BQ][LDO]
-  float* sM = sO + BQ * LDO;                  // [BQ]
-  float* sL = sM + BQ;                        // [BQ]
-  float* sZ = sL + BQ;                        // [BQ] sum of p * v zero-point
-  float* sKs = sZ + BQ;                       // [BK] per-key scales of this tile
-  float* sKz = sKs + BK;
-  float* sVs = sKz + BK;
-  float* sVz = sVs + BK;
+// Four packed bytes (channels d..d+3 of a token pair) to the even token's
+// four bf16 (two words) and the odd token's.
+__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t& e01, uint32_t& e23, uint32_t& o01,
+                                            uint32_t& o23) {
+  const uint32_t b01 = __byte_perm(w, 0u, 0x4140u);  // byte 0 in bits 0-7, byte 1 in bits 16-23
+  const uint32_t b23 = __byte_perm(w, 0u, 0x4342u);
+  e01 = nibbles_to_bf16x2(b01);
+  e23 = nibbles_to_bf16x2(b23);
+  o01 = nibbles_to_bf16x2(b01 >> 4);
+  o23 = nibbles_to_bf16x2(b23 >> 4);
+}
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // panels need 1024-byte alignment (the swizzle pattern repeats every 1024 bytes)
+  unsigned char* base = smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
+  const uint32_t base_addr = smem_addr(base);
+  // kfull/vfull[s]: the K/V tile in bf16 stage s is written (one arrival per
+  // producer thread); kempty/vempty[s]: every consumer warp is done with it
+  const uint32_t kfull = base_addr + BAR_OFF, kempty = kfull + 8 * NBUF;
+  const uint32_t vfull = kempty + 8 * NBUF, vempty = vfull + 8 * NBUF;
+
+  // the heaviest query tiles (the latest positions) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int cs = a.cs[b * a.cs_stride];
   const int rows = min(BQ, a.S - q0);
-  const float sc = bf16_scale(a.scale);
-  const size_t bh = (size_t)b * a.Hkv + hk;
-  const uint8_t* kq = a.kq + bh * a.T2 * D;
-  const uint8_t* vq = a.vq + bh * a.T2 * D;
-  const bf16* ks = a.ks + bh * 4 * a.T2;
-  const bf16* vs = a.vs + bh * 4 * a.T2;
+  const int kend = min(a.nkeys, cs + q0 + rows);  // last query position + 1
+  const int ntiles = (kend + BK - 1) / BK;
 
-  for (int i = tid; i < BQ * (D / 8); i += NWARP * 32) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < NBUF; ++st) {
+      mbar_init(kfull + 8 * st, 128);
+      mbar_init(vfull + 8 * st, 128);
+      mbar_init(kempty + 8 * st, 4 * NWG);
+      mbar_init(vempty + 8 * st, 4 * NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // The producer: packed tiles land by cp.async LOOKAHEAD tiles ahead; each
+    // is unpacked into the bf16 stage of K, then of V, once the consumers
+    // have freed it. The scales of the next tile wait in registers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    const int ptid = tid & 127;
+    const size_t bh = (size_t)b * a.Hkv + hk;
+    const uint8_t* kq = a.kq + bh * a.T2 * D;
+    const uint8_t* vq = a.vq + bh * a.T2 * D;
+    const unsigned short* ks = reinterpret_cast<const unsigned short*>(a.ks) + bh * 4 * a.T2;
+    const unsigned short* vs = reinterpret_cast<const unsigned short*>(a.vs) + bh * 4 * a.T2;
+    const int krows = (kend + 1) / 2;  // packed rows that hold a key below kend
+    // packed tile t into its ring slot: 16 neighbouring bytes a thread, a
+    // row of 128 bytes for 8 threads; rows at or past krows are zeros
+    auto copy_packed = [&](int t) {
+      if (t < ntiles) {
+        const uint32_t dst = base_addr + P_OFF + (t % NPACK) * 2 * PACK_BYTES;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = ptid + 128 * u, r = i >> 3, c = i & 7;
+          const int pr = t * PROWS + r;
+          const bool in = pr < krows;
+          const size_t off = in ? (size_t)pr * D + c * 16 : 0;
+          cp_async16(dst + i * 16, kq + off, in ? 16 : 0);
+          cp_async16(dst + PACK_BYTES + i * 16, vq + off, in ? 16 : 0);
+        }
+      }
+      cp_async_commit();  // an empty group past the last tile keeps the count
+    };
+    // the scale bits of tile t this thread carries: entries ptid and
+    // ptid + 128 of the K block [4][PROWS] (row q, pair r), then of V; 0 for
+    // a key at or past kend
+    auto load_scales = [&](int t, uint32_t (&bits)[4]) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = ptid + 128 * (u & 1), q = i / PROWS, r = i % PROWS;
+        const int j = t * BK + 2 * r + (q & 1);
+        const unsigned short* s4 = u < 2 ? ks : vs;
+        bits[u] = (t < ntiles && j < kend) ? __ldg(s4 + (size_t)q * a.T2 + t * PROWS + r) : 0u;
+      }
+    };
+    // one packed tile (K or V) into a bf16 stage: 16 packed bytes a step,
+    // channels 16p..16p+15 of packed row r, become 16 bf16 of key 2r and of
+    // key 2r + 1, two 16-byte pieces each in channel panel p / 4
+    auto unpack_tile = [&](const unsigned char* src, unsigned char* dst) {
+#pragma unroll 4
+      for (int u = 0; u < 4; ++u) {
+        const int i = ptid + 128 * u, r = i >> 3, p = i & 7;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + i * 16);
+        uint4 e0, e1, o0, o1;
+        unpack_word(raw.x, e0.x, e0.y, o0.x, o0.y);
+        unpack_word(raw.y, e0.z, e0.w, o0.z, o0.w);
+        unpack_word(raw.z, e1.x, e1.y, o1.x, o1.y);
+        unpack_word(raw.w, e1.z, e1.w, o1.z, o1.w);
+        unsigned char* panel = dst + (p >> 2) * KPANEL;
+        const int c = (2 * p) & 7;
+        *reinterpret_cast<uint4*>(panel + swz(2 * r, c)) = e0;
+        *reinterpret_cast<uint4*>(panel + swz(2 * r, c + 1)) = e1;
+        *reinterpret_cast<uint4*>(panel + swz(2 * r + 1, c)) = o0;
+        *reinterpret_cast<uint4*>(panel + swz(2 * r + 1, c + 1)) = o1;
+      }
+    };
+
+#pragma unroll 1
+    for (int t = 0; t < LOOKAHEAD; ++t) copy_packed(t);
+    uint32_t bits[4];
+    load_scales(0, bits);
+#pragma unroll 1
+    for (int t = 0; t < ntiles; ++t) {
+      cp_async_wait<LOOKAHEAD - 1>();  // this thread's copies of packed tile t have landed
+      // ... and every producer thread's; all are done unpacking tile t - 1, whose slot is refilled next
+      asm volatile("bar.sync 3, 128;\n" ::: "memory");
+      copy_packed(t + LOOKAHEAD);
+      const int buf = t % NBUF;
+      const unsigned char* packed = base + P_OFF + (t % NPACK) * 2 * PACK_BYTES;
+      // K: the stage's previous tile has been multiplied by every consumer warp
+      if (t >= NBUF) mbar_wait(kempty + 8 * buf, (t / NBUF + 1) & 1);
+      unpack_tile(packed, base + K_OFF + buf * TILE_BYTES);
+      // the scales go with K (the consumers' softmax reads them); their slot's
+      // last reader finished before the K stage above was released
+      float* sc = reinterpret_cast<float*>(base + S_OFF + (t % NSCALE) * SCALE_BYTES);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = ptid + 128 * (u & 1), q = i / PROWS, r = i % PROWS;
+        sc[(u >> 1) * PROWS * 4 + r * 4 + q] = __uint_as_float(bits[u] << 16);
+      }
+      fence_proxy_async();
+      mbar_arrive(kfull + 8 * buf);
+      load_scales(t + 1, bits);  // in flight under the V unpack and the next wait
+      if (t >= NBUF) mbar_wait(vempty + 8 * buf, (t / NBUF + 1) & 1);
+      unpack_tile(packed + PACK_BYTES, base + V_OFF + buf * TILE_BYTES);
+      fence_proxy_async();
+      mbar_arrive(vfull + 8 * buf);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  unsigned char* sQ = base;
+  const uint32_t sQ_addr = base_addr;
+  const float sc = bf16_scale(a.scale);
+  // Q of this warpgroup's 64 rows, scaled in bf16, into its two swizzled panels; rows past S are zero
+  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
+    const int r = i >> 4, c = i & 15;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
-      val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + r) * a.Hq + h) * D + c);
+    if (wg * 64 + r < rows) {
+      val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + wg * 64 + r) * a.Hq + h) * D + c * 8);
       bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
       for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(__bfloat162float(e[u]) * sc);
     }
-    *reinterpret_cast<uint4*>(sQ + r * LDK + c) = val;
+    *reinterpret_cast<uint4*>(sQ + (wg * 2 + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
   }
-  for (int i = tid; i < BQ * LDO; i += NWARP * 32) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += NWARP * 32) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-    sZ[i] = 0.f;
-  }
-  __syncthreads();
+  fence_proxy_async();  // wgmma may read what was stored
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the warpgroup's own barrier
 
-  // rowsum of the scaled q, for the key zero-point term; lanes 2r and 2r+1
-  // share row r of the warp, as in the softmax below.
-  const int my_row = warp * 16 + (lane >> 1);
-  float qsum = 0.f;
-  {
-    const bf16* qrow = sQ + my_row * LDK + (lane & 1) * (D / 2);
-    for (int d = 0; d < D / 2; ++d) qsum += __bfloat162float(qrow[d]);
-    qsum += __shfl_xor_sync(0xffffffffu, qsum, 1);
-  }
-
-  const int kend = min(a.nkeys, cs + q0 + rows);  // last query position + 1
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < (BK / 2) * (D / 16); i += NWARP * 32) {
-      const int pr = i / (D / 16), c = (i % (D / 16)) * 16;
-      const int j = k0 + 2 * pr;
-      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
-      if (j < kend) {
-        kraw = *reinterpret_cast<const uint4*>(kq + (size_t)(j >> 1) * D + c);
-        vraw = *reinterpret_cast<const uint4*>(vq + (size_t)(j >> 1) * D + c);
-      }
-      unpack16(kraw, sK + (2 * pr) * LDK + c, sK + (2 * pr + 1) * LDK + c);
-      unpack16(vraw, sV + (2 * pr) * LDK + c, sV + (2 * pr + 1) * LDK + c);
-    }
-    if (tid < BK) {
-      const int j = k0 + tid;
-      float s0 = 0.f, z0 = 0.f, s1 = 0.f, z1 = 0.f;
-      if (j < kend) {
-        token_scales(ks, a.T2, j, s0, z0);
-        token_scales(vs, a.T2, j, s1, z1);
-      }
-      sKs[tid] = s0;
-      sKz[tid] = z0;
-      sVs[tid] = s1;
-      sVz[tid] = z1;
-    }
-    __syncthreads();
-
-    // raw scores (q * scale) . Kq for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  // This thread's two rows of its warpgroup's 64: r0 and r0 + 8. In a
+  // 64 x N accumulator, element 4j + e lies in row r0 + 8 * (e >> 1) and
+  // column 8j + 2 * (lane & 3) + (e & 1).
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qrow0 = q0 + wg * 64 + r0;  // row in the chunk
+  const int qpos0 = cs + qrow0;
+  const int wg_qmin = cs + q0 + wg * 64, wg_qmax = wg_qmin + 63;
+  const int cq = 2 * (lane & 3);
+  // rowsum of the scaled q of rows r0 and r0 + 8 (the key zero-point's
+  // weight): each lane of the quad sums 32 channels, then the quad
+  float qs0 = 0.f, qs1 = 0.f;
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int pc = 0; pc < 4; ++pc) {
+    const int c = (lane & 3) * 4 + pc;  // 8-channel piece 0..15
+    const unsigned char* panel = sQ + (wg * 2 + (c >> 3)) * PANEL;
+    const uint4 v0 = *reinterpret_cast<const uint4*>(panel + swz(r0, c & 7));
+    const uint4 v1 = *reinterpret_cast<const uint4*>(panel + swz(r0 + 8, c & 7));
+    const bf16* e0 = reinterpret_cast<const bf16*>(&v0);
+    const bf16* e1 = reinterpret_cast<const bf16*>(&v1);
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sQ + warp * 16 * LDK + kk, LDK);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, sK + n * 16 * LDK + kk, LDK);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Dequantize the scores, online softmax, p * v-scale to bf16.
-    {
-      const int r = my_row;
-      const int c0 = (lane & 1) * (BK / 2);
-      const int qpos = cs + q0 + r;
-      float* srow = sS + r * LDS;
-      float mx = NEG_INF;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = k0 + c;
-        if (j < kend && j <= qpos) {
-          const float s = srow[c] * sKs[c] + qsum * sKz[c];
-          srow[c] = s;
-          mx = fmaxf(mx, s);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_prev = sM[r];
-      const float m_next = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_next);
-      float sum = 0.f, zsum = 0.f;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = k0 + c;
-        float p = 0.f;
-        if (j < kend && j <= qpos) p = expf(srow[c] - m_next);
-        sum += p;
-        zsum += p * sVz[c];
-        sP[r * LDP + c] = __float2bfloat16(p * sVs[c]);
-      }
-      // Both lanes of the pair have read sM[r] before either passes this shuffle.
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      zsum += __shfl_xor_sync(0xffffffffu, zsum, 1);
-      const int d0 = (lane & 1) * (D / 2);
-      for (int d = d0; d < d0 + D / 2; ++d) sO[r * LDO + d] *= alpha;
-      if ((lane & 1) == 0) {
-        sM[r] = m_next;
-        sL[r] = alpha * sL[r] + sum;
-        sZ[r] = alpha * sZ[r] + zsum;
-      }
-    }
-    __syncwarp();
-
-    // O += (p * v-scale) Vq for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(fp[kk], sP + warp * 16 * LDP + kk * 16, LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::load_matrix_sync(o, sO + warp * 16 * LDO + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-          wmma::load_matrix_sync(fv, sV + kk * 16 * LDK + n * 16, LDK);
-          wmma::mma_sync(o, fp[kk], fv, o);
-        }
-        wmma::store_matrix_sync(sO + warp * 16 * LDO + n * 16, o, LDO, wmma::mem_row_major);
-      }
+    for (int u = 0; u < 8; ++u) {
+      qs0 += __bfloat162float(e0[u]);
+      qs1 += __bfloat162float(e1[u]);
     }
   }
-  __syncthreads();
+  qs0 += __shfl_xor_sync(0xffffffffu, qs0, 1);
+  qs0 += __shfl_xor_sync(0xffffffffu, qs0, 2);
+  qs1 += __shfl_xor_sync(0xffffffffu, qs1, 1);
+  qs1 += __shfl_xor_sync(0xffffffffu, qs1, 2);
+  // the tiles this warpgroup multiplies: those that hold a key one of its rows
+  // sees (the first n_wg); it still waits for the rest and releases them
+  const int n_wg = min(ntiles, (wg_qmax + BK) / BK);
 
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = warp * 16 + i / D, d = i % D;
-    if (r < rows) {
-      float l = sL[r];
-      if (l == 0.f) l = 1.f;
-      a.out[(((size_t)b * a.S + q0 + r) * a.Hq + h) * D + d] =
-          __float2bfloat16((sO[r * LDO + d] + sZ[r]) / l);
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  // l: this thread's share of the row sum; z: of the row's zero-point sum p . vz
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, z0 = 0.f, z1 = 0.f;
+  float s[64];
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = 0u;
+
+  const uint64_t dq0 = make_desc(sQ_addr + wg * 2 * PANEL, 16, 1024);
+  // S = (q * scale) Kq^T of one tile: 8 steps of 16 channels; a step is 32
+  // bytes inside a panel's 128-byte rows, and the second panel follows the first
+  auto start_qk = [&](int tile) {
+    const uint64_t dk0 = make_desc(base_addr + K_OFF + (tile % NBUF) * TILE_BYTES, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t oq = (uint64_t)(((kk >> 2) * PANEL + (kk & 3) * 32) >> 4);
+      const uint64_t ok = (uint64_t)(((kk >> 2) * KPANEL + (kk & 3) * 32) >> 4);
+      wgmma_m64n128k16_ss(s, dq0 + oq, dk0 + ok, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += (P * vs) Vq of one tile: 8 steps of 16 keys; a step is 16 rows of 128 bytes in each V panel
+  auto start_pv = [&](int tile) {
+    const uint64_t dv0 = make_desc(base_addr + V_OFF + (tile % NBUF) * TILE_BYTES, KPANEL, 1024);
+    fence_regs(p);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                          dv0 + (uint64_t)((kk * 16 * 128) >> 4));
+    }
+    wgmma_commit();
+  };
+  float al0 = 1.f, al1 = 1.f;
+  // The online softmax of the tile in s, in place: the scores dequantized,
+  // masks, the new row maxima, the scales of what came before (al0, al1),
+  // e^(s - m) in f32, the row sums l and p . vz; s becomes p * vs.
+  auto softmax = [&](int tile) {
+    const int k0 = tile * BK;
+    const float4* sck = reinterpret_cast<const float4*>(base + S_OFF + (tile % NSCALE) * SCALE_BYTES);
+    const float4* scv = sck + PROWS;
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {  // columns 8jn + cq and + 1: key pair 4jn + cq / 2
+      const float4 k4 = sck[4 * jn + (cq >> 1)];
+      s[4 * jn] = fmaf(s[4 * jn], k4.x, qs0 * k4.z);
+      s[4 * jn + 1] = fmaf(s[4 * jn + 1], k4.y, qs0 * k4.w);
+      s[4 * jn + 2] = fmaf(s[4 * jn + 2], k4.x, qs1 * k4.z);
+      s[4 * jn + 3] = fmaf(s[4 * jn + 3], k4.y, qs1 * k4.w);
+    }
+    // masks only where they bite: the diagonal and the ragged end; per key
+    // (an odd frontier splits a byte pair)
+    const bool masked = k0 + BK > kend || k0 + BK - 1 > wg_qmin;
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int j = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+        if (!(j < kend && j <= qpos)) s[i] = NEG_INF;
+      }
+    }
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // the difference first: NEG_INF - NEG_INF is 0, and NEG_INF * LOG2E would be -inf
+    al0 = fast_exp2((m0 - mn0) * LOG2E);
+    al1 = fast_exp2((m1 - mn1) * LOG2E);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
+    float sum0 = 0.f, sum1 = 0.f, zs0 = 0.f, zs1 = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      const int i = 4 * jn;
+      float p0 = fast_exp2(fmaf(s[i], LOG2E, -ml0)), p1 = fast_exp2(fmaf(s[i + 1], LOG2E, -ml0));
+      float p2 = fast_exp2(fmaf(s[i + 2], LOG2E, -ml1)), p3 = fast_exp2(fmaf(s[i + 3], LOG2E, -ml1));
+      if (masked) {  // a masked score is exactly NEG_INF; its row's max may be NEG_INF too
+        p0 = s[i] == NEG_INF ? 0.f : p0;
+        p1 = s[i + 1] == NEG_INF ? 0.f : p1;
+        p2 = s[i + 2] == NEG_INF ? 0.f : p2;
+        p3 = s[i + 3] == NEG_INF ? 0.f : p3;
+      }
+      const float4 v4 = scv[4 * jn + (cq >> 1)];
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      zs0 = fmaf(p0, v4.z, fmaf(p1, v4.w, zs0));
+      zs1 = fmaf(p2, v4.z, fmaf(p3, v4.w, zs1));
+      s[i] = p0 * v4.x;
+      s[i + 1] = p1 * v4.y;
+      s[i + 2] = p2 * v4.x;
+      s[i + 3] = p3 * v4.y;
+    }
+    l0 = al0 * l0 + sum0;
+    l1 = al1 * l1 + sum1;
+    z0 = al0 * z0 + zs0;
+    z1 = al1 * z1 + zs1;
+  };
+  // With the product that read p and wrote o complete: scale o, round s to bf16 into p
+  // (the A fragment of k-step kk: a0, a1 from column group 2kk, a2, a3 from 2kk + 1).
+  auto rescale_and_pack = [&]() {
+    fence_regs(p);
+    fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      o[i] *= al0;
+      o[i + 1] *= al0;
+      o[i + 2] *= al1;
+      o[i + 3] *= al1;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      p[(i >> 3) * 4 + ((i >> 2) & 1) * 2] = pack_bf16(s[i], s[i + 1]);
+      p[(i >> 3) * 4 + ((i >> 2) & 1) * 2 + 1] = pack_bf16(s[i + 2], s[i + 3]);
+    }
+  };
+
+  // tile `tile`'s K (and scales), or V, is in its stage, and wgmma may read it
+  auto wait_k = [&](int tile) {
+    mbar_wait(kfull + 8 * (tile % NBUF), (tile / NBUF) & 1);
+    fence_proxy_async();
+  };
+  auto wait_v = [&](int tile) {
+    mbar_wait(vfull + 8 * (tile % NBUF), (tile / NBUF) & 1);
+    fence_proxy_async();
+  };
+  // this warp is done with the stage
+  auto release_k = [&](int tile) {
+    if (lane == 0) mbar_arrive(kempty + 8 * (tile % NBUF));
+  };
+  auto release_v = [&](int tile) {
+    if (lane == 0) mbar_arrive(vempty + 8 * (tile % NBUF));
+  };
+
+  // The walk, as in csrc/flash.cu: S of tile it+1 and P.V of tile it are
+  // started together, and the softmax of tile it+1 runs under P.V of tile
+  // it. A K stage is released once S of its tile is complete, a V stage
+  // once P.V is.
+  if (0 < n_wg) {
+    wait_k(0);
+    start_qk(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    release_k(0);
+    softmax(0);
+    rescale_and_pack();
+    // (the steady state has no branch around a product or its wait: the
+    // assembler gives up overlapping them otherwise)
+    for (int it = 0; it < n_wg - 1; ++it) {
+      wait_k(it + 1);
+      wait_v(it);
+      start_qk(it + 1);
+      start_pv(it);
+      wgmma_wait<1>();  // S(it+1) is complete; P.V(it) runs on
+      fence_regs(s);
+      release_k(it + 1);
+      softmax(it + 1);
+      fence_regs(s);  // the exponentials are taken before the wait below, under P.V(it), not after it
+      wgmma_wait<0>();
+      release_v(it);
+      rescale_and_pack();
+    }
+    const int last = n_wg - 1;
+    wait_v(last);
+    start_pv(last);
+    wgmma_wait<0>();
+    release_v(last);
+  }
+  // tiles wholly above this warpgroup's rows: waited for and released, as the barriers count
+  for (int it = n_wg; it < ntiles; ++it) {
+    wait_k(it);
+    release_k(it);
+    wait_v(it);
+    release_v(it);
+  }
+  fence_regs(o);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 1);
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 2);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 1);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 2);
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = qrow0 + 8 * half;
+    if (row < a.S) {
+      bf16* dst = a.out + (((size_t)b * a.S + row) * a.Hq + h) * D + cq;
+      const float inv = half ? inv1 : inv0, z = half ? z1 : z0;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+        *reinterpret_cast<uint32_t*>(dst + 8 * jn) =
+            pack_bf16((o[4 * jn + 2 * half] + z) * inv, (o[4 * jn + 2 * half + 1] + z) * inv);
     }
   }
 }
@@ -509,10 +777,10 @@ int launch(const Args& a, int B, cudaStream_t stream) {
     merge_q4_kernel<<<dim3(a.Hq, B), DEC_THREADS, 0, stream>>>(a);
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PREFILL_SMEM);
+        prefill_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PREFILL_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
-    prefill_q4_kernel<<<grid, NWARP * 32, PREFILL_SMEM, stream>>>(a);
+    prefill_q4_kernel<<<grid, PF_THREADS, PREFILL_SMEM, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,20 +5,36 @@
 // small-M dot_general the JAX package leaves to XLA
 // (ops/quant.py::int8_matmul): out[m, n] = (float(sum_k x[m,k] * w[n,k]) *
 // x_scale[m]) * w_scale[n]. x is [M, K] int8 row-major and w is [N, K] int8
-// row-major (PyTorch's [out, in]), which is the "row-major A, column-major
-// B" operand form of the int8 tensor-core instruction, so nothing is
-// transposed. The int32 sum is exact in any order and the epilogue is two
-// float32 multiplications with no addition to contract, so the result is
-// bitwise that of the plain version.
+// row-major (PyTorch's [out, in]): both K-major, the one operand form the
+// int8 `wgmma` takes, so nothing is transposed. The int32 sum is exact in
+// any order and the epilogue is two float32 multiplications with no
+// addition to contract, so the result is bitwise that of the plain version.
 //
 // Two routes, one per shape of work:
 //   * tiled (prefill, M in the thousands): bound by operations (2*M*N*K int8
-//     operations against 1,979 TOP/s). One block of 8 warps per 128 x 128
-//     output tile; 64-byte K slabs of x and w stream through a 3-stage
-//     cp.async ring in shared memory; each warp owns a 64 x 32 sub-tile as
-//     4 x 4 mma.sync.m16n8k32.s8 accumulators (64 int32 registers). Ragged M,
-//     N and K edges are zero-filled on load and masked on store. This is the
-//     simple first version: mma.sync from shared memory without wgmma/TMA.
+//     operations against 1,979 TOP/s), which only `wgmma` reaches. A block
+//     owns a 128 x 256 output tile: two consumer warpgroups of 64 rows each
+//     run `wgmma` m64n256k32 s8 from shared memory, keeping their 64 x 256
+//     int32 sums in registers (128 a thread; 128 x 256 is the widest tile
+//     that fits beside them in 232 registers, and the two warpgroups share
+//     every w slab, so it reads half the bytes a 128 x 128 tile would). One
+//     producer thread feeds a 4-stage ring of 128-byte K slabs (x: 128 rows,
+//     w: 256 rows, 48 KB a stage) by TMA: plain 2-D row-major operands, boxes
+//     land in the 128-byte swizzle the descriptors read, and rows and k past
+//     the matrix's edge arrive as zeros, so ragged M, N and K cost nothing
+//     but the masked store. Stages change hands through `mbarrier`s (full:
+//     the boxes' bytes have landed; empty: every consumer warp is done); a
+//     slab's products run while the next slab's are issued, and the loop has
+//     no branch around a `wgmma` or its wait. M tiles vary fastest over the
+//     grid, so the blocks that run together share w and x stays in L2. The
+//     tensor maps are made per call on the host, through the CUDA entry
+//     point the runtime looks up (no -lcuda). What still holds it back: on an
+//     H100 the long-K down projection (4096 x 14336) runs at 72% of the int8
+//     peak but the K = 4096 shapes at about 50%, so some cost comes with each
+//     tile rather than each slab; a persistent walk (one block an SM, the
+//     next tile's slabs loaded under this one's epilogue) was no faster, so
+//     it is not the ring's fill. The epilogue stores straight from the
+//     accumulators, two bytes or four an element, not through shared memory.
 //   * small M (decode, M = batch): bound by bytes, every weight is read once
 //     (K*N bytes; the int8 weights of one 8B decode step are 7.5 GB). One
 //     warp per output column n streams w[n, :] in 16-byte vectors and keeps
@@ -26,15 +42,21 @@
 //     reduction ends it. More than 8 rows run as further row blocks
 //     (grid.y), which re-read w from L2.
 //
-// Launches go on the caller's stream and allocate nothing.
+// Launches go on the caller's stream and allocate nothing (the tensor maps
+// are kernel parameters).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace hopper;
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16(v); }
@@ -52,141 +74,218 @@ __device__ __forceinline__ float epilogue(int acc, float xs, float ws) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled route
+// Tiled route: TMA, an mbarrier ring, wgmma s8 from two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 64;  // BK in bytes = int8 elements
-constexpr int STAGES = 3;
-constexpr int LDT = BK + 16;  // padded row: 20 words, so 8 rows x 4 words hit 32 banks once
-constexpr int TILE_THREADS = 256;
-constexpr int WM = 64, WN = 32;  // warp tile: 2 x 4 warps
-constexpr size_t TILED_SMEM = (size_t)STAGES * (BM + BN) * LDT;
+constexpr int BM = 128, BN = 256, BK = 128;  // BK in bytes = int8 elements: one swizzled row
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK, STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int TILE_THREADS = 384;  // two consumer warpgroups (64 rows each) and one producer
+// + 2 * STAGES barriers of 8 bytes, + room to align to 1024
+constexpr int TILED_SMEM = STAGES * STAGE_BYTES + 16 * STAGES + 1024;
+static_assert(TILED_SMEM <= 232448, "the block's shared memory exceeds the SM's");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+// D[64x256] += A[64x32] B[256x32]^T in int8 -> int32, both operands K-major
+// in shared memory (128-byte swizzle). Integer wgmma has no transpose bits.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                                    int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// Stage one BK slab: rows [row0, row0 + 128) of src [rows, K] into dst
-// [128][LDT]; 16-byte chunks past the matrix edge are zero-filled (K % 16 == 0).
-__device__ __forceinline__ void load_slab(int8_t* dst, const int8_t* src, int row0, int rows,
-                                          int k0, int K) {
-  for (int i = threadIdx.x; i < 128 * (BK / 16); i += TILE_THREADS) {
-    const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-    const int gr = row0 + r, gk = k0 + c;
-    const bool in = gr < rows && gk < K;
-    const int8_t* g = src + (in ? (size_t)gr * K + gk : 0);
-    cp_async16(dst + r * LDT + c, g, in ? 16 : 0);
-  }
+// A box of the tensor map at (k0, row0) into shared memory; the barrier's
+// transaction count falls by the box's bytes when it lands (rows and k past
+// the matrix's edge are zeros).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int k0, int row0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(bar)
+      : "memory");
 }
 
 template <typename OutT>
-__global__ void __launch_bounds__(TILE_THREADS) w8a8_tiled_kernel(
-    const int8_t* __restrict__ x, const float* __restrict__ xs, const int8_t* __restrict__ w,
-    const float* __restrict__ ws, OutT* __restrict__ out, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem_raw);  // [STAGES][BM][LDT]
-  int8_t* sB = sA + STAGES * BM * LDT;                // [STAGES][BN][LDT]
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
-  const int grp = lane >> 2, tig = lane & 3;
+__global__ void __launch_bounds__(TILE_THREADS, 1) w8a8_tiled_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ xs, const float* __restrict__ ws, OutT* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the swizzled boxes need 1024-byte alignment
+  const uint32_t base = smem_addr(smem) + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
+  // stage s: x rows [BM][BK] at base + s * STAGE_BYTES, then w rows [BN][BK];
+  // full[s]: both boxes have landed; empty[s]: every consumer warp is done with them
+  const uint32_t full = base + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
+  // M tiles vary fastest across the grid: the blocks running at once share
+  // a few w tiles, and x stays in L2 while w streams through once
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int nk = (K + BK - 1) / BK;
 
-  int acc[WM / 16][WN / 8][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // Prologue: STAGES - 1 slabs in flight (an empty group where there is none).
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      load_slab(sA + s * BM * LDT, x, m0, M, s * BK, K);
-      load_slab(sB + s * BN * LDT, w, n0, N, s * BK, K);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
     }
-    cp_async_commit();
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // The producer: one thread keeps STAGES slabs of x and w in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty + 8 * s, (kt / STAGES + 1) & 1);
+        mbar_arrive_expect_tx(full + 8 * s, STAGE_BYTES);
+        tma_load_2d(base + s * STAGE_BYTES, &xmap, kt * BK, m0, full + 8 * s);
+        tma_load_2d(base + s * STAGE_BYTES + A_BYTES, &wmap, kt * BK, n0, full + 8 * s);
+      }
+    }
+    return;
   }
 
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // slab kt has landed (this thread's copies)
-    __syncthreads();              // ... and everyone's; slab kt-1's readers are done
-    {
-      const int nxt = kt + STAGES - 1;
-      if (nxt < nk) {
-        const int s = nxt % STAGES;
-        load_slab(sA + s * BM * LDT, x, m0, M, nxt * BK, K);
-        load_slab(sB + s * BN * LDT, w, n0, N, nxt * BK, K);
-      }
-      cp_async_commit();
-    }
-    const int8_t* a = sA + (kt % STAGES) * BM * LDT;
-    const int8_t* b = sB + (kt % STAGES) * BN * LDT;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  int acc[128];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t fa[WM / 16][4], fb[WN / 8][2];
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  // one 128-byte slab: four k-steps of 32 bytes inside the swizzled rows
+  auto issue = [&](int kt) {
+    const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
+    const uint64_t da = make_desc(st + wg * 64 * BK, 16, 1024), db = make_desc(st + A_BYTES, 16, 1024);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < WM / 16; ++i) {
-        const int8_t* p = a + (wm + i * 16 + grp) * LDT + kk + tig * 4;
-        fa[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        fa[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDT);
-        fa[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        fa[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDT + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < WN / 8; ++j) {
-        const int8_t* p = b + (wn + j * 8 + grp) * LDT + kk + tig * 4;
-        fb[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        fb[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < WM / 16; ++i)
-#pragma unroll
-        for (int j = 0; j < WN / 8; ++j) mma_s8(acc[i][j], fa[i], fb[j]);
-    }
-  }
-  cp_async_wait<0>();
+    for (int kk = 0; kk < BK / 32; ++kk) wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk, 1);
+    wgmma_commit();
+  };
+  auto wait_full = [&](int kt) { mbar_wait(full + 8 * (kt % STAGES), (kt / STAGES) & 1); };
 
-  // Epilogue: accumulator (i, j) holds rows grp and grp + 8, columns 2*tig and 2*tig + 1.
+  // Slab kt is multiplied while slab kt - 1's products finish; a stage is
+  // released once its products are complete. No branch around a wgmma or its
+  // wait in the loop (ptxas serializes them otherwise).
+  wait_full(0);
+  issue(0);
+  for (int kt = 1; kt < nk; ++kt) {
+    wait_full(kt);
+    issue(kt);
+    wgmma_wait<1>();
+    if (lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue: element 4j + e of the accumulator is row r0 + 8 * (e >> 1),
+  // column 8j + 2 * (lane & 3) + (e & 1).
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < WM / 16; ++i) {
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + r0 + 8 * half;
+    if (m >= M) continue;
+    const float sx = xs[m];
+    OutT* orow = out + (size_t)m * N;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + grp + half * 8;
-      if (m >= M) continue;
-      const float sx = xs[m];
-#pragma unroll
-      for (int j = 0; j < WN / 8; ++j) {
-        const int n = n0 + wn + j * 8 + tig * 2;  // even
-        if (n + 1 < N && (N & 1) == 0) {
-          store_pair(out + (size_t)m * N + n, epilogue(acc[i][j][half * 2], sx, ws[n]),
-                     epilogue(acc[i][j][half * 2 + 1], sx, ws[n + 1]));
-        } else {
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            if (n + c < N)
-              store_out(out + (size_t)m * N + n + c, epilogue(acc[i][j][half * 2 + c], sx, ws[n + c]));
-        }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + cq;  // even
+      const int a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
+      if (n + 1 < N && (N & 1) == 0) {
+        const float2 w2 = *reinterpret_cast<const float2*>(ws + n);
+        store_pair(orow + n, epilogue(a0, sx, w2.x), epilogue(a1, sx, w2.y));
+      } else {
+        if (n < N) store_out(orow + n, epilogue(a0, sx, ws[n]));
+        if (n + 1 < N) store_out(orow + n + 1, epilogue(a1, sx, ws[n + 1]));
       }
     }
   }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A [rows, K] int8 row-major matrix as boxes of [box_rows][BK] in the 128-byte
+// swizzle; boxes past the edge read zeros.
+bool make_map(CUtensorMap* map, const int8_t* p, int rows, int K, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(p), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -239,11 +338,14 @@ int launch(const int8_t* x, const float* xs, const int8_t* w, const float* ws, O
            int N, int K, int route, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 0) {
+    CUtensorMap xmap, wmap;
+    if (!make_map(&xmap, x, M, K, BM) || !make_map(&wmap, w, N, K, BN))
+      return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = cudaFuncSetAttribute(
-        w8a8_tiled_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILED_SMEM);
+        w8a8_tiled_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, TILED_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    w8a8_tiled_kernel<OutT><<<grid, TILE_THREADS, TILED_SMEM, stream>>>(x, xs, w, ws, out, M, N, K);
+    const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+    w8a8_tiled_kernel<OutT><<<grid, TILE_THREADS, TILED_SMEM, stream>>>(xmap, wmap, xs, ws, out, M, N, K);
   } else {
     const int cols = (N + SMALL_WARPS - 1) / SMALL_WARPS;
 #define DUO_SMALL_CASE(MT)                                                            \

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
 ``duo_attention_tpu_torch/build/lib<name>-<hash>.so``. The hash covers the
-source and the flags, so an edited source builds anew and an unchanged one is
-reused. ``build()`` starts one ``nvcc`` per source, all at once.
+source, every header of ``csrc/`` it includes (``#include "..."``, followed
+through headers), and the flags, so an edited source or header builds anew
+and an unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,10 +42,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes, in the order met."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

@@ -24,9 +24,13 @@ from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"w8a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
-# Largest M the small-M route takes when the wrapper chooses (see PERF.md for
-# the times on the card that set it).
-SMALL_M_MAX = 16
+# Largest M the small-M route takes when the wrapper chooses. chip_smoke.py's
+# route sweep (device ms, weights cold in L2, small / tiled; NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md): 4096x4096 M=8 0.0126 / 0.0268, M=16 0.0208 /
+# 0.0284; 14336x4096 M=8 0.0436 / 0.0352, M=16 0.0808 / 0.0368. Summed over
+# a layer's wq, wo, gate, up and down, the small route is ahead at M = 8 and
+# behind at 16.
+SMALL_M_MAX = 8
 _ROUTES = {"tiled": 0, "small": 1}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 

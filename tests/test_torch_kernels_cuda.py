@@ -9,8 +9,9 @@ chip_smoke.py holds the kernels to the plain versions at the main path's
 shapes; these cover the shapes it does not reach: ragged query tiles, query
 groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, decode
 split plans with one, full and empty splits, capture into a CUDA graph,
-odd and even token parity in the INT4 cache, every route and tile boundary of
-the int8 matrix product, and the wrappers' refusals.
+odd and even token parity in the INT4 cache, a poisoned cache past the INT4
+frontier, every route and tile boundary of the int8 matrix product and its
+model shapes at M = 17 and 4096, and the wrappers' refusals.
 """
 
 import pytest
@@ -164,6 +165,12 @@ def assert_q4_close(got, want):
     (2, 1, 4, 4, 32768, [20000, 32767], 32768),  # decode, G = 1, 32 splits of 1024 keys
     (1, 1, 12, 4, 1536, 1400, 0),  # decode, G = 3, splits of 512 over 1536 keys
     (2, 130, 4, 2, 4096, [1000, 3000], 4096),
+    (1, 200, 8, 2, 1024, 300, 1024),  # S not a multiple of the 128-row query tile
+    (1, 300, 8, 4, 2048, 517, 2048),  # odd start, not a multiple of 128: the diagonal tile splits a pair
+    (1, 256, 4, 4, 512, 0, 512),  # cs = 0, G = 1
+    (2, 129, 8, 4, 1024, [0, 640], 1024),  # G = 2, one row in the last query tile
+    (1, 384, 16, 2, 2048, 1001, 2048),  # G = 8, odd frontier
+    (4, 256, 16, 4, 2048, [0, 301, 1024, 1700], 2048),  # B = 4, mixed lengths and parities
 ])
 def test_full_cache_attention_q4_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -175,6 +182,39 @@ def test_full_cache_attention_q4_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs, bucket=bucket)
     want = flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, cs, bucket=bucket)
     torch.cuda.synchronize()
+    assert_q4_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,cs", [(1, 301, 500), (2, 256, [0, 777])])
+def test_full_cache_attention_q4_prefill_never_reads_past_the_frontier(dev, B, S, cs):
+    """Slots at or past cs + S hold NaN scales and 0xF nibbles (the cache past
+    its length is uninitialised), inside the bucket; the odd frontier's byte
+    row holds a visible key and a poisoned one. The kernel on the poisoned
+    cache equals the plain version on a clean one."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    Hq, Hkv, T = 8, 2, 2048
+    q = randn(gen, B, S, Hq, 128, mul=Q_PEAK)
+    kq, ks = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    vq, vs = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    kq, ks, vq, vs = (t.contiguous() for t in (kq, ks, vq, vs))
+    ends = torch.as_tensor(cs, device=dev).reshape(-1).expand(B) + S
+    slot = torch.arange(T, device=dev)
+    past = slot[None] >= ends[:, None]  # [B, T]
+    clean = [t.clone() for t in (kq, ks, vq, vs)]
+    for b in range(B):
+        clean[0][b, :, past[b, 0::2]] = 0  # a clean cache: zeros past the frontier
+        clean[2][b, :, past[b, 0::2]] = 0
+        for packed in (kq, vq):
+            packed[b, :, past[b, 0::2]] = 0xFF  # both nibbles of rows wholly past it
+            packed[b, :, past[b, 1::2] & ~past[b, 0::2]] |= 0xF0  # the odd partner past an odd frontier
+        for scales in (ks, vs):
+            scales[b, :, 0::2][..., past[b, 0::2]] = float("nan")  # scale_even, zp_even rows
+            scales[b, :, 1::2][..., past[b, 1::2]] = float("nan")
+    cs_t = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs_t, bucket=T)
+    want = flash.full_cache_attention_q4_plain(q, *clean, cs_t, bucket=T)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
     assert_q4_close(got, want)
 
 
@@ -200,6 +240,8 @@ def test_write_q4_token_kernel(dev, start):
 @pytest.mark.parametrize("M,N,K", [
     (1, 128, 64), (2, 130, 4096), (4, 1024, 14336), (8, 8, 16), (9, 257, 4096), (16, 256, 512),
     (17, 128, 64), (127, 129, 80), (128, 128, 192), (129, 255, 208), (300, 512, 4096), (256, 1000, 48),
+    # ragged against the 128 x 256 tile and the 128-byte slab
+    (300, 300, 144), (129, 257, 400), (255, 511, 272), (385, 768, 1040),
 ])
 def test_w8a8_matmul_kernel(dev, route, out_dtype, M, N, K):
     """Bitwise against the plain version: both routes at every M, with tile
@@ -213,6 +255,44 @@ def test_w8a8_matmul_kernel(dev, route, out_dtype, M, N, K):
     want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+# The 8B model's five weight shapes (N = out features, K = in features), as chip_smoke.py names them.
+GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 4096),
+               "down": (4096, 14336), "head": (128256, 4096)}
+
+
+@pytest.mark.parametrize("M", [17, 4096])
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_w8a8_matmul_kernel_at_the_model_shapes(dev, shape, M):
+    """The tiled route (M > SMALL_M_MAX) at every weight shape of the 8B
+    model, bitwise; the head in float32, as the model runs it."""
+    N, K = GEMM_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out_dtype = torch.float32 if shape == "head" else torch.bfloat16
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+    got = gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype)
+    want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,N", [(300, 300), (4096, 256)])
+def test_w8a8_matmul_saturated_signs_at_long_k(dev, M, N):
+    """+-127 operands with random signs over K = 14336 (sums up to 2.3e8 in
+    magnitude) stay exact on the tiled route."""
+    K = 14336
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sign = lambda *s: torch.randint(0, 2, s, generator=gen, device=dev, dtype=torch.int8) * 2 - 1  # noqa: E731
+    xq, wq = sign(M, K) * 127, sign(N, K) * 127
+    xq[0], wq[0] = 127, -127  # one output at the extreme
+    xs, ws = torch.full((M, 1), 1e-3, device=dev), torch.full((N,), 1e-3, device=dev)
+    got = gemm.w8a8_matmul(xq, xs, wq, ws, torch.float32)
+    assert gemm.w8a8_matmul.tiled_launches > 0
+    assert torch.equal(got, gemm.w8a8_matmul_plain(xq, xs, wq, ws, torch.float32))
 
 
 def test_w8a8_matmul_saturated_operands_and_auto_route(dev):
