@@ -19,12 +19,19 @@ result):
      flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes and the int8
      matrix product bitwise; times of the kernel, the plain version and one
      library call (SDPA, index_copy_, torch._int_mm; x padded to 17 rows below
-     M = 17), each as Python issues it and on the device alone, and the bound.
+     M = 17), each as Python issues it and on the device alone, and the bound;
+     the INT4 decode once more built with float32 FMAs in place of its
+     tensor-core products (the measurement that chose them), and at each
+     main-path head count.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
      tokens and every kernel's launch count; prints TTFT, decode ms/token and a
      torch.profiler breakdown of device time for the prefill and 8 decode steps.
+     Decode runs as the engine runs it on the card, one CUDA-graph replay a
+     token, and beside it, on the same cache, as a loop of eager forward_chunk
+     steps: ms/token, device ms a step, idle share, kernel launches a token
+     (the counters) and launch calls the host makes a step (the profiler).
   5. kernel path vs plain path, bf16: the same geometry at 4 layers, a prompt
      that crosses a chunk boundary, teacher-forced through both paths; compares
      the logits of the prefill and of 8 decode steps.
@@ -75,6 +82,12 @@ SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "fl
            "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
            "write_streaming_rows": "inplace.cu", "write_q4_token": "inplace.cu", "w8a8_matmul": "gemm.cu"}
 FLASH_CU_KERNELS = ("prefill_kernel", "decode_kernel", "decode_merge_kernel")  # as the profiler names them
+FMA_VARIANT = ("flash_q4", ("DUO_Q4_DECODE_FMA",))  # the INT4 decode with CUDA-core products
+# device_breakdown: tiny kernels launched before the profiled window, and its range's name
+PREROLL_LAUNCHES, WINDOW = 10000, "chip_smoke_window"
+# host calls that put work on the device, as the profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # The 8B model's weight shapes (N = out features, K = in features).
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 4096),
                "down": (4096, 14336), "head": (128256, 4096)}
@@ -114,7 +127,7 @@ def phase_build():
     from duo_attention_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build()
+    paths = _build.build(variants=[FMA_VARIANT])
     secs = time.perf_counter() - t0
     for name, path in paths.items():
         report = path.with_suffix(".log")
@@ -349,33 +362,42 @@ def phase_kernels(rec):
         del k_cat, v_cat, mask
     del ks, vs, kr, vr
 
-    # --- write_row --------------------------------------------------------------
-    H = 4
+    # --- write_row: a layer's full-head K and V rows in one launch, read in place --
+    # from [B, 1, Hkv, D] projections (the 8B model's 8 KV heads; 4 full ones), as
+    # the decode step hands them; the one-buffer form (the JAX function's) last
+    H, HKV = 4, 8
     batch_index = {n: torch.arange(n, device=dev) for n in (1, 4)}
 
     def put_rows(buf, slot, row):
         """One indexed assignment: buf[b, :, slot[b]] = row[b, :, 0]."""
         buf[batch_index[buf.shape[0]], :, slot] = row[:, :, 0]
 
-    for case, B, pos in [("pos=16000", 1, 16000), ("pos=[B] B=4", 4, [0, 4096, 12345, 32767]),
-                         ("pos=40000 (clamped) B=4", 4, 40000)]:
-        buf = randn(B, H, T, D)
-        ref = buf.clone()
-        row = randn(B, H, 1, D)
+    for case, B, pos, pair in [("K+V pos=16000", 1, 16000, True), ("K+V pos=[B] B=4", 4, [0, 4096, 12345, 32767], True),
+                               ("K+V pos=40000 (clamped) B=4", 4, 40000, True), ("one buffer pos=16000", 1, 16000, False)]:
+        kbuf, vbuf = randn(B, H, T, D), randn(B, H, T, D)
+        refs = kbuf.clone(), vbuf.clone()
+        krow, vrow = (randn(B, 1, HKV, D)[:, :, :H].transpose(1, 2) for _ in range(2))  # strided views
         pos_arg = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-        inplace.write_row(buf, row, pos_arg)
-        inplace.write_row_plain(ref, row, pos_arg)
-        ok = torch.equal(buf, ref)
+        args = (kbuf, krow, pos_arg, vbuf, vrow) if pair else (kbuf, krow.contiguous(), pos_arg)
+        ref_args = (refs[0], krow, pos_arg, refs[1], vrow) if pair else (refs[0], krow.contiguous(), pos_arg)
+        inplace.write_row(*args)
+        inplace.write_row_plain(*ref_args)
+        ok = torch.equal(kbuf, refs[0]) and torch.equal(vbuf, refs[1])
         p = vec(pos, B).clamp(0, T - 1)
-        nbytes = 2 * (2 * B * H * D)
-        times = timed(
-            lambda: inplace.write_row(buf, row, pos_arg),
-            lambda: inplace.write_row_plain(ref, row, pos_arg),
-            (lambda: buf.index_copy_(2, p[:1], row)) if B == 1 else (lambda: put_rows(buf, p, row)),
-        )
+        nrows = 2 if pair else 1
+        nbytes = nrows * 2 * (2 * B * H * D)
+
+        def library():  # index_copy_ (B == 1) or an indexed assignment (B > 1), once a buffer
+            for buf, row in ((kbuf, args[1]), (vbuf, vrow))[:nrows]:
+                if B == 1:
+                    buf.index_copy_(2, p[:1], row)
+                else:
+                    put_rows(buf, p, row)
+
+        times = timed(lambda: inplace.write_row(*args), lambda: inplace.write_row_plain(*ref_args), library)
         record("write_row", case, 0.0 if ok else float("inf"), ok, times, _bound(0, nbytes),
-               main=B == 1)
-        del buf, ref
+               main=case == "K+V pos=16000")
+        del kbuf, vbuf, refs
 
     # --- write_streaming_rows -------------------------------------------------
     for case, B, start in [("start=16000", 1, 16000), ("start=[B] B=4", 4, [5, 64, 4700, 32000])]:
@@ -526,7 +548,7 @@ def phase_kernels_w8a8kv4(rec):
     Hq = Hkv * G
     kq, ks = quant.quantize_int4_paired(randn(4, Hkv, T, D))
     vq, vs = quant.quantize_int4_paired(randn(4, Hkv, T, D))
-    q4_cases = [  # (case, B, S, cs)
+    q4_cases = [  # (case, B, S, cs[, bucket])
         ("prefill cs=0", 1, CHUNK, 0),
         ("prefill cs=12288", 1, CHUNK, 12288),
         ("prefill cs=12300", 1, CHUNK, 12300),
@@ -536,11 +558,12 @@ def phase_kernels_w8a8kv4(rec):
         ("decode cs=16001 (odd)", 1, 1, 16001),
         ("decode cs=16000 B=4", 4, 1, 16000),
         ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),
+        ("decode cs=300 bucket 32768 (most splits empty)", 1, 1, 300, MAX_CACHE),
     ]
-    for case, B, S, cs in q4_cases:
+    for case, B, S, cs, *fixed_bucket in q4_cases:
         name = "full_cache_attention_q4." + ("decode" if S == 1 else "prefill")
         csv = torch.as_tensor(cs, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
-        bucket = min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
+        bucket = fixed_bucket[0] if fixed_bucket else min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
         q = randn(B, S, Hq, D, mul=Q_PEAK)
         bufs = [t[:B].contiguous() for t in (kq, ks, vq, vs)]
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
@@ -566,13 +589,82 @@ def phase_kernels_w8a8kv4(rec):
             lambda: flash.full_cache_attention_q4_plain(q, *bufs, cs_arg, bucket=bucket),
             lambda: F.scaled_dot_product_attention(qt, k_cat, v_cat, attn_mask=mask),
         )
+        extra = {}
+        if S == 1:
+            nsplit, split_keys = flash.q4_decode_split_plan(bucket, B * Hkv)
+            extra = dict(nsplit=nsplit, split_keys=split_keys, blocks=B * Hkv * nsplit)
         record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
-               main=case in ("prefill cs=12288", "decode cs=16000"), library_dequant_ms=dequant_ms)
-        log(f"    device ms: kernel {times[1]:.4f} against dequantize + SDPA {dequant_ms + times[4]:.4f}")
+               main=case in ("prefill cs=12288", "decode cs=16000"), library_dequant_ms=dequant_ms, **extra)
+        log(f"    device ms: kernel {times[1]:.4f} against dequantize + SDPA {dequant_ms + times[4]:.4f}"
+            + (f"; plan {extra['nsplit']} splits x {extra['split_keys']} keys, {extra['blocks']} blocks" if extra else ""))
         del kd, vd, k_cat, v_cat, mask
+        if case == "decode cs=16000":
+            call = lambda: flash.full_cache_attention_q4(q, *bufs, cs_arg, bucket=bucket)  # noqa: E731
+            kernels = _device_kernels(call)
+            require(len(kernels) == 1 and "decode_q4_kernel" in kernels[0],
+                    f"INT4 decode launched {kernels}, not one decode_q4_kernel")
+            rec.results["full_cache_attention_q4.decode_products"] = _q4_decode_products(call, want, times)
+    # the INT4 decode at each full-head count of the main path's layers (B = 1, cs = 16000)
+    by_hf = {}
+    for hf in range(2, 7):
+        kq6, ks6 = quant.quantize_int4_paired(randn(1, hf, 16384, D))
+        vq6, vs6 = quant.quantize_int4_paired(randn(1, hf, 16384, D))
+        bufs = [t.contiguous() for t in (kq6, ks6, vq6, vs6)]
+        q = randn(1, 1, hf * G, D, mul=Q_PEAK)
+        cs_arg = torch.tensor(16000, dtype=torch.int32, device=dev)
+        call = lambda: flash.full_cache_attention_q4(q, *bufs, cs_arg, bucket=16384)  # noqa: E731
+        err, ratio, ok = _attn_tol_ok(call(), flash.full_cache_attention_q4_plain(q, *bufs, cs_arg, bucket=16384), True)
+        require(ok, f"INT4 decode at hf={hf} disagrees with its plain version ({err})")
+        nsplit, split_keys = flash.q4_decode_split_plan(16384, hf)
+        nbytes = 2 * (2 * hf * G * D) + 2 * hf * 16001 * (D // 2 + 4)
+        by_hf[hf] = dict(device_ms=cuda_graph_time_ms(call), ms=cuda_time_ms(call, iters=ITERS, warmup=1),
+                         bound_ms=_bound(4 * D * hf * G * 16001, nbytes)[0], blocks=hf * nsplit,
+                         split_keys=split_keys, err_over_tol=ratio)
+        log(f"  full_cache_attention_q4.decode hf={hf} cs=16000: device {by_hf[hf]['device_ms']:.4f} ms, "
+            f"rate {by_hf[hf]['ms']:.4f} ms, bound {by_hf[hf]['bound_ms']:.4f} ms, {hf * nsplit} blocks "
+            f"of {split_keys} keys, err/tol {ratio:.3f}")
+    rec.results["full_cache_attention_q4.decode_by_hf"] = by_hf
     del kq, ks, vq, vs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, copies) one call of fn makes,
+    from torch.profiler, after a call outside the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _q4_decode_products(call, want, times):
+    """The INT4 decode at the main path's shape with its two products (S = Q K^T,
+    O += P V) on the tensor cores (mma.sync m16n8k16, as built) and on the CUDA
+    cores (float32 FMAs, the variant build): device and rate ms of each, and
+    the variant's agreement with the plain version."""
+    from duo_attention_tpu_torch.ops import _build, flash
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    kept = flash._lib_q4
+    flash._lib_q4 = lambda: _build.load(FMA_VARIANT[0], flash._Q4_SIGNATURES, FMA_VARIANT[1])
+    try:
+        err, ratio, ok = _attn_tol_ok(call(), want, q4=True)
+        require(ok, f"the FMA build of the INT4 decode disagrees with its plain version ({err})")
+        fma = dict(ms=cuda_time_ms(call, iters=ITERS, warmup=1), device_ms=cuda_graph_time_ms(call),
+                   max_abs_err=err, err_over_tol=ratio)
+    finally:
+        flash._lib_q4 = kept
+    out = dict(mma=dict(ms=times[0], device_ms=times[1]), fma=fma)
+    log(f"  INT4 decode products at cs=16000: mma.sync {times[1]:.4f} ms on the device ({times[0]:.4f} as "
+        f"issued); float32 FMAs {fma['device_ms']:.4f} ({fma['ms']:.4f}), err/tol {ratio:.3f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -581,29 +673,16 @@ def phase_kernels_w8a8kv4(rec):
 
 
 def _counters():
-    from duo_attention_tpu_torch.ops import flash, gemm, inplace
+    """The kernels' launch counters by name (ops/launches.py)."""
+    from duo_attention_tpu_torch.ops import launches
 
-    return {
-        "full_cache_attention.prefill": (flash.full_cache_attention, "prefill_launches"),
-        "full_cache_attention.decode": (flash.full_cache_attention, "decode_launches"),
-        "streaming_cache_attention.prefill": (flash.streaming_cache_attention, "prefill_launches"),
-        "streaming_cache_attention.decode": (flash.streaming_cache_attention, "decode_launches"),
-        "write_row": (inplace.write_row, "launches"),
-        "write_streaming_rows": (inplace.write_streaming_rows, "launches"),
-        "full_cache_attention_q4.prefill": (flash.full_cache_attention_q4, "prefill_launches"),
-        "full_cache_attention_q4.decode": (flash.full_cache_attention_q4, "decode_launches"),
-        "write_q4_token": (inplace.write_q4_token, "launches"),
-        "w8a8_matmul.tiled": (gemm.w8a8_matmul, "tiled_launches"),
-        "w8a8_matmul.small": (gemm.w8a8_matmul, "small_launches"),
-    }
+    return {name: c for name, c in launches.counters().items() if c[1] != "cuda_calls"}
 
 
 def _plain_functions():
-    from duo_attention_tpu_torch.ops import flash, gemm, inplace
+    from duo_attention_tpu_torch.ops import launches
 
-    return (flash.full_cache_attention_plain, flash.streaming_cache_attention_plain,
-            flash.full_cache_attention_q4_plain, inplace.write_row_plain,
-            inplace.write_streaming_rows_plain, inplace.write_q4_token_plain, gemm.w8a8_matmul_plain)
+    return [fn for fn, attr in launches.counters().values() if attr == "cuda_calls"]
 
 
 def reset_counts():
@@ -643,6 +722,8 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     import torch
 
     from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
+    from duo_attention_tpu_torch.models import llama
+    from duo_attention_tpu_torch.ops import launches
 
     q4 = kv_quant == "int4"
     engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
@@ -668,7 +749,8 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
         full + ".decode": NEW_TOKENS * hf_layers,
         "streaming_cache_attention.prefill": n_chunks * hs_layers,
         "streaming_cache_attention.decode": NEW_TOKENS * hs_layers,
-        "write_q4_token" if q4 else "write_row": 2 * NEW_TOKENS * hf_layers,
+        # INT4: K and V each quantized and written; bf16: K and V rows in one launch
+        "write_q4_token" if q4 else "write_row": (2 if q4 else 1) * NEW_TOKENS * hf_layers,
         "write_streaming_rows": NEW_TOKENS * hs_layers,
         "plain_cuda_calls": 0,
     })
@@ -684,7 +766,9 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     require(((tokens >= 0) & (tokens < cfg.vocab_size)).all(), "tokens out of range (overrun poison?)")
     del cache
 
-    # the same path split in two, for TTFT and the decode rate
+    # the same path split in two, for TTFT and the decode rate, on a new engine (no
+    # graph yet: the decode captures one, and what it allocates shows)
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache, logits = engine.prefill(ids)
@@ -692,34 +776,91 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     torch.cuda.synchronize()
     ttft_ms = (time.perf_counter() - t0) * 1e3
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     again, cache = engine.decode_tokens(cache, first, NEW_TOKENS, length=PROMPT_LEN)
     torch.cuda.synchronize()
+    # a new cache: its first step runs eagerly and the step is captured after it
     decode_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+    graph_bytes = torch.cuda.memory_allocated() - held  # the graph's pool, the decode scratch, the output
     require(np.array_equal(again, tokens), "a second run of the same prompt gave other tokens")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  generate {PROMPT_LEN}+{NEW_TOKENS} tokens: {gen_s:.3f} s; TTFT {ttft_ms:.1f} ms; "
-        f"decode {decode_ms:.2f} ms/token; peak memory {peak_gib:.2f} GiB; "
+        f"decode {decode_ms:.2f} ms/token (capture included); peak memory {peak_gib:.2f} GiB (graph pool "
+        f"included; the decode left {graph_bytes / 2**20:.1f} MiB more allocated); "
         f"KV cache {kv_bytes / 2**30:.3f} GiB ({type(cache).__name__})")
-    del cache
+
+    # Decode on, on the same cache at the same bucket: the engine (graph replays),
+    # then a loop of eager forward_chunk steps, NEW_TOKENS tokens each
+    length = PROMPT_LEN + NEW_TOKENS
+    token = torch.as_tensor(again[:, -1], device="cuda").long()
+    bucket = engine.bucket_for(length + 2 * NEW_TOKENS + 16)
+    require(bucket == engine.bucket_for(PROMPT_LEN + NEW_TOKENS), "the decode windows changed bucket")
+
+    def graph_steps(n):
+        nonlocal cache, length
+        _, cache = engine.decode_tokens(cache, token, n, length=length)
+        length += n
+
+    def eager_steps(n):
+        nonlocal cache, length
+        tok = token
+        with torch.no_grad():
+            for _ in range(n):
+                hidden, cache = llama.forward_chunk(params, cfg, duo, cache, tok[:, None], 1, full_bucket=bucket)
+                tok = torch.argmax(llama.logits_at(params, hidden, 0), dim=-1)
+        length += n
+
+    decode = {}
+    for mode, steps_fn in (("graph", graph_steps), ("eager", eager_steps)):
+        before = launches.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps_fn(NEW_TOKENS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+        counted = [a - b for a, b in zip(launches.snapshot(), before)]
+        decode[mode] = dict(ms_per_token=ms, counted_launches=counted)
+    per_token = [n // NEW_TOKENS for n in decode["graph"]["counted_launches"]]
+    require(decode["graph"]["counted_launches"] == decode["eager"]["counted_launches"]
+            and all(n == t * NEW_TOKENS for n, t in zip(decode["graph"]["counted_launches"], per_token)),
+            f"kernel launches a token differ between the graph and the eager loop: {decode}")
+    kernel_launches = {n: c for n, c in zip(launches.counters(), per_token) if c}
+    log(f"  kernel launches a decode token, graph = eager (the counters): {kernel_launches}")
     torch.cuda.empty_cache()
 
-    # where the device time goes, one window each for the prefill and 8 decode steps
+    # where the device time goes: the prefill, and 8 decode steps each way on the same cache
     state = {}
 
     def prefill():
         state["cache"], state["logits"] = engine.prefill(ids)
 
-    def decode():
-        engine.decode_tokens(state["cache"], torch.argmax(state["logits"], -1), 8, length=PROMPT_LEN)
-
-    breakdown = {"prefill": device_breakdown(prefill), "decode_8_steps": device_breakdown(decode)}
+    breakdown = {"prefill": device_breakdown(prefill), "decode_8_steps": device_breakdown(lambda: graph_steps(8)),
+                 "decode_8_steps_eager": device_breakdown(lambda: eager_steps(8))}
     for window, b in breakdown.items():
         log(f"  profile {window}: {json.dumps(b)}")
-    del state
+    # what the device ran, by the profiler, against the counters: the graph's replays
+    # launch every kernel the eager loop does, as many times as the counters say
+    ran = {mode: breakdown[window]["kernels_ran"] for mode, window in
+           (("graph", "decode_8_steps"), ("eager", "decode_8_steps_eager"))}
+    counted = {name: 8 * n for name, n in kernel_launches.items()}
+    require(ran["graph"] == ran["eager"] == counted,
+            f"kernels the device ran in 8 decode steps (graph {ran['graph']}, eager {ran['eager']}) "
+            f"differ from 8 times the counted launches a token ({counted})")
+    log(f"  kernels the device ran in 8 decode steps, graph = eager = 8 x the counters: {ran['graph']}")
+    for mode, window in (("graph", "decode_8_steps"), ("eager", "decode_8_steps_eager")):
+        b = breakdown[window]
+        decode[mode].update(device_ms_per_step=b["device_busy_ms"] / 8, idle_share=b["idle_share"],
+                            host_launch_calls_per_step=b["host_launch_calls"] / 8,
+                            device_activities_per_step=b["device_activities"] / 8)
+        log(f"  decode, {mode}: {decode[mode]['ms_per_token']:.2f} ms/token, {b['device_busy_ms'] / 8:.3f} device "
+            f"ms a step, idle {b['idle_share']:.3f} (profiled), {b['host_launch_calls'] / 8:.1f} launch calls "
+            f"from the host a step, {b['device_activities'] / 8:.1f} device activities a step")
+    del state, cache
     torch.cuda.empty_cache()
     return dict(counts=counts, expected=expected, generate_s=gen_s, ttft_ms=ttft_ms, profile=breakdown,
-                decode_ms_per_token=decode_ms, tokens=tokens[0, :16].tolist(), peak_memory_gib=peak_gib,
+                decode_ms_per_token=decode_ms, decode=decode, kernel_launches_per_token=kernel_launches,
+                tokens=tokens[0, :16].tolist(), peak_memory_gib=peak_gib, decode_allocated_bytes=graph_bytes,
                 kv_memory_bytes=kv_bytes)
 
 
@@ -735,7 +876,6 @@ def _kernel_kind(name):
             "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row",
             "prefill_q4_kernel": "full_cache_attention_q4.prefill",
             "decode_q4_kernel": "full_cache_attention_q4.decode",
-            "merge_q4_kernel": "full_cache_attention_q4.decode",
             "write_q4_token_kernel": "write_q4_token",
             "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_kernel": "w8a8_matmul.small"}
     compact = name.replace(" ", "")
@@ -751,24 +891,47 @@ def device_breakdown(fn):
     """Run fn under torch.profiler: device milliseconds by kind of kernel,
     the window's wall time, and the share of it the device was idle (the
     profiler's own host cost inflates the wall time, so this idle share is
-    an upper bound)."""
+    an upper bound); the host's calls that put work on the device
+    (HOST_LAUNCH_CALLS, by name) and the device activities (kernels, copies);
+    the port's kernels as the device ran them, by counter name (a split
+    decode's merge kernel, launched with it, is not counted again).
+
+    The profiler can lose the device records of the first launches after it
+    starts (scripts/profiler_first_launches.py), so PREROLL_LAUNCHES tiny
+    kernels go first and only events from the start of the window, a marked
+    range after them, are read."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    scratch = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        for _ in range(PREROLL_LAUNCHES):
+            scratch.add_(1.0)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind, other = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # the range on the host (the profiler may also draw it on the device timeline)
+    start = min(e.time_range.start for e in events if e.name == WINDOW)
+    by_kind, other, ran = {}, {}, {}
+    host_calls = device_activities = 0
+    for e in events:
+        if e.time_range.start < start or e.name == WINDOW:
             continue
+        if e.device_type != DeviceType.CUDA:
+            host_calls += e.name in HOST_LAUNCH_CALLS
+            continue
+        device_activities += 1
         ms = e.time_range.elapsed_us() / 1e3
         kind = _kernel_kind(e.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        if kind in REPLACES and "decode_merge_kernel" not in e.name:
+            ran[kind] = ran.get(kind, 0) + 1
         if kind == "other":
             require(not any(k in e.name for k in FLASH_CU_KERNELS),
                     f"kernel {e.name!r} of flash.cu is filed under 'other'")
@@ -776,7 +939,8 @@ def device_breakdown(fn):
     busy = sum(by_kind.values())
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=(1 - busy / wall_ms) if busy else None,
-                by_kind_ms=by_kind,
+                host_launch_calls=host_calls, device_activities=device_activities,
+                by_kind_ms=by_kind, kernels_ran=ran,
                 top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
 
 
@@ -913,6 +1077,9 @@ def main():
             bound_by=head["bound_by"], library_ms=head["library_ms"], library_device_ms=head["library_device_ms"],
             case=head["case"],
         ))
+        if name == "full_cache_attention_q4.decode":  # its products on the CUDA cores instead (variant build)
+            fma = rec.results["full_cache_attention_q4.decode_products"]["fma"]
+            line[-1].update(fma_ms=fma["ms"], fma_device_ms=fma["device_ms"])
     require(len(line) == len(REPLACES), f"kernels line has {len(line)} entries, expected {len(REPLACES)}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -17,7 +17,8 @@ streaming buffers stay in the cache's dtype, since they are O(sink + recent).
 Unlike the JAX cache, which is immutable and threaded through jitted
 functions, this cache is MUTATED: the write functions update the buffers in
 place and return them, and ``models.llama.forward_chunk`` advances
-``length`` on the object it was given.
+``length`` in place (the same tensor, so a captured decode step advances it
+on every replay).
 """
 
 from __future__ import annotations
@@ -186,6 +187,19 @@ def write_full(buf: torch.Tensor, incoming: torch.Tensor, start, plain: bool = F
     st = _clamp_start(_scalar_start(start), S, T)
     buf[:, :, st : st + S] = incoming
     return buf
+
+
+def write_full_pair(k_buf: torch.Tensor, v_buf: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor,
+                    start, plain: bool = False):
+    """``write_full`` of a layer's K and V, in place; returns (k_buf, v_buf).
+
+    S == 1 (decode) writes both rows in one ``write_row`` launch, which reads
+    them by their strides (a ``transpose`` view of the projection's output
+    needs no copy); S > 1 writes each as ``write_full`` does."""
+    if k_in.shape[2] == 1:
+        (write_row_plain if plain else write_row)(k_buf, k_in, start, v_buf, v_in)
+        return k_buf, v_buf
+    return write_full(k_buf, k_in, start, plain), write_full(v_buf, v_in, start, plain)
 
 
 def write_full_q4(buf_q: torch.Tensor, buf_s: torch.Tensor, incoming: torch.Tensor, start,

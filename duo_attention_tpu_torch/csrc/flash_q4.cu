@@ -63,16 +63,33 @@
 //     warpgroup's softmax (here with the scales' two extra multiplies a score)
 //     mostly follows its products.
 //   * decode (S == 1): bound by bytes (each visible packed row read once, D
-//     bytes per token for K and V together). The key range is SPLIT over
-//     blockIdx.z so that B * Hkv * nsplit blocks run, not B * Hkv; each block
-//     of 128 threads keeps the G query heads of its KV head as rows, scores
-//     one key per thread, accumulates P.V per warp, and writes its partial
-//     (sum, max, denominator, zero-point term) to scratch; a second small
-//     kernel merges the partials.
+//     bytes per token for K and V together, and 8 bytes of scales), so the
+//     design is about keeping enough bytes in flight. One launch: the key
+//     range of each (b, KV head) is SPLIT over blocks by a plan made from the
+//     bucket (ops/flash.py::q4_decode_split_plan: one 256-thread block an SM,
+//     as many as its 146 registers a thread allow, and at most 32 splits of a
+//     (b, KV head)), and each block's eight warps take 32 keys (16 pair rows)
+//     of every 256-key tile of the split. A warp owns its slice outright: it
+//     copies the slice's packed K and V rows and their scales into a 3-stage
+//     ring of its own by `cp.async` (two slices, 8.5 KB, in flight while it
+//     works on one; 70 KB a block), so no barrier is needed in the walk, only
+//     `__syncwarp`. The copies go out before the frontier and q are read. It
+//     reads each pair row once: one 32-bit word gives both keys' nibbles as
+//     bf16 (the prefill producer's `0x4300 | n` and one `fma.rn.bf16x2`), and
+//     S = Q K^T and O += P V run on the tensor cores as `mma.sync` m16n8k16
+//     with the group's G <= 8 query rows padded to 16 (the channel and key orders are renumbered so that fragments come
+//     straight from the words; see decode_q4_kernel). Scores and the online
+//     softmax are per warp, over its own keys, with quad shuffles; the eight
+//     warps merge once at the end of the block. The block writes its partial
+//     (sum, max, denominator, zero-point term), fences, and takes a ticket
+//     from its (b, KV head)'s counter; the last block merges the at most 32
+//     partials (with the arithmetic of the former merge kernel; float4 loads,
+//     all independent) into the output and takes the counter back to 0 for
+//     the next launch. Splits past the frontier return at once.
 //
 // Lengths come from device memory ([B] int32, or one value with stride 0).
 // Launches go on the caller's stream and allocate nothing (the wrapper hands
-// in the decode scratch).
+// in the decode scratch and the ticket counters, both kept across calls).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,18 +120,12 @@ struct Args {
   int nkeys;  // slots at or past this (the bucket) are never read
   float scale;
   float* part;  // decode scratch [B, Hkv, nsplit, G, PART]
+  int* counters;  // decode tickets [B, Hkv], 0 between launches
   int nsplit, split_keys;
 };
 
 __device__ __forceinline__ float bf16_scale(float scale) {
   return __bfloat162float(__float2bfloat16(scale));
-}
-
-// Scale and zero-point of token j from a [4, T2] scale block.
-__device__ __forceinline__ void token_scales(const bf16* s4, int T2, int j, float& sc, float& zp) {
-  const int par = j & 1, r = j >> 1;
-  sc = __bfloat162float(s4[(size_t)par * T2 + r]);
-  zp = __bfloat162float(s4[(size_t)(2 + par) * T2 + r]);
 }
 
 // ---------------------------------------------------------------------------
@@ -555,226 +566,451 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Decode: blocks over (KV head, b, key split), then a merge
+// Decode: one launch over (key split, KV head, b); the last block of a
+// (b, KV head) to finish merges its splits
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_THREADS = D;  // thread d owns output column d in the merge
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int PART = D + 4;  // per (split, query head): D sums, then max, denominator, zero-point sum
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_TILE = 32 * DEC_WARPS;  // keys a block steps over: 32 (16 pair rows) for each warp
+constexpr int WROWS = 16;  // pair rows a warp takes from each tile
+constexpr int DEC_STAGES = 3;  // slices in a warp's ring: all but one in flight
+constexpr int WSCALE_BYTES = 4 * WROWS * 2;  // [4][WROWS] bf16: scale_e, scale_o, zp_e, zp_o
+constexpr int WSTAGE = 2 * WROWS * D + 2 * WSCALE_BYTES;  // K rows, V rows, K scales, V scales
+constexpr int DEC_SMEM = DEC_WARPS * DEC_STAGES * WSTAGE;
+constexpr int DEC_MAX_SPLITS = 32;  // splits a (b, KV head): the merge gives each partial a lane
+constexpr int MERGE_CHUNK = 16;  // partials' sums a merging thread holds in registers at once
+constexpr int DEC_MAX_G = 8;  // the query rows of an m16n8k16 tile that hold a head (8-15 are zero)
+constexpr int PART = D + 4;  // per (split, query head): D sums, then the max, denominator, zero-point sum
+// The block's merge of its warps reuses the ring: acc [warp][row][ACC_ROW], a
+// row in four segments of 32 channels at ACC_SEG apart, so that the 32 lanes
+// of a warp, (row gid, channel 32t + j), store to 32 banks (gid + 8t + j).
+constexpr int ACC_SEG = 40, ACC_ROW = 4 * ACC_SEG + 1;
+constexpr int WACC_FLOATS = DEC_WARPS * DEC_MAX_G * ACC_ROW;
+static_assert(DEC_THREADS % D == 0, "the block's merge gives each thread one column");
+static_assert(4 * (WACC_FLOATS + 3 * DEC_WARPS * DEC_MAX_G) <= DEC_SMEM, "the warps' merge exceeds the ring");
+static_assert(4 * (2 * DEC_MAX_SPLITS * DEC_MAX_G + 2 * DEC_MAX_G) <= DEC_SMEM, "the splits' merge exceeds the ring");
+static_assert(DEC_MAX_SPLITS <= 32, "the merge gives each partial a lane");
 
-template <int G>
-__global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
-  __shared__ float sq[G][D];
-  __shared__ float sp[G][DEC_THREADS];
-  __shared__ float red[G][DEC_WARPS];
-  __shared__ float redz[G][DEC_WARPS];
-  __shared__ float sqsum[G], sm[G], sl[G], sz[G], salpha[G];
-  __shared__ float sacc[DEC_WARPS][G][D];
+// c0/c1 (row gid, columns 2t and 2t + 1) += A B for A = (a0: row gid, k 2t
+// and 2t + 1; a2: k 2t + 8 and 2t + 9) with rows 8-15 zero, B = (b0, b1).
+// Rows 8-15 of the result are 0 and are thrown away.
+__device__ __forceinline__ void mma_16816(float& c0, float& c1, uint32_t a0, uint32_t a2, uint32_t b0, uint32_t b1) {
+  [[maybe_unused]] float z0, z1;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"
+      : "+f"(c0), "+f"(c1), "=f"(z0), "=f"(z1)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
+}
 
-  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// Byte I of word w (w4 = w >> 4) to the bf16 pair (low nibble, high nibble).
+template <int I>
+__device__ __forceinline__ uint32_t byte_to_bf16x2(uint32_t w, uint32_t w4) {
+  return nibbles_to_bf16x2(__byte_perm(w, w4, I | ((4 + I) << 8)));
+}
+
+// Takes a ticket: the counter's value before adding 1, release and acquire at
+// the device's scope. Taken by one thread between two barriers, it publishes
+// the block's writes before it and makes the writes of the blocks that took
+// earlier tickets visible to the block after it (the idiom of CUTLASS's
+// generic barrier).
+__device__ __forceinline__ int ticket_acq_rel(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// The former merge kernel's arithmetic over n <= DEC_MAX_SPLITS partials at p
+// (G * PART floats apart), into the G output rows: out = sum_s w_s (acc_s +
+// z_s) / sum_s w_s l_s, with w_s = e^(m_s - M), M = max_s m_s (a row whose sum
+// of l is 0 gives 0).
+__device__ void merge_partials(const float* p, int n, int G, float* smem, bf16* out) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cs = a.cs[b * a.cs_stride];  // the query's position
-  const float sc = bf16_scale(a.scale);
-  const size_t bh = (size_t)b * a.Hkv + hk;
-  const uint8_t* kq = a.kq + bh * a.T2 * D;
-  const uint8_t* vq = a.vq + bh * a.T2 * D;
-  const bf16* ks = a.ks + bh * 4 * a.T2;
-  const bf16* vs = a.vs + bh * 4 * a.T2;
-
-  for (int i = tid; i < G * D; i += DEC_THREADS) {
-    const int g = i / D, d = i % D;
-    const float qv = __bfloat162float(a.q[((size_t)b * a.Hq + hk * G + g) * D + d]);
-    sq[g][d] = __bfloat162float(__float2bfloat16(qv * sc));
-  }
-  if (tid < G) {
-    sm[tid] = NEG_INF;
-    sl[tid] = 0.f;
-    sz[tid] = 0.f;
+  float* sw = smem;  // [s][row]: w_s
+  float* sz = sw + DEC_MAX_SPLITS * DEC_MAX_G;  // [s][row]: z_s
+  float* sl = sz + DEC_MAX_SPLITS * DEC_MAX_G;  // [row]: sum_s w_s l_s
+  // the first MERGE_CHUNK sums of this thread's row go out with the statistics' loads
+  const int c4 = 4 * (tid & 31);
+  float4 x[MERGE_CHUNK];
+  auto load_chunk = [&](int g, int s0) {
+#pragma unroll
+    for (int u = 0; u < MERGE_CHUNK; ++u)
+      x[u] = g < G && s0 + u < n ? __ldcg(reinterpret_cast<const float4*>(p + ((s0 + u) * G + g) * PART + c4))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  load_chunk(tid >> 5, 0);
+  for (int g = warp; g < G; g += DEC_WARPS) {
+    const float* q = p + (lane * G + g) * PART;  // lane s reads partial s
+    const bool in = lane < n;
+    const float m = in ? __ldcg(q + D) : NEG_INF, l = in ? __ldcg(q + D + 1) : 0.f, zs = in ? __ldcg(q + D + 2) : 0.f;
+    float M = m;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    const float w = in ? fast_exp2((m - M) * LOG2E) : 0.f;
+    sw[lane * DEC_MAX_G + g] = w;
+    sz[lane * DEC_MAX_G + g] = zs;
+    float L = w * l;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) sl[g] = L;
   }
   __syncthreads();
+  // thread: row tid / 32 (and + DEC_WARPS), columns 4 (tid % 32) .. + 3
+  for (int pass = 0; pass < (G + DEC_WARPS - 1) / DEC_WARPS; ++pass) {
+    const int g = (tid >> 5) + DEC_WARPS * pass;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n; s0 += MERGE_CHUNK) {
+      if (pass > 0 || s0 > 0) load_chunk(g, s0);
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float v = sq[g][tid];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) red[g][warp] = v;
-  }
-  __syncthreads();
-  if (tid < G) {
-    float tot = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) tot += red[tid][w];
-    sqsum[tid] = tot;
-  }
-  // P.V: warp w takes keys [32w, 32w+32) of each tile; lane owns columns 4*lane..4*lane+3.
-  float acc[G][4];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
-  const int kend = min(a.nkeys, cs + 1);
-  const int lo = split * a.split_keys;  // a multiple of the tile, so pairs never straddle
-  const int hi = min(kend, lo + a.split_keys);
-  __syncthreads();
-
-  for (int k0 = lo; k0 < hi; k0 += DEC_THREADS) {
-    const int j = k0 + tid;
-    const bool vis = j < hi;  // every slot below kend is visible to the one query
-    float s[G];
-    float vscale = 0.f, vzp = 0.f;
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = NEG_INF;
-    if (vis) {
-      const uint8_t* kp = kq + (size_t)(j >> 1) * D;
-      const int shift = (j & 1) * 4;
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = 0.f;
-#pragma unroll 2
-      for (int c = 0; c < D; c += 16) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kp + c);
-        const uint8_t* e = reinterpret_cast<const uint8_t*>(&raw);
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          const float kf = static_cast<float>((e[u] >> shift) & 0xF);
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] += sq[g][c + u] * kf;
-        }
-      }
-      float kscale, kzp;
-      token_scales(ks, a.T2, j, kscale, kzp);
-      token_scales(vs, a.T2, j, vscale, vzp);
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = s[g] * kscale + sqsum[g] * kzp;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float m = s[g];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) red[g][warp] = m;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float mx = red[tid][0];
-#pragma unroll
-      for (int w = 1; w < DEC_WARPS; ++w) mx = fmaxf(mx, red[tid][w]);
-      const float m_prev = sm[tid], m_next = fmaxf(m_prev, mx);
-      salpha[tid] = expf(m_prev - m_next);
-      sm[tid] = m_next;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = vis ? expf(s[g] - sm[g]) : 0.f;
-      sp[g][tid] = __bfloat162float(__float2bfloat16(p * vscale));
-      float ps = p, pz = p * vzp;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-        pz += __shfl_xor_sync(0xffffffffu, pz, off);
-      }
-      if (lane == 0) {
-        red[g][warp] = ps;
-        redz[g][warp] = pz;
+      for (int u = 0; u < MERGE_CHUNK; ++u) {
+        if (s0 + u >= n || g >= G) break;
+        const float w = sw[(s0 + u) * DEC_MAX_G + g], zs = sz[(s0 + u) * DEC_MAX_G + g];
+        acc.x += w * (x[u].x + zs);
+        acc.y += w * (x[u].y + zs);
+        acc.z += w * (x[u].z + zs);
+        acc.w += w * (x[u].w + zs);
       }
     }
-    __syncthreads();
-    if (tid < G) {
-      float tot = 0.f, totz = 0.f;
-#pragma unroll
-      for (int w = 0; w < DEC_WARPS; ++w) {
-        tot += red[tid][w];
-        totz += redz[tid][w];
-      }
-      sl[tid] = salpha[tid] * sl[tid] + tot;
-      sz[tid] = salpha[tid] * sz[tid] + totz;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] *= salpha[g];
-    // this warp's 32 keys are 16 packed rows; keys past hi carry p = 0
-    const int npair = min(16, (hi - k0 - 32 * warp + 1) / 2);
-#pragma unroll 4
-    for (int pr = 0; pr < npair; ++pr) {
-      const int jj = 32 * warp + 2 * pr;
-      const uint32_t raw = *reinterpret_cast<const uint32_t*>(vq + (size_t)((k0 + jj) >> 1) * D + 4 * lane);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pe = sp[g][jj], po = sp[g][jj + 1];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t byte = (raw >> (8 * c)) & 0xFFu;
-          acc[g][c] += pe * static_cast<float>(byte & 0xFu) + po * static_cast<float>(byte >> 4);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sacc[warp][g][4 * lane + c] = acc[g][c];
-  __syncthreads();
-  float* part = a.part + ((bh * a.nsplit + split) * G) * PART;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) o += sacc[w][g][tid];
-    part[g * PART + tid] = o;
-  }
-  if (tid < G) {
-    part[tid * PART + D] = sm[tid];
-    part[tid * PART + D + 1] = sl[tid];
-    part[tid * PART + D + 2] = sz[tid];
+    if (g >= G) continue;
+    const float L = sl[g] == 0.f ? 1.f : sl[g];
+    *reinterpret_cast<uint2*>(out + g * D + c4) =
+        make_uint2(pack_bf16(acc.x / L, acc.y / L), pack_bf16(acc.z / L, acc.w / L));
   }
 }
 
-// out[b, h, :] from the splits' partials: the usual merge of online-softmax
-// states, out = sum_s e^(m_s - M) (acc_s + z_s) / sum_s e^(m_s - M) l_s.
-__global__ void __launch_bounds__(DEC_THREADS) merge_q4_kernel(Args a) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int hk = h / a.G, g = h % a.G;
-  const float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit) * a.G + g) * PART;
-  const size_t stride = (size_t)a.G * PART;
-  float M = NEG_INF;
-  for (int s = 0; s < a.nsplit; ++s) M = fmaxf(M, part[s * stride + D]);
-  float o = 0.f, l = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const float* p = part + s * stride;
-    const float w = expf(p[D] - M);
-    o += w * (p[d] + p[D + 2]);
-    l += w * p[D + 1];
+#ifdef DUO_Q4_DECODE_FMA
+// The same products by float32 FMAs on the CUDA cores, for the measurement
+// that chose the tensor cores (chip_smoke.py phase 3 builds both). A nibble n
+// becomes float32 exactly as the bits 0x4B000000 | n less 2^23.
+__device__ __forceinline__ float nib_f32(uint32_t n) { return __uint_as_float(0x4B000000u | n) - 8388608.f; }
+#endif
+
+// The walk keeps, per warp, the online softmax of query row gid over the
+// warp's own keys: 32 keys (16 pair rows) of every DEC_TILE-key tile of the split.
+// Per slice, in two groups of 8 pair rows:
+//   S = Q K^T by m16n8k16 with the channels renumbered so that a thread's B
+//     fragment is one 32-bit word of its pair row: k-step ks of thread t is
+//     channels 32t + 4ks + {0,1} (k 2t, 2t + 1) and + {2,3} (k 2t + 8, 2t + 9);
+//     one word gives the even key's fragment (n-tile "even") and the odd
+//     key's (n-tile "odd"), so column n of either is the group's pair row n;
+//   O += P V by m16n8k16 with the keys renumbered so that k 2t, 2t + 1 are
+//     pair row 2t's two keys and k 2t + 8, 2t + 9 pair row 2t + 1's: the S
+//     fragments are P's A fragment as they stand, and a B register is one
+//     byte (both keys' nibbles) of one channel: channel 16 gid + j of n-tile j,
+//     so a thread's 16 bytes of a pair row feed all 16 n-tiles, and its output
+//     columns are channels 32t + j and 32t + 16 + j.
+__global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
+  const int G = a.G;
+  const int lo = split * a.split_keys;  // a multiple of the tile: pair rows never straddle splits
+  const int hi_split = min(a.nkeys, lo + a.split_keys);  // the split's keys inside the span
+  const size_t bh = (size_t)b * a.Hkv + hk;
+  bf16* out = a.out + ((size_t)b * a.Hq + hk * G) * D;  // the group's G rows
+
+  // The warp's ring: stage = 16 packed K rows, 16 V rows (both in the 128-byte
+  // swizzle: the 16-byte piece c of row r at c ^ (r & 7)), then their scales.
+  unsigned char* ring = dsmem + warp * DEC_STAGES * WSTAGE;
+  const uint32_t ring_addr = smem_addr(ring);
+  const uint8_t* kq = a.kq + bh * a.T2 * D;
+  const uint8_t* vq = a.vq + bh * a.T2 * D;
+  const bf16* ks4 = a.ks + bh * 4 * a.T2;
+  const bf16* vs4 = a.vs + bh * 4 * a.T2;
+  // Copies cover the split's range inside the span, before the frontier is known (keys
+  // between the frontier and hi_split are read, and selected away below); pair rows
+  // past the span are zero-filled.
+  const int krows = (hi_split + 1) / 2;
+  const int row0 = lo / 2 + WROWS * warp;  // the warp's first pair row; + DEC_TILE / 2 a tile
+  auto issue = [&](int i) {
+    const uint32_t st = ring_addr + (i % DEC_STAGES) * WSTAGE;
+    const int r0 = row0 + (DEC_TILE / 2) * i;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = lane + 32 * u, r = idx >> 3, c = idx & 7;
+      const bool in = r0 + r < krows;
+      const size_t off = in ? (size_t)(r0 + r) * D + 16 * c : 0;
+      const uint32_t dst = st + r * 128 + ((c ^ (r & 7)) << 4);
+      cp_async16(dst, kq + off, in ? 16 : 0);
+      cp_async16(dst + WROWS * D, vq + off, in ? 16 : 0);
+    }
+    if (lane < 16) {  // 16 pieces: (K, V) x 4 scale rows x 2 halves of 8 pair rows
+      const int which = lane >> 3, q = (lane >> 1) & 3, half = lane & 1;
+      const bool in = r0 + 8 * half < krows;
+      const bf16* s4 = which ? vs4 : ks4;
+      cp_async16(st + 2 * WROWS * D + which * WSCALE_BYTES + q * 2 * WROWS + 16 * half,
+                 in ? s4 + (size_t)q * a.T2 + r0 + 8 * half : s4, in ? 16 : 0);
+    }
+  };
+
+  // the first slices' copies go out before q and the frontier are read: the latencies overlap
+  {
+    const int nt_copy = (hi_split - lo - 32 * warp + DEC_TILE - 1) / DEC_TILE;
+#pragma unroll
+    for (int i = 0; i < DEC_STAGES - 1; ++i) {
+      if (i < nt_copy) issue(i);
+      cp_async_commit();
+    }
   }
-  if (l == 0.f) l = 1.f;
-  a.out[((size_t)b * a.Hq + h) * D + d] = __float2bfloat16(o / l);
+  const int cs = a.cs[b * a.cs_stride];  // the query's position
+  const int kend = min(a.nkeys, cs + 1);  // every key below it is visible to the one query
+  // splits past the frontier hold no key: they write nothing and take no ticket
+  const int nvalid = kend > 0 ? min(a.nsplit, (kend + a.split_keys - 1) / a.split_keys) : 0;
+  if (split >= nvalid) {
+    cp_async_wait<0>();  // no copy outlives the block
+    if (nvalid == 0 && split == 0)  // no visible key at all: the rows are 0
+      for (int i = tid; i < G * D; i += DEC_THREADS) out[i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int hi = min(kend, hi_split);
+  const int nt = (hi - lo - 32 * warp + DEC_TILE - 1) / DEC_TILE;  // tiles with a visible key of this warp
+
+  // q row gid scaled in bf16: the A fragments and its row sum (rows at or past G are 0)
+  uint32_t qa[8][2];
+  float qsum = 0.f;
+  {
+    const float sc = bf16_scale(a.scale);
+    const uint4* src = reinterpret_cast<const uint4*>(a.q + ((size_t)b * a.Hq + hk * G + min(gid, G - 1)) * D) + 4 * t;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // channels 32t + 8u .. + 7: k-steps 2u and 2u + 1
+      const uint4 raw = gid < G ? __ldg(src + u) : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float x0 = __bfloat162float(__float2bfloat16(bf16_lo(w[h]) * sc));
+        const float x1 = __bfloat162float(__float2bfloat16(bf16_hi(w[h]) * sc));
+        qa[2 * u + (h >> 1)][h & 1] = pack_bf16(x0, x1);
+        qsum += x0 + x1;
+      }
+    }
+    qsum += __shfl_xor_sync(0xffffffffu, qsum, 1);
+    qsum += __shfl_xor_sync(0xffffffffu, qsum, 2);
+  }
+#ifdef DUO_Q4_DECODE_FMA
+  __shared__ float sqf[DEC_MAX_G][D];  // q in float32 for every warp, staged by warp 0
+  if (warp == 0) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      sqf[gid][32 * t + 4 * ks + 0] = bf16_lo(qa[ks][0]);
+      sqf[gid][32 * t + 4 * ks + 1] = bf16_hi(qa[ks][0]);
+      sqf[gid][32 * t + 4 * ks + 2] = bf16_lo(qa[ks][1]);
+      sqf[gid][32 * t + 4 * ks + 3] = bf16_hi(qa[ks][1]);
+    }
+  }
+  __syncthreads();
+#endif
+
+  float m = NEG_INF, l = 0.f, z = 0.f;  // l and z: this thread's own keys' share (summed over the quad at the end)
+  float o[16][2];  // row gid, channels 32t + j and 32t + 16 + j
+#pragma unroll
+  for (int j = 0; j < 16; ++j) o[j][0] = o[j][1] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<DEC_STAGES - 2>();  // this lane's copies of slice i have landed
+    __syncwarp();  // ... and every lane's; all are done with slice i - 1, whose stage is refilled now
+    if (i + DEC_STAGES - 1 < nt) issue(i + DEC_STAGES - 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (i % DEC_STAGES) * WSTAGE;
+    const unsigned char* sk = st + 2 * WROWS * D;  // K scales; V's follow
+    const int key0 = lo + DEC_TILE * i + 32 * warp;  // the even key of the slice's pair row 0
+
+    // scores of pair rows 8grp + 2t + c, token tok (0 even, 1 odd), in float32
+    float s[2][2][2], vsc[2][2][2], vzp[2][2][2];
+    bool vis[2][2][2];
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#ifndef DUO_Q4_DECODE_FMA
+      const int r = 8 * grp + gid;  // the pair row whose words this thread feeds to B
+      const uint4 k0 = *reinterpret_cast<const uint4*>(st + r * 128 + (((2 * t) ^ (r & 7)) << 4));
+      const uint4 k1 = *reinterpret_cast<const uint4*>(st + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
+      const uint32_t kw[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        uint32_t e01, e23, o01, o23;
+        unpack_word(kw[ks], e01, e23, o01, o23);
+        mma_16816(acc[0][0], acc[0][1], qa[ks][0], qa[ks][1], e01, e23);
+        mma_16816(acc[1][0], acc[1][1], qa[ks][0], qa[ks][1], o01, o23);
+      }
+#else
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 8 * grp + 2 * t + c;
+#pragma unroll 2
+        for (int p = 0; p < 8; ++p) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(st + r * 128 + ((p ^ (r & 7)) << 4));
+          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const float qv = sqf[gid][16 * p + e];
+            const uint32_t byte = (w[e >> 2] >> (8 * (e & 3))) & 0xFFu;
+            acc[0][c] = fmaf(qv, nib_f32(byte & 0xFu), acc[0][c]);
+            acc[1][c] = fmaf(qv, nib_f32(byte >> 4), acc[1][c]);
+          }
+        }
+      }
+#endif
+#pragma unroll
+      for (int tok = 0; tok < 2; ++tok) {
+        const int pr = 8 * grp + 2 * t;  // pair rows pr, pr + 1: one word of each scale row
+        const uint32_t kscw = *reinterpret_cast<const uint32_t*>(sk + tok * 2 * WROWS + 2 * pr);
+        const uint32_t kzpw = *reinterpret_cast<const uint32_t*>(sk + (2 + tok) * 2 * WROWS + 2 * pr);
+        const uint32_t vscw = *reinterpret_cast<const uint32_t*>(sk + WSCALE_BYTES + tok * 2 * WROWS + 2 * pr);
+        const uint32_t vzpw = *reinterpret_cast<const uint32_t*>(sk + WSCALE_BYTES + (2 + tok) * 2 * WROWS + 2 * pr);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool v = key0 + 2 * (pr + c) + tok < hi;
+          const float ksc = c ? bf16_hi(kscw) : bf16_lo(kscw), kzp = c ? bf16_hi(kzpw) : bf16_lo(kzpw);
+          // a key past hi may hold NaN scales (the cache there is uninitialised): selected away
+          vis[grp][tok][c] = v;
+          s[grp][tok][c] = v ? acc[tok][c] * ksc + qsum * kzp : NEG_INF;
+          vsc[grp][tok][c] = v ? (c ? bf16_hi(vscw) : bf16_lo(vscw)) : 0.f;
+          vzp[grp][tok][c] = v ? (c ? bf16_hi(vzpw) : bf16_lo(vzpw)) : 0.f;
+        }
+      }
+    }
+
+    // the warp's online softmax of row gid over this slice (the quad shares the row)
+    float mx = NEG_INF;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) mx = fmaxf(mx, (&s[0][0][0])[u]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(m, mx);
+    const float alpha = fast_exp2((m - m_next) * LOG2E);
+    m = m_next;
+    l *= alpha;
+    z *= alpha;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      o[j][0] *= alpha;
+      o[j][1] *= alpha;
+    }
+    float pv[2][2][2];  // p * vscale rounded to bf16
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float p = (&vis[0][0][0])[u] ? fast_exp2(((&s[0][0][0])[u] - m) * LOG2E) : 0.f;
+      l += p;
+      z += p * (&vzp[0][0][0])[u];
+      (&pv[0][0][0])[u] = __bfloat162float(__float2bfloat16(p * (&vsc[0][0][0])[u]));
+    }
+
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+#ifndef DUO_Q4_DECODE_FMA
+      const uint32_t pa0 = pack_bf16(pv[grp][0][0], pv[grp][1][0]);  // pair row 2t: even, odd key
+      const uint32_t pa2 = pack_bf16(pv[grp][0][1], pv[grp][1][1]);  // pair row 2t + 1
+      const int ra = 8 * grp + 2 * t, rb = ra + 1;
+      const unsigned char* sv = st + WROWS * D;
+      const uint4 va = *reinterpret_cast<const uint4*>(sv + ra * 128 + ((gid ^ (ra & 7)) << 4));
+      const uint4 vb = *reinterpret_cast<const uint4*>(sv + rb * 128 + ((gid ^ (rb & 7)) << 4));
+      const uint32_t wa[4] = {va.x, va.y, va.z, va.w}, wb[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+        const uint32_t a4 = wa[wi] >> 4, b4 = wb[wi] >> 4;
+        mma_16816(o[4 * wi + 0][0], o[4 * wi + 0][1], pa0, pa2, byte_to_bf16x2<0>(wa[wi], a4), byte_to_bf16x2<0>(wb[wi], b4));
+        mma_16816(o[4 * wi + 1][0], o[4 * wi + 1][1], pa0, pa2, byte_to_bf16x2<1>(wa[wi], a4), byte_to_bf16x2<1>(wb[wi], b4));
+        mma_16816(o[4 * wi + 2][0], o[4 * wi + 2][1], pa0, pa2, byte_to_bf16x2<2>(wa[wi], a4), byte_to_bf16x2<2>(wb[wi], b4));
+        mma_16816(o[4 * wi + 3][0], o[4 * wi + 3][1], pa0, pa2, byte_to_bf16x2<3>(wa[wi], a4), byte_to_bf16x2<3>(wb[wi], b4));
+      }
+#else
+      // p of the group's 16 keys for row gid: the quad's lanes hold pair rows 2t', 2t' + 1
+#pragma unroll
+      for (int tq = 0; tq < 4; ++tq) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int src = (lane & ~3) | tq, r = 8 * grp + 2 * tq + c;
+          const float pe = __shfl_sync(0xffffffffu, pv[grp][0][c], src);
+          const float po = __shfl_sync(0xffffffffu, pv[grp][1][c], src);
+          const unsigned char* sv = st + WROWS * D + r * 128;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // channels 32t + 16h .. + 15
+            const uint4 raw = *reinterpret_cast<const uint4*>(sv + (((2 * t + h) ^ (r & 7)) << 4));
+            const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const uint32_t byte = (w[e >> 2] >> (8 * (e & 3))) & 0xFFu;
+              o[e][h] = fmaf(pe, nib_f32(byte & 0xFu), fmaf(po, nib_f32(byte >> 4), o[e][h]));
+            }
+          }
+        }
+      }
+#endif
+    }
+  }
+  cp_async_wait<0>();
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  z += __shfl_xor_sync(0xffffffffu, z, 1);
+  z += __shfl_xor_sync(0xffffffffu, z, 2);
+
+  // The block's state from its warps' (once, at the end): the ring's memory is free
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(dsmem);
+  float* wstat = wacc + WACC_FLOATS;  // [m, l, z][warp][row]
+  if (gid < G) {
+    float* row = wacc + (warp * DEC_MAX_G + gid) * ACC_ROW + ACC_SEG * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      row[j] = o[j][0];
+      row[16 + j] = o[j][1];
+    }
+    if (t == 0) {
+      wstat[(0 * DEC_WARPS + warp) * DEC_MAX_G + gid] = m;
+      wstat[(1 * DEC_WARPS + warp) * DEC_MAX_G + gid] = l;
+      wstat[(2 * DEC_WARPS + warp) * DEC_MAX_G + gid] = z;
+    }
+  }
+  __syncthreads();
+  // the (b, KV head)'s partials, one a split
+  float* pbase = a.part + bh * a.nsplit * G * PART;
+  float* part = pbase + split * G * PART;
+  for (int i = tid; i < G * D; i += DEC_THREADS) {  // column d of row g
+    const int g = i / D, d = i % D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, wstat[w * DEC_MAX_G + g]);
+    float acc = 0.f, L = 0.f, Z = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {  // a warp with no key has m = NEG_INF: weight 0
+      const float f = fast_exp2((wstat[w * DEC_MAX_G + g] - M) * LOG2E);
+      acc += f * wacc[(w * DEC_MAX_G + g) * ACC_ROW + (d >> 5) * ACC_SEG + (d & 31)];
+      L += f * wstat[(DEC_WARPS + w) * DEC_MAX_G + g];
+      Z += f * wstat[(2 * DEC_WARPS + w) * DEC_MAX_G + g];
+    }
+    part[g * PART + d] = acc;
+    if (d == 0) {
+      part[g * PART + D] = M;
+      part[g * PART + D + 1] = L;
+      part[g * PART + D + 2] = Z;
+    }
+  }
+
+  // The last block of the (b, KV head)'s splits that hold keys merges them.
+  __shared__ int ticket;
+  int* cnt = a.counters + bh;
+  __syncthreads();  // the block's partial is written; the ticket releases it and acquires the others
+  if (tid == 0) ticket = ticket_acq_rel(cnt);
+  __syncthreads();
+  if (ticket != nvalid - 1) return;
+  if (tid == 0) *cnt = 0;  // ready for the next launch (a replayed graph needs no memset)
+  merge_partials(pbase, nvalid, G, reinterpret_cast<float*>(dsmem), out);
 }
 
 int launch(const Args& a, int B, cudaStream_t stream) {
   if (a.S == 1) {
-    const dim3 grid(a.Hkv, B, a.nsplit);
-    switch (a.G) {
-#define DUO_DECODE_CASE(NG) \
-  case NG:                  \
-    decode_q4_kernel<NG><<<grid, DEC_THREADS, 0, stream>>>(a); \
-    break;
-      DUO_DECODE_CASE(1)
-      DUO_DECODE_CASE(2)
-      DUO_DECODE_CASE(3)
-      DUO_DECODE_CASE(4)
-      DUO_DECODE_CASE(5)
-      DUO_DECODE_CASE(6)
-      DUO_DECODE_CASE(7)
-      DUO_DECODE_CASE(8)
-#undef DUO_DECODE_CASE
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t err = cudaGetLastError();
+    static int configured = -1;  // the device the attribute was set on (a host call a launch saved)
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev != configured)
+      err = cudaFuncSetAttribute(decode_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    merge_q4_kernel<<<dim3(a.Hq, B), DEC_THREADS, 0, stream>>>(a);
+    configured = dev;
+    decode_q4_kernel<<<dim3(a.nsplit, a.Hkv, B), DEC_THREADS, DEC_SMEM, stream>>>(a);
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
         prefill_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PREFILL_SMEM);
@@ -791,23 +1027,27 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Floats of decode scratch per (b, KV head, split, query head of the group).
-int q4_partial_floats() { return PART; }
+// Decode scratch a (b, KV head) needs: floats of partials for nsplit splits
+// and a query group of G.
+int q4_decode_scratch_floats(int nsplit, int G) { return nsplit * G * PART; }
 
 // q [B, S, Hq, D] bf16; k/v_packed [B, Hkv, T2, D] u8 and k/v_scales
 // [B, Hkv, 4, T2] bf16 (already holding the chunk at [cs, cs+S)); cs [B] (or
 // one value, cs_stride 0); out [B, S, Hq, D]. Keys at or past `span` are never
-// read. Decode (S == 1): `part` is scratch of B*Hkv*nsplit*G*q4_partial_floats()
-// floats and split s covers keys [s*split_keys, (s+1)*split_keys), split_keys a
-// multiple of 128 with nsplit*split_keys >= span.
+// read. Decode (S == 1): `part` is scratch of B*Hkv*q4_decode_scratch_floats()
+// floats and `counters` B*Hkv ints that are 0 at the launch (the launch
+// leaves them 0); split s covers keys [s*split_keys, (s+1)*split_keys),
+// split_keys a multiple of 128 with nsplit*split_keys >= span and nsplit <= 32; T2 is a
+// multiple of 8 (the scale rows are copied 16 bytes at a time).
 int full_cache_attention_q4(const void* q, const void* k_packed, const void* k_scales,
                             const void* v_packed, const void* v_scales, const void* cs,
                             int cs_stride, void* out, int B, int S, int Hq, int Hkv, int T2,
-                            int span, int head_dim, float scale, void* part, int nsplit,
-                            int split_keys, void* stream) {
+                            int span, int head_dim, float scale, void* part, void* counters,
+                            int nsplit, int split_keys, void* stream) {
   if (head_dim != D || Hq % Hkv != 0 || span > 2 * T2) return static_cast<int>(cudaErrorInvalidValue);
-  if (S == 1 && (part == nullptr || nsplit < 1 || split_keys % DEC_THREADS != 0 ||
-                 (long long)nsplit * split_keys < span))
+  if (S == 1 && (part == nullptr || counters == nullptr || nsplit < 1 || nsplit > DEC_MAX_SPLITS ||
+                 split_keys % 128 != 0 || (long long)nsplit * split_keys < span ||
+                 Hq / Hkv > DEC_MAX_G || T2 % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.q = static_cast<const bf16*>(q);
@@ -826,6 +1066,7 @@ int full_cache_attention_q4(const void* q, const void* k_packed, const void* k_s
   a.nkeys = span;
   a.scale = scale;
   a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
   a.nsplit = nsplit;
   a.split_keys = split_keys;
   return launch(a, B, static_cast<cudaStream_t>(stream));

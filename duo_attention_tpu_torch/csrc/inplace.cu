@@ -8,6 +8,10 @@
 // Bound: bytes (one row read, one or two rows written per (b, head)), which
 // is nanoseconds of bandwidth, so the launch itself dominates. Design: one
 // block per (head, b), one 16-byte vector per thread, no shared memory.
+// write_row takes a layer's K row and V row of the full heads in one launch
+// (16 pieces of 16 bytes each at D = 128: one warp), and reads them in place
+// from the projection's [B, 1, Hkv, D] output by their strides, so the decode
+// step makes no copy before it.
 //
 // Positions come from device memory ([B] int32, or one value broadcast with
 // pos_stride = 0) so the host never waits for the cache length.
@@ -36,15 +40,25 @@ __device__ __forceinline__ void copy_row(__nv_bfloat16* dst, const __nv_bfloat16
   for (int i = threadIdx.x; i < D / 8; i += blockDim.x) d[i] = s[i];
 }
 
-// buf[b, h, clamp(pos[b], 0, T-1), :] = row[b, h, 0, :]
-__global__ void write_row_kernel(__nv_bfloat16* buf, const __nv_bfloat16* row,
+// k_buf[b, h, clamp(pos[b], 0, T-1), :] = k_row[b, h, :] and, when v_buf is
+// not null, the same of v_buf and v_row. Row (b, h) starts at element
+// b * row_sb + h * row_sh of k_row and of v_row; its D channels are contiguous.
+__global__ void write_row_kernel(__nv_bfloat16* k_buf, __nv_bfloat16* v_buf, const __nv_bfloat16* k_row,
+                                 const __nv_bfloat16* v_row, long long row_sb, long long row_sh,
                                  const int* pos, int pos_stride, int H, int T, int D) {
   const int h = blockIdx.x, b = blockIdx.y;
   // The clamp of duo_attention_tpu/ops/inplace.py::_as_vec(limit=T): an overrun never leaves the
   // buffer; the engine's overrun poison reports it.
   const int p = min(max(pos[b * pos_stride], 0), T - 1);
-  const size_t bh = (size_t)b * H + h;
-  copy_row(buf + (bh * T + p) * D, row + bh * D, D);
+  const size_t dst = (((size_t)b * H + h) * T + p) * D;
+  const long long src = b * row_sb + h * row_sh;
+  const int pieces = D / 8, n = v_buf ? 2 * pieces : pieces;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool v = i >= pieces;
+    const int c = 8 * (v ? i - pieces : i);
+    *reinterpret_cast<uint4*>((v ? v_buf : k_buf) + dst + c) =
+        *reinterpret_cast<const uint4*>((v ? v_row : k_row) + src + c);
+  }
 }
 
 // Sink slot min(start, sink) (past the sink it lands in the never-visible
@@ -125,11 +139,16 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int write_row(void* buf, const void* row, const void* pos, int pos_stride, int B, int H,
-              int T, int D, void* stream) {
+// k_buf, v_buf [B, H, T, D] (v_buf null: K only); rows [B, H, 1, D] at strides
+// row_sb, row_sh (elements, multiples of 8; both rows alike).
+int write_row(void* k_buf, void* v_buf, const void* k_row, const void* v_row, long long row_sb,
+              long long row_sh, const void* pos, int pos_stride, int B, int H, int T, int D,
+              void* stream) {
+  if (D % 8 != 0 || row_sb % 8 != 0 || row_sh % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(H, B);
   write_row_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(buf), static_cast<const __nv_bfloat16*>(row),
+      static_cast<__nv_bfloat16*>(k_buf), static_cast<__nv_bfloat16*>(v_buf),
+      static_cast<const __nv_bfloat16*>(k_row), static_cast<const __nv_bfloat16*>(v_row), row_sb, row_sh,
       static_cast<const int*>(pos), pos_stride, H, T, D);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,16 +4,26 @@ Counterpart of duo_attention_tpu/engine.py's ``DuoEngine`` for the bf16 cache
 and, with ``kv_quant="int4"``, the INT4 full-head cache of the W8A8KV4
 serving format (the weights' format is whatever the params hold). Prefill is
 a host loop over fixed-size chunks (the tail chunk padded; the masks hide the
-padding). Decode is a host loop of single-token steps in
-bursts: tokens stay on the device within a burst and come to the host once
-per burst, where the stop-token early exit is decided. The power-of-two
-``bucket`` bounds the full-head keys the attention reads, as on the TPU.
+padding). Decode runs in bursts: tokens stay on the device within a burst and
+come to the host once per burst, where the stop-token early exit is decided.
+The power-of-two ``bucket`` bounds the full-head keys the attention reads, as
+on the TPU, and is fixed for a whole ``decode_tokens`` call.
+
+On the card a decode step is captured once into a CUDA graph and replayed
+once per token, the counterpart of the JAX engine's device-side ``lax.scan``
+over a burst: the host issues two launches a step (the token's copy into the
+burst's output and the replay), not the step's ~1,800 (bf16) or ~3,650
+(W8A8KV4). There is one graph per (format, B, bucket), captured on the cache
+it decodes after an eager warm-up step that builds and loads every kernel;
+a new cache is captured anew. On the CPU the step runs eagerly, as
+``models.llama.forward_chunk``, which also stays the eager step on the card.
 
 Not ported yet: sampling (greedy only), meshes.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -22,6 +32,7 @@ import torch
 from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4
 from .config import DuoConfig, ModelConfig
 from .models import llama
+from .ops import launches
 from .utils import resolve_device
 
 
@@ -58,6 +69,8 @@ class DuoEngine:
         self.dtype = dtype
         # decode steps per host round trip (the stop-token check runs between bursts)
         self.decode_burst = max(int(decode_burst), 0)
+        self._graphs = {}  # (kv_quant, B, bucket) -> _DecodeGraph, on the card
+        self._capture_stream = None
 
     def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
         init = init_cache_q4 if self.kv_quant == "int4" else init_cache
@@ -154,6 +167,12 @@ class DuoEngine:
         _, cache, nxt = self._decode_burst(cache, token.to(self.device), 1, self.bucket_for(length + 1))
         return nxt, cache
 
+    def _step(self, cache, token: torch.Tensor, bucket: int) -> torch.Tensor:
+        """One greedy decode step fed ``token`` [B]; returns the next token [B]."""
+        hidden, _ = llama.forward_chunk(self.params, self.cfg, self.duo, cache, token[:, None], 1,
+                                        full_bucket=bucket)
+        return torch.argmax(llama.logits_at(self.params, hidden, 0), dim=-1)
+
     @torch.no_grad()
     def _decode_burst(self, cache: DuoCache, token: torch.Tensor, steps: int, bucket: int):
         """``steps`` greedy steps. Emits the token fed at each step, so the
@@ -161,19 +180,80 @@ class DuoEngine:
         one emitted, so bursts chain. Decoding past max_cache_size clamps the
         full-cache writes, so the results are garbage: the whole output is
         then poisoned with -1."""
-        emitted = []
-        for _ in range(steps):
-            hidden, cache = llama.forward_chunk(self.params, self.cfg, self.duo, cache,
-                                                token[:, None], 1, full_bucket=bucket)
-            emitted.append(token)
-            token = torch.argmax(llama.logits_at(self.params, hidden, 0), dim=-1)
-        if emitted:
-            tokens = torch.stack(emitted, dim=1)
+        if self.device.type == "cuda":
+            tokens, token = self._graph_burst(cache, token, steps, bucket)
         else:
-            tokens = token.new_empty((token.shape[0], 0))
+            emitted = []
+            for _ in range(steps):
+                emitted.append(token)
+                token = self._step(cache, token, bucket)
+            tokens = torch.stack(emitted, dim=1) if emitted else token.new_empty((token.shape[0], 0))
         overrun = (cache.length > self.duo.max_cache_size).any()
         tokens = torch.where(overrun, torch.full_like(tokens, -1), tokens)
         return tokens.cpu().numpy().astype(np.int32), cache, token
+
+    def _graph_burst(self, cache, token: torch.Tensor, steps: int, bucket: int):
+        """The burst on the card: per step, one copy puts the token fed into
+        the output, then the captured step is replayed, which writes the next
+        token into the graph's token buffer. Without a graph for this cache,
+        the first step runs eagerly and the step is captured after it."""
+        out = torch.empty((token.shape[0], steps), dtype=torch.long, device=self.device)
+        if steps == 0:
+            return out, token
+        key = (self.kv_quant, token.shape[0], bucket)
+        graph = self._graphs.get(key)
+        first = 0
+        if graph is None or graph.cache() is not cache:  # none yet, or captured on another cache
+            self._graphs.pop(key, None)  # frees the old graph's memory pool
+            tok = token.to(torch.long).clone()
+            out[:, 0].copy_(tok)
+            graph = self._graphs[key] = self._capture(cache, tok, bucket)
+            first = 1
+        else:
+            graph.tok.copy_(token)
+        for i in range(first, steps):
+            out[:, i].copy_(graph.tok)
+            graph.replay()
+        return out, graph.tok.clone()
+
+    def _capture(self, cache, tok: torch.Tensor, bucket: int) -> "_DecodeGraph":
+        """An eager warm-up step (it builds and loads every kernel and makes
+        the decode scratch outside the capture; it is the burst's first step),
+        then the step captured on the same side stream. A capture that fails
+        raises."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            tok.copy_(self._step(cache, tok, bucket))
+            graph = torch.cuda.CUDAGraph()
+            before = launches.snapshot()
+            # capture_begin/end rather than torch.cuda.graph(), whose gc.collect()
+            # and empty_cache() cost ~0.3 s a capture after a 16k-token prefill
+            graph.capture_begin()
+            try:
+                tok.copy_(self._step(cache, tok, bucket))
+            finally:
+                graph.capture_end()
+            delta = [after - b for after, b in zip(launches.snapshot(), before)]
+            launches.add([-d for d in delta])  # the capture launched nothing
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return _DecodeGraph(graph, tok, weakref.ref(cache), delta)
+
+
+class _DecodeGraph:
+    """A captured decode step: ``tok`` [B] is the token it is fed, which the
+    step overwrites with its argmax; ``cache`` a weak reference to the cache
+    whose buffers it was captured on; ``delta`` each launch counter's
+    movement in one step (``ops.launches``), added on every replay."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, tok: torch.Tensor, cache: weakref.ref, delta: list):
+        self.graph, self.tok, self.cache, self.delta = graph, tok, cache, delta
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.add(self.delta)
 
 
 def _burst_plan(burst: int, n: int) -> list:

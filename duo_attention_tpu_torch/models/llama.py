@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..cache import DuoCache, DuoCacheQ4, write_full, write_full_q4, write_streaming
+from ..cache import DuoCache, DuoCacheQ4, write_full_pair, write_full_q4, write_streaming
 from ..config import DuoConfig, ModelConfig
 from ..ops import flash
 from ..ops.attention_ref import causal_attention_ref
@@ -159,17 +159,19 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
     cs = cache.length
     outs = []
     if hf > 0:
-        k_in = k[:, :, :hf].transpose(1, 2).contiguous()
-        v_in = v[:, :, :hf].transpose(1, 2).contiguous()
+        k_in, v_in = k[:, :, :hf].transpose(1, 2), v[:, :, :hf].transpose(1, 2)  # views, [B, hf, S, D]
         q_f = q[:, :, : hf * G].contiguous()
         if isinstance(cache, DuoCacheQ4):
-            kq, ks = write_full_q4(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx], k_in, write_start, plain)
-            vq, vs = write_full_q4(cache.v_full_q[layer_idx], cache.v_full_s[layer_idx], v_in, write_start, plain)
+            kq, ks = write_full_q4(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx], k_in.contiguous(),
+                                   write_start, plain)
+            vq, vs = write_full_q4(cache.v_full_q[layer_idx], cache.v_full_s[layer_idx], v_in.contiguous(),
+                                   write_start, plain)
             attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
             outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
         else:
-            kf = write_full(cache.k_full[layer_idx], k_in, write_start, plain)
-            vf = write_full(cache.v_full[layer_idx], v_in, write_start, plain)
+            # one launch for both rows at decode, read in place from the views
+            kf, vf = write_full_pair(cache.k_full[layer_idx], cache.v_full[layer_idx], k_in, v_in,
+                                     write_start, plain)
             attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
             outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket))
     if hs > 0:
@@ -195,7 +197,9 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     padding, written to the cache and overwritten later as in JAX).
     full_bucket: a bound >= length + S on the full-cache slots the attention
     reads (0: the whole buffer). Returns (hidden [B, S, E] after the final
-    norm, cache) with ``cache.length`` advanced by n_valid (default S).
+    norm, cache) with ``cache.length`` advanced by n_valid (default S) in
+    place. A decode step (S == 1) reads nothing back to the host, so it can
+    be captured into a CUDA graph and replayed (``engine.DuoEngine``).
     """
     B, S = input_ids.shape
     if n_valid is None:
@@ -224,7 +228,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
         x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
         x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), plain)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    cache.length = cache.length + n_valid
+    cache.length.add_(n_valid)  # in place: a replayed decode step advances it too
     return x, cache
 
 

@@ -6,6 +6,8 @@ alone (no PyTorch headers, so a build takes seconds) into
 source, every header of ``csrc/`` it includes (``#include "..."``, followed
 through headers), and the flags, so an edited source or header builds anew
 and an unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all at once.
+A variant is a source built with extra macros (``-D``), to another library,
+for measurements that compare two versions of a kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -57,29 +59,44 @@ def source_files(name: str) -> list:
     return found
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every named source that has no current library, in parallel.
+def target(name: str, defines: Tuple[str, ...]) -> str:
+    """A build's key: the source's name, then "+MACRO" for each define."""
+    return name + "".join(f"+{d}" for d in defines)
 
-    Returns {name: library path}. Raises RuntimeError with the compiler's
-    output if any build fails. The compiler's report (registers, shared
-    memory, spills) is kept beside each library as ``<lib>.log``.
+
+def build(names: Iterable[str] = SOURCES, variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()
+          ) -> Dict[str, Path]:
+    """Compile every named source, and every (source, macros) variant, that
+    has no current library, in parallel.
+
+    Returns {name (a variant: "name+MACRO"): library path}. Raises
+    RuntimeError with the compiler's output if any build fails. The
+    compiler's report (registers, shared memory, spills) is kept beside each
+    library as ``<lib>.log``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    targets = {n: (n, ()) for n in names}
+    targets.update({target(n, tuple(d)): (n, tuple(d)) for n, d in variants})
+    paths = {t: library_path(n, d) for t, (n, d) in targets.items()}
     procs = {}
-    for name, path in paths.items():
+    for key, path in paths.items():
         if path.exists():
             continue
+        name, defines = targets[key]
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+        cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
     errors = []
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
@@ -94,19 +111,21 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; declare each C entry's
-    argument types. Every entry returns its cudaError_t as an int, and every
-    library exports ``error_string`` to name it."""
-    lib = _loaded.get(name)
+def load(name: str, signatures: Dict[str, list], defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` (with ``defines``, the
+    variant); declare each C entry's argument types. Every entry returns its
+    cudaError_t as an int, and every library exports ``error_string`` to
+    name it."""
+    key = target(name, defines)
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build([], [(name, defines)])[key]))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 

@@ -49,16 +49,21 @@ _SIGNATURES = {
 }
 _Q4_SIGNATURES = {
     "full_cache_attention_q4": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                _P, _I, _I, _P],
-    "q4_partial_floats": [],
+                                _P, _P, _I, _I, _P],
+    "q4_decode_scratch_floats": [_I, _I],
 }
 HEAD_DIM = 128  # the kernels' head_dim (every preset's)
 MAX_GROUP = 8  # the decode kernel's largest query-head group
 # Query rows per plain-version matmul: bounds its [Hq, rows, keys] f32 scores.
 _PLAIN_ROWS = 512
-# The INT4 decode kernel splits the key range over blocks: about this many
-# keys per block, at most this many blocks per (sequence, KV head).
-Q4_SPLIT_KEYS, Q4_MAX_SPLITS = 512, 32
+# The INT4 decode kernel's split plan (``q4_decode_split_plan``): splits of
+# whole Q4_DECODE_TILE_KEYS-key tiles, at most Q4_DECODE_WAVE_BLOCKS blocks per
+# launch (one 256-thread block fits an H100 SM at the kernel's registers: 132
+# run at once, and a second wave costs more than it brings) and at most
+# Q4_DECODE_ONE_MERGE splits a (sequence, KV head) (the kernel's one merge
+# gives each split's partial a lane of a warp). scripts/q4_decode_splits.py
+# times other split sizes at the main path's shapes (PERF.md).
+Q4_DECODE_TILE_KEYS, Q4_DECODE_WAVE_BLOCKS, Q4_DECODE_ONE_MERGE = 128, 132, 32
 # The bf16 decode kernel's split plan (``decode_split_plan``): a block walks
 # its keys in tiles of DECODE_TILE_KEYS; a span up to DECODE_ONE_BLOCK_SPAN is
 # one block's work; past it the plan aims at DECODE_TARGET_BLOCKS blocks per
@@ -99,6 +104,38 @@ def decode_split_plan(span: int, heads: int) -> tuple[int, int]:
         nsplit = max(1, min(wanted, DECODE_MAX_SPLITS, span // DECODE_MIN_SPLIT_KEYS))
     split_keys = -(-max(span, 1) // (nsplit * tile)) * tile
     return -(-max(span, 1) // split_keys), split_keys
+
+
+def q4_decode_split_plan(span: int, heads: int) -> tuple[int, int]:
+    """(nsplit, split_keys) for the INT4 decode kernel over ``span`` keys and
+    ``heads`` = B * Hkv (sequence, KV head) pairs: split s walks keys
+    [s * split_keys, (s + 1) * split_keys).
+
+    Made from the span alone (the engine's bucket), as ``decode_split_plan``
+    is, so a decode step captures into a CUDA graph; a sequence shorter than
+    the span leaves its last splits empty, and the kernel skips them. Splits
+    are whole tiles (``split_keys`` a multiple of 128: a pair row of two keys
+    never straddles two splits) and ``nsplit * split_keys >= span``; as
+    many splits as one wave of Q4_DECODE_WAVE_BLOCKS blocks over all pairs
+    allows, and never more than Q4_DECODE_ONE_MERGE a pair."""
+    tiles = -(-max(span, 1) // Q4_DECODE_TILE_KEYS)
+    wanted = max(1, min(Q4_DECODE_WAVE_BLOCKS // max(heads, 1), Q4_DECODE_ONE_MERGE))  # splits a pair
+    split_keys = -(-tiles // wanted) * Q4_DECODE_TILE_KEYS
+    return -(-max(span, 1) // split_keys), split_keys
+
+
+_decode_scratch = {}
+
+
+def _scratch(kind: str, numel: int, dtype, device) -> torch.Tensor:
+    """A buffer kept per (kind, size, device) and reused by every call: the INT4
+    decode's partials, and its ticket counters, which start at 0 and which
+    each launch leaves at 0. Never freed, so a CUDA graph that captured one
+    stays valid."""
+    key = (kind, numel, str(device))
+    if key not in _decode_scratch:
+        _decode_scratch[key] = torch.zeros(numel, dtype=dtype, device=device)
+    return _decode_scratch[key]
 
 
 def _check_kernel_inputs(name: str, q: torch.Tensor, bufs, Hkv: int) -> None:
@@ -283,21 +320,24 @@ def full_cache_attention_q4(q, k_packed, k_scales, v_packed, v_scales, cs, *, bu
     if tuple(k_scales.shape) != (B, Hkv, 4, T2) or tuple(v_scales.shape) != (B, Hkv, 4, T2):
         raise ValueError(f"full_cache_attention_q4: scales {tuple(k_scales.shape)} {tuple(v_scales.shape)}, "
                          f"expected {(B, Hkv, 4, T2)}")
+    if S == 1 and T2 % 8 != 0:
+        raise ValueError(f"full_cache_attention_q4: the decode kernel needs T/2 = {T2} a multiple of 8")
     cs_t, cs_stride = device_positions(cs, B, q.device)
     span = _span(bucket, 2 * T2)
     out = torch.empty_like(q)
     lib = _lib_q4()
-    part, nsplit, split_keys = None, 0, 0
+    part = counters = None
+    nsplit = split_keys = 0
     if S == 1:
-        nsplit = min(Q4_MAX_SPLITS, -(-span // Q4_SPLIT_KEYS))
-        split_keys = -(-span // (nsplit * 128)) * 128
-        part = torch.empty(B * Hkv * nsplit * (Hq // Hkv) * lib.q4_partial_floats(),
-                           dtype=torch.float32, device=q.device)
+        nsplit, split_keys = q4_decode_split_plan(span, B * Hkv)
+        part = _scratch("q4_part", B * Hkv * lib.q4_decode_scratch_floats(nsplit, Hq // Hkv),
+                        torch.float32, q.device)
+        counters = _scratch("q4_tickets", B * Hkv, torch.int32, q.device)  # one ticket counter a (b, KV head)
     err = lib.full_cache_attention_q4(
         q.data_ptr(), k_packed.data_ptr(), k_scales.data_ptr(), v_packed.data_ptr(), v_scales.data_ptr(),
         cs_t.data_ptr(), cs_stride, out.data_ptr(), B, S, Hq, Hkv, T2, span, D, D**-0.5,
-        None if part is None else part.data_ptr(), nsplit, split_keys,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        None if part is None else part.data_ptr(), None if counters is None else counters.data_ptr(),
+        nsplit, split_keys, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "full_cache_attention_q4")
     if S == 1:

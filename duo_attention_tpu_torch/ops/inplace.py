@@ -8,6 +8,8 @@ as the reference on the card) and a CUDA kernel in ``csrc/inplace.cu``
 launches in ``<wrapper>.launches``; the plain versions count calls made
 with CUDA tensors in ``<plain>.cuda_calls``.
 
+``write_row`` takes the full heads' K row and V row of a layer in one
+launch, read in place by their strides from the projection's output.
 ``write_q4_token`` is the INT4 cache's decode write: it quantizes the row and
 merges its nibbles into the token-paired byte row in one kernel.
 """
@@ -21,9 +23,9 @@ import torch
 from . import _build
 from .quant import quantize_int4_nibbles
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "write_row": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "write_row": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "write_q4_token": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -64,40 +66,58 @@ def _check_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# write_row: buf[b, :, pos[b], :] = row, pos clamped into [0, T-1]
+# write_row: buf[b, :, pos[b], :] = row, pos clamped into [0, T-1]; K and V in one launch
 # ---------------------------------------------------------------------------
 
 
-def write_row_plain(buf: torch.Tensor, row: torch.Tensor, pos) -> torch.Tensor:
+def write_row_plain(buf: torch.Tensor, row: torch.Tensor, pos, v_buf=None, v_row=None) -> torch.Tensor:
     """Plain version of write_row (the same clamp, the same result)."""
     if buf.is_cuda:
         write_row_plain.cuda_calls += 1
     B, H, T, D = buf.shape
     p = position_vector(pos, B, buf.device, limit=T)
-    buf[torch.arange(B, device=buf.device), :, p] = row[:, :, 0].to(buf.dtype)
+    bi = torch.arange(B, device=buf.device)
+    for dst, src in ((buf, row),) if v_buf is None else ((buf, row), (v_buf, v_row)):
+        dst[bi, :, p] = src[:, :, 0].to(dst.dtype)
     return buf
 
 
 write_row_plain.cuda_calls = 0
 
 
-def write_row(buf: torch.Tensor, row: torch.Tensor, pos) -> torch.Tensor:
+def write_row(buf: torch.Tensor, row: torch.Tensor, pos, v_buf=None, v_row=None) -> torch.Tensor:
     """buf [B, H, T, D]; row [B, H, 1, D]; pos int, 0-d or [B] tensor.
 
     Writes row at (b, :, pos[b], :) IN PLACE and returns buf. pos is
-    clamped into [0, T-1] so an overrun never leaves the buffer.
+    clamped into [0, T-1] so an overrun never leaves the buffer. With
+    ``v_buf`` and ``v_row`` (of buf's and row's shapes) it writes v_row into
+    v_buf at the same positions in the same launch: the decode step's K and V
+    rows of a layer's full heads. The rows need not be contiguous: the kernel
+    reads each (b, h) row by its strides (the channels contiguous, both rows
+    with the same strides), as a ``transpose`` view of the projection's
+    ``[B, 1, Hkv, D]`` output gives them.
     """
     if not buf.is_cuda:
-        return write_row_plain(buf, row, pos)
+        return write_row_plain(buf, row, pos, v_buf, v_row)
     B, H, T, D = buf.shape
-    _check_bf16_cuda("write_row", buf, row)
-    if tuple(row.shape) != (B, H, 1, D) or D % 8 != 0:
-        raise ValueError(f"write_row: row {tuple(row.shape)} for buffer {tuple(buf.shape)}")
+    pair = v_buf is not None
+    bufs, rows = (buf, v_buf) if pair else (buf,), (row, v_row) if pair else (row,)
+    _check_bf16_cuda("write_row", *bufs)
+    for r in rows:
+        if (r.device != buf.device or r.dtype != torch.bfloat16 or tuple(r.shape) != (B, H, 1, D)
+                or r.stride() != row.stride() or r.stride(3) != 1 or r.stride(0) % 8 or r.stride(1) % 8
+                or r.data_ptr() % 16):
+            raise ValueError(f"write_row: row {tuple(r.shape)} {r.dtype} with strides {r.stride()} for "
+                             f"buffer {tuple(buf.shape)}: the kernel takes bfloat16 [B, H, 1, D] rows with "
+                             "contiguous channels, 16-byte aligned, K and V alike")
+    if (pair and tuple(v_buf.shape) != (B, H, T, D)) or D % 8 != 0:
+        raise ValueError(f"write_row: buffers {tuple(buf.shape)} {tuple(v_buf.shape) if pair else ''}")
     p, stride = device_positions(pos, B, buf.device)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     lib = _lib()
-    err = lib.write_row(buf.data_ptr(), row.data_ptr(), p.data_ptr(), stride,
-                        B, H, T, D, stream)
+    err = lib.write_row(buf.data_ptr(), v_buf.data_ptr() if pair else None, row.data_ptr(),
+                        v_row.data_ptr() if pair else None, row.stride(0), row.stride(1),
+                        p.data_ptr(), stride, B, H, T, D, stream)
     _build.check(lib, err, "write_row")
     write_row.launches += 1
     return buf

@@ -3,7 +3,10 @@
 Non-interleaved (rotate-half) layout as in HF Llama. Positions are explicit
 integer tensors; ``rope_theta`` and the linear/llama3 scaling come from the
 config. The precise mode builds its split-radix tables from float64
-frequencies on the host, exactly as the JAX package does.
+frequencies on the host, exactly as the JAX package does. The per-channel
+frequencies of either mode are made once per (config, device) and kept there
+as device constants: a copy from the host is not allowed inside a captured
+CUDA graph, and outside one it would wait for the device every step.
 """
 
 from __future__ import annotations
@@ -35,6 +38,17 @@ def _scaled_inv_freq(inv_freq, rs: RopeScaling, where, pi: float):
             where(wavelen < high_freq_wavelen, inv_freq, smoothed),
         )
     return inv_freq
+
+
+_constants = {}
+
+
+def _device_constant(name: str, cfg: ModelConfig, device, make):
+    """``make()`` computed once per (name, config, device) and kept."""
+    key = (name, cfg, str(torch.device(device) if device is not None else "cpu"))
+    if key not in _constants:
+        _constants[key] = make()
+    return _constants[key]
 
 
 def rope_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -73,11 +87,15 @@ def rope_cos_sin_precise(cfg: ModelConfig, positions: torch.Tensor):
     the host:  pos = 4096 q + r,  w_hi = (4096 w) mod 2pi,
     angle = (q * w_hi) mod 2pi + r * w,  every intermediate < ~4100 rad.
     """
-    w64 = _inv_freq64(cfg)
     dev = positions.device
-    w_hi = torch.as_tensor(np.mod(_SPLIT * w64, 2 * np.pi), dtype=torch.float32, device=dev)
-    w_lo = torch.as_tensor(w64, dtype=torch.float32, device=dev)
-    two_pi = torch.tensor(2 * np.pi, dtype=torch.float32, device=dev)
+
+    def tables():
+        w64 = _inv_freq64(cfg)
+        return (torch.as_tensor(np.mod(_SPLIT * w64, 2 * np.pi), dtype=torch.float32, device=dev),
+                torch.as_tensor(w64, dtype=torch.float32, device=dev),
+                torch.tensor(2 * np.pi, dtype=torch.float32, device=dev))
+
+    w_hi, w_lo, two_pi = _device_constant("precise", cfg, dev, tables)
     q = torch.div(positions, _SPLIT, rounding_mode="floor").float()[..., None]
     r = torch.remainder(positions, _SPLIT).float()[..., None]
     angles = torch.remainder(q * w_hi, two_pi) + r * w_lo
@@ -89,7 +107,8 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     """cos/sin tables for a config: the precise path iff cfg.rope_precise."""
     if cfg.rope_precise:
         return rope_cos_sin_precise(cfg, positions)
-    return rope_cos_sin(rope_inv_freq(cfg, positions.device), positions)
+    dev = positions.device
+    return rope_cos_sin(_device_constant("inv_freq", cfg, dev, lambda: rope_inv_freq(cfg, dev)), positions)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,20 @@ shapes; these cover the shapes it does not reach: ragged query tiles, query
 groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, decode
 split plans with one, full and empty splits, capture into a CUDA graph,
 odd and even token parity in the INT4 cache, a poisoned cache past the INT4
-frontier, every route and tile boundary of the int8 matrix product and its
-model shapes at M = 17 and 4096, and the wrappers' refusals.
+frontier, the INT4 decode at query groups of 1 to 8 with most of its splits
+empty and replayed from a graph, the K/V pair write from strided rows, every
+route and tile boundary of the int8 matrix product and its model shapes at
+M = 17 and 4096, the engine's captured decode step against the eager loop in
+both formats, and the wrappers' refusals.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from duo_attention_tpu_torch.ops import flash, gemm, inplace, quant
+from duo_attention_tpu_torch import DuoConfig, DuoEngine, ModelConfig
+from duo_attention_tpu_torch.models import llama
+from duo_attention_tpu_torch.ops import flash, gemm, inplace, launches, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +142,26 @@ def test_write_row_kernel(dev, pos):
     assert torch.equal(buf, ref)
 
 
+@pytest.mark.parametrize("pos", [0, 511, 600, [3, 0, 511], [-4, 1000, 17]])
+def test_write_row_pair_kernel_reads_strided_rows(dev, pos):
+    """The decode step's write: K and V rows of the first 2 of 4 heads, read
+    in place as ``transpose`` views of [B, 1, Hkv, D] projections, in one
+    launch; bitwise equal to the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kbuf, vbuf = randn(gen, 3, 2, 512, 128), randn(gen, 3, 2, 512, 128)
+    kproj, vproj = randn(gen, 3, 1, 4, 128), randn(gen, 3, 1, 4, 128)
+    krow, vrow = kproj[:, :, :2].transpose(1, 2), vproj[:, :, :2].transpose(1, 2)
+    assert not krow.is_contiguous()
+    refs = kbuf.clone(), vbuf.clone()
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    before = inplace.write_row.launches
+    inplace.write_row(kbuf, krow, pos, vbuf, vrow)
+    assert inplace.write_row.launches == before + 1
+    inplace.write_row_plain(refs[0], krow, pos, refs[1], vrow)
+    torch.cuda.synchronize()
+    assert torch.equal(kbuf, refs[0]) and torch.equal(vbuf, refs[1])
+
+
 @pytest.mark.parametrize("start", [0, 70, [1, 64, 65], [127, 128, 4000]])
 def test_write_streaming_rows_kernel(dev, start):
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -216,6 +242,141 @@ def test_full_cache_attention_q4_prefill_never_reads_past_the_frontier(dev, B, S
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got.float()).all())
     assert_q4_close(got, want)
+
+
+def _q4_cache(gen, B, Hkv, T):
+    kq, ks = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    vq, vs = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 128))
+    return [t.contiguous() for t in (kq, ks, vq, vs)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,cs,bucket", [
+    (1, 4, 4, 32768, 16000, 16384),  # the main path's span, G = 1
+    (1, 8, 4, 32768, 16000, 16384),  # G = 2
+    (1, 12, 4, 16384, 9001, 16384),  # G = 3, odd frontier
+    (1, 16, 4, 32768, 16001, 16384),  # G = 4 (the 8B model), odd frontier
+    (1, 20, 4, 8192, 5000, 8192),  # G = 5
+    (1, 24, 4, 8192, 8191, 8192),  # G = 6, the bucket's last key
+    (1, 28, 4, 4096, 4000, 4096),  # G = 7
+    (1, 32, 4, 4096, 2047, 4096),  # G = 8, half the splits empty
+    (4, 16, 4, 16384, 16000, 16384),  # B = 4
+    (4, 16, 2, 16384, [5, 4097, 12345, 16383], 16384),  # B = 4, [B] lengths, odd and even frontiers
+    (1, 16, 4, 128, 57, 100),  # a span below one tile
+    (2, 8, 2, 256, [99, 36], 100),  # a span below one tile, [B] lengths
+    (1, 16, 4, 32768, 300, 32768),  # a sequence far shorter than the bucket: 31 of 32 splits empty
+    (2, 24, 6, 32768, [32767, 0], 0),  # bucket 0 (the whole buffer); one key in b = 1
+    (1, 20, 5, 16384, 16000, 16384),  # the main path's hf = 5: splits of two tiles
+])
+def test_full_cache_attention_q4_decode_kernel(dev, B, Hq, Hkv, T, cs, bucket):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
+    cache = _q4_cache(gen, B, Hkv, T)
+    cs = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    before = flash.full_cache_attention_q4.decode_launches
+    got = flash.full_cache_attention_q4(q, *cache, cs, bucket=bucket)
+    assert flash.full_cache_attention_q4.decode_launches == before + 1
+    want = flash.full_cache_attention_q4_plain(q, *cache, cs, bucket=bucket)
+    torch.cuda.synchronize()
+    assert_q4_close(got, want)
+
+
+@pytest.mark.parametrize("cs", [1500, 1501, [700, 2047]])
+def test_full_cache_attention_q4_decode_never_reads_past_the_frontier(dev, cs):
+    """Decode over a cache holding NaN scales and 0xF nibbles at every slot
+    past the query (inside the bucket; an odd frontier's pair row holds the
+    visible key and a poisoned one) equals the plain version on a clean one."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cs_t = torch.as_tensor(cs, dtype=torch.int32, device=dev).reshape(-1)
+    B, Hq, Hkv, T = cs_t.numel(), 16, 4, 2048
+    q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
+    kq, ks, vq, vs = _q4_cache(gen, B, Hkv, T)
+    past = torch.arange(T, device=dev)[None] > cs_t[:, None]  # [B, T]
+    clean = [t.clone() for t in (kq, ks, vq, vs)]
+    for b in range(B):
+        for packed, kept in ((kq, clean[0]), (vq, clean[2])):
+            kept[b, :, past[b, 0::2]] = 0
+            packed[b, :, past[b, 0::2]] = 0xFF
+            packed[b, :, past[b, 1::2] & ~past[b, 0::2]] |= 0xF0
+        for scales in (ks, vs):
+            scales[b, :, 0::2][..., past[b, 0::2]] = float("nan")
+            scales[b, :, 1::2][..., past[b, 1::2]] = float("nan")
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs_t, bucket=T)
+    want = flash.full_cache_attention_q4_plain(q, *clean, cs_t, bucket=T)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert_q4_close(got, want)
+
+
+def test_full_cache_attention_q4_decode_is_one_launch_and_replays(dev):
+    """One kernel a call (the profiler sees decode_q4_kernel and nothing else);
+    one captured call, replayed three times, equals the eager call bit for bit
+    each time: the kernel puts its ticket counters back to 0, so the graph
+    needs no memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, Hq, Hkv, T = 2, 16, 4, 16384
+    q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
+    cache = _q4_cache(gen, B, Hkv, T)
+    cs = torch.tensor([16000, 9001], dtype=torch.int32, device=dev)
+    want = flash.full_cache_attention_q4(q, *cache, cs, bucket=T)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash.full_cache_attention_q4(q, *cache, cs, bucket=T)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_q4_kernel" in kernels[0], kernels
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash.full_cache_attention_q4(q, *cache, cs, bucket=T)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    tickets = [buf for key, buf in flash._decode_scratch.items() if key[0] == "q4_tickets"]
+    assert tickets and all(int(buf.abs().sum()) == 0 for buf in tickets)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_engine_decode_graph_equals_the_eager_loop(dev, kv_quant):
+    """DuoEngine on the card replays a captured decode step (bursts of 8, 8
+    and 4: an eager warm-up step, then replays): its greedy tokens, cache
+    length and launch counts equal a loop of eager forward_chunk steps at the
+    same bucket, in both formats, at reduced depth and width."""
+    cfg = ModelConfig(vocab_size=2048, hidden_size=1024, intermediate_size=2048, num_layers=3,
+                      num_heads=16, num_kv_heads=4, head_dim=128, rope_theta=500000.0)
+    duo = DuoConfig(sink_size=64, recent_size=256, num_full_kv_heads=(2, 4, 1),
+                    max_cache_size=4096, prefill_chunk_size=512)
+    if kv_quant == "int4":
+        params = quant.init_params_w8a8_random(cfg, seed=0, device="cuda", quantize_embeds=True)
+    else:
+        params = llama.init_params(cfg, seed=0, device="cuda")
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant, decode_burst=8)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 1100))
+    steps = 20
+
+    cache, logits = engine.prefill(ids)
+    before = launches.snapshot()
+    tokens, cache = engine.decode_tokens(cache, torch.argmax(logits, -1), steps, length=1100)
+    graph_counts = [a - b for a, b in zip(launches.snapshot(), before)]
+
+    eager_cache, logits = engine.prefill(ids)
+    token = torch.argmax(logits, -1)
+    bucket = engine.bucket_for(1100 + steps)
+    eager = []
+    before = launches.snapshot()
+    with torch.no_grad():
+        for _ in range(steps):
+            eager.append(int(token[0]))
+            hidden, eager_cache = llama.forward_chunk(params, cfg, duo, eager_cache, token[:, None], 1,
+                                                      full_bucket=bucket)
+            token = torch.argmax(llama.logits_at(params, hidden, 0), dim=-1)
+    eager_counts = [a - b for a, b in zip(launches.snapshot(), before)]
+    assert tokens[0].tolist() == eager
+    assert int(cache.length) == int(eager_cache.length) == 1100 + steps
+    assert graph_counts == eager_counts and sum(graph_counts) > 0
 
 
 @pytest.mark.parametrize("start", [0, 1, 510, 511, 1023, 1500, [3, 0, 1022], [-4, 2000, 17], [8, 9, 9]])

@@ -181,3 +181,20 @@ def test_decode_matches_jax():
                                  jnp.asarray(1, jnp.int32))
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
     assert_caches_close(tc, jc)
+
+
+@pytest.mark.parametrize("q4", [False, True])
+def test_decode_step_advances_the_length_in_place(q4):
+    """A decode step adds to ``cache.length`` in place: the same tensor object
+    holds the new length, so a step captured into a CUDA graph advances it on
+    every replay (the prefill reads it on the host, outside any graph)."""
+    tcfg, _, tp, _ = models("tiny-gqa", 1)
+    tduo, _ = duos(tcfg, 2)
+    ids = ids_for(tcfg, 1, 21, 13)
+    new_cache = tcache.init_cache_q4 if q4 else tcache.init_cache
+    cache = new_cache(tcfg, tduo, 1, torch.float32, "cpu")
+    length = cache.length
+    _, cache = tllama.forward_chunk(tp, tcfg, tduo, cache, torch.as_tensor(ids[:, :16]), 16)
+    for pos in range(16, 21):
+        _, cache = tllama.forward_chunk(tp, tcfg, tduo, cache, torch.as_tensor(ids[:, pos : pos + 1]), 1)
+        assert cache.length is length and int(length) == pos + 1

@@ -208,6 +208,27 @@ def test_write_row_matches_jax(pos):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("pos", [0, 37, 70, [0, 31, 63], [5, 99, -3]])
+def test_write_row_pair_of_strided_rows_matches_jax(pos):
+    """The decode step's form: K and V rows of the first H of Hkv heads, read
+    in place as ``transpose`` views of [B, 1, Hkv, D] projections (not
+    contiguous), written in one call; each buffer equals JAX's write_row of
+    that row, bit for bit."""
+    rng = np.random.default_rng(8)
+    B, H, Hkv, T, D = 3, 2, 4, 64, 16
+    kbuf, vbuf = rand(rng, B, H, T, D), rand(rng, B, H, T, D)
+    kproj, vproj = rand(rng, B, 1, Hkv, D), rand(rng, B, 1, Hkv, D)
+    pos_np = np.asarray(pos, np.int32)
+    krow, vrow = t(kproj)[:, :, :H].transpose(1, 2), t(vproj)[:, :, :H].transpose(1, 2)
+    assert not krow.is_contiguous() and krow.shape == (B, H, 1, D)
+    tk, tv = t(kbuf), t(vbuf)
+    got = inplace.write_row(tk, krow, t(pos_np), tv, vrow)
+    assert got is tk  # mutated in place
+    for buf, proj, tb in ((kbuf, kproj, tk), (vbuf, vproj, tv)):
+        row = proj[:, :, :H].transpose(0, 2, 1, 3)
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jinplace.write_row(j(buf), j(row), j(pos_np))))
+
+
 @pytest.mark.parametrize("start", [3, 16, 40, 300, [0, 15, 16], [100, 255, 256], [511, 7, 1000]])
 def test_write_streaming_rows_matches_jax(start):
     rng = np.random.default_rng(7)
