@@ -12,22 +12,28 @@ result):
      (head_dim 128, 4 query heads per KV head, chunk 4096, max_cache_size 32768,
      sink 64, recent 256; the 8B model's five weight shapes), prefill and
      decode, scalar and per-sequence lengths, ragged query tiles, a query group
-     of 8, a ring walk that wraps, a sink not yet full, decode split plans with
-     one, full, ragged and empty splits (and a sweep of other plans); queries
+     of 8, a ring walk that wraps, a sink not yet full, no sink, a tiny
+     window, decode split plans with one, full, ragged and empty splits (and
+     sweeps of other plans: the bf16 full-head decode's at the main shape, the
+     streaming decode's at each main-path head count, B = 1 and 4); queries
      drawn 4x larger than keys, so scores are peaked and a dropped key shows;
      attention held to
-     flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes and the int8
-     matrix product bitwise; times of the kernel, the plain version and one
-     library call (SDPA, index_copy_, torch._int_mm; x padded to 17 rows below
-     M = 17), each as Python issues it and on the device alone, and the bound;
-     the INT4 decode once more built with float32 FMAs in place of its
-     tensor-core products (the measurement that chose them), and at each
-     main-path head count.
+     flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes (the K/V pair
+     forms read from strided views) and the int8 matrix product bitwise;
+     times of the kernel, the plain version and one library call (SDPA,
+     index_copy_, torch._int_mm; x padded to 17 rows below M = 17), each as
+     Python issues it and on the device alone, and the bound; an empty
+     kernel over the streaming decode's grid, plainly and in its clusters
+     (the launch floor); the INT4 decode once more built with float32 FMAs in
+     place of its tensor-core products (the measurement that chose them), and
+     at each main-path head count.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
-     tokens and every kernel's launch count; prints TTFT, decode ms/token and a
-     torch.profiler breakdown of device time for the prefill and 8 decode steps.
+     tokens and every kernel's launch count; prints TTFT, decode ms/token, the
+     blocks the first decode (its graph capture included) left allocated, and
+     a torch.profiler breakdown of device time for the prefill and 8 decode
+     steps.
      Decode runs as the engine runs it on the card, one CUDA-graph replay a
      token, and beside it, on the same cache, as a loop of eager forward_chunk
      steps: ms/token, device ms a step, idle share, kernel launches a token
@@ -81,7 +87,7 @@ REPLACES = {
 SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "flash.cu",
            "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
            "write_streaming_rows": "inplace.cu", "write_q4_token": "inplace.cu", "w8a8_matmul": "gemm.cu"}
-FLASH_CU_KERNELS = ("prefill_kernel", "decode_kernel", "decode_merge_kernel")  # as the profiler names them
+FLASH_CU_KERNELS = ("prefill_kernel", "decode_kernel", "decode_merge_kernel", "stream_decode_kernel")  # profiler names
 FMA_VARIANT = ("flash_q4", ("DUO_Q4_DECODE_FMA",))  # the INT4 decode with CUDA-core products
 # device_breakdown: tiny kernels launched before the profiled window, and its range's name
 PREROLL_LAUNCHES, WINDOW = 10000, "chip_smoke_window"
@@ -225,6 +231,70 @@ def _decode_plan_sweep(call, span, heads):
     return sweep
 
 
+def _stream_decode_sweep(randn):
+    """Device ms of the streaming decode at the main path's streaming head
+    counts (hs 2-6, B = 1 and 4, cs = 16000, sink 64, recent 256) under other
+    split sizes than ``flash.stream_decode_split_plan`` picks (a split is a
+    block of the (b, head)'s cluster; at most 8), each held to the plain
+    version once (the plan is a host function of the window, so it can be
+    swapped for the sweep and put back)."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import flash
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms
+
+    kept = flash.stream_decode_split_plan
+    keys = SINK + RECENT + 1
+    sweep = {}
+    try:
+        for hs in range(2, 7):
+            for B in (1, 4):
+                q = randn(B, 1, hs * GROUP, HEAD_DIM, mul=Q_PEAK)
+                bufs = [randn(B, hs, SINK + CHUNK, HEAD_DIM), randn(B, hs, SINK + CHUNK, HEAD_DIM),
+                        randn(B, hs, 4608, HEAD_DIM), randn(B, hs, 4608, HEAD_DIM)]
+                cs = torch.full((B,), 16000, dtype=torch.int32, device="cuda")
+                tot = cs + 1
+                call = lambda: flash.streaming_cache_attention(q, *bufs, cs, tot, SINK, RECENT)  # noqa: E731
+                want = flash.streaming_cache_attention_plain(q, *bufs, cs, tot, SINK, RECENT)
+                row = {"kept": "%dx%d" % kept(SINK, RECENT, B * hs)}
+                for split_keys in (48, 64, 80, 96, 112, 176, 336):
+                    plan = (-(-keys // split_keys), split_keys)
+                    flash.stream_decode_split_plan = lambda s_, r_, h_, plan=plan: plan
+                    err, ratio, ok = _attn_tol_ok(call(), want)
+                    require(ok, f"streaming decode, plan {plan}, hs={hs} B={B}: err {err}")
+                    row[f"{plan[0]}x{plan[1]}"] = cuda_graph_time_ms(call)
+                flash.stream_decode_split_plan = kept
+                sweep[f"hs={hs} B={B}"] = row
+                log(f"  streaming decode split sweep hs={hs} B={B} (splits x keys: device ms): "
+                    + ", ".join(f"{k}: {v:.4f}" if k != "kept" else f"kept {v}" for k, v in row.items()))
+    finally:
+        flash.stream_decode_split_plan = kept
+    return sweep
+
+
+def _launch_floor(blocks, threads, cluster, kernel_device_ms):
+    """Device ms of an empty kernel launched over the streaming decode's grid
+    at the main shape, plainly and in clusters of its splits, replayed from a
+    CUDA graph as the kernels are timed: the floor under the kernel's time."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import _build, flash
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms
+
+    lib = flash._lib()
+
+    def empty(c):
+        err = lib.empty_kernel_launch(blocks, threads, c, torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "empty_kernel_launch")
+
+    floor = dict(plain_ms=cuda_graph_time_ms(lambda: empty(0)), cluster_ms=cuda_graph_time_ms(lambda: empty(cluster)),
+                 blocks=blocks, threads=threads, cluster=cluster, kernel_device_ms=kernel_device_ms)
+    log(f"  launch floor: an empty kernel over {blocks} blocks of {threads} threads: {floor['plain_ms']:.4f} ms "
+        f"on the device, {floor['cluster_ms']:.4f} in clusters of {cluster}; the streaming decode "
+        f"{kernel_device_ms:.4f}")
+    return floor
+
+
 def phase_kernels(rec):
     import torch
     import torch.nn.functional as F
@@ -319,7 +389,7 @@ def phase_kernels(rec):
     Hq = Hs * G
     ks, vs = randn(4, Hs, Ts, D), randn(4, Hs, Ts, D)
     kr, vr = randn(4, Hs, R, D), randn(4, Hs, R, D)
-    stream_cases = [
+    stream_cases = [  # (case, B, S, cs[, streaming KV heads, query heads per KV head, sink, recent])
         ("prefill cs=0", 1, CHUNK, 0),
         ("prefill cs=12288", 1, CHUNK, 12288),
         ("prefill cs=12300", 1, CHUNK, 12300),
@@ -329,37 +399,57 @@ def phase_kernels(rec):
         ("decode cs=16000", 1, 1, 16000),
         ("decode cs=16000 B=4", 4, 1, 16000),
         ("decode cs=[B] B=4", 4, 1, [5, 64, 4700, 32000]),
+        ("decode cs=10 (cs < sink)", 1, 1, 10),
+        ("decode cs=4700 (walk wraps)", 1, 1, 4700),  # tokens 4444..4700 cross slot R = 4608
+        ("decode cs=16000 G=8", 1, 1, 16000, 2, 8),
+        ("decode cs=16000 sink 0", 1, 1, 16000, 4, GROUP, 0, RECENT),
+        ("decode cs=16000 recent 8", 1, 1, 16000, 4, GROUP, SINK, 8),  # a tiny window: one split
+        ("decode cs=[B] B=4 recent 8", 4, 1, [3, 9, 70, 4700], 4, GROUP, SINK, 8),
     ]
-    for case, B, S, cs in stream_cases:
+    for case, B, S, cs, *geometry in stream_cases:
+        Hs_c, G_c, sink, recent = (geometry + [4, GROUP, SINK, RECENT][len(geometry):])
+        Hq_c = Hs_c * G_c
         name = "streaming_cache_attention." + ("decode" if S == 1 else "prefill")
         csv = vec(cs, B)
-        q = randn(B, S, Hq, D, mul=Q_PEAK)
-        bufs = [t[:B].contiguous() for t in (ks, vs, kr, vr)]
+        q = randn(B, S, Hq_c, D, mul=Q_PEAK)
+        bufs = [t[:B, :Hs_c].contiguous() for t in (ks, vs, kr, vr)]
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
         tot_arg = cs_arg + S
-        got = flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, SINK, RECENT)
-        want = flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, SINK, RECENT)
+        call = lambda: flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, sink, recent)  # noqa: E731
+        got = call()
+        want = flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, sink, recent)
         err, ratio, ok = _attn_tol_ok(got, want)
         masks = []
         for b in range(B):
             qpos = csv[b] + torch.arange(S, device=dev)
-            masks.append(torch.cat([sink_mask(qpos, SINK, SINK),
-                                    ring_mask(qpos, R, csv[b] + S, csv[b], SINK, RECENT)], dim=-1))
+            masks.append(torch.cat([sink_mask(qpos, sink, sink),
+                                    ring_mask(qpos, R, csv[b] + S, csv[b], sink, recent)], dim=-1))
         mask = torch.stack(masks)[:, None]  # [B, 1, S, sink + R]
         vis = int(mask.sum())
         slots = int(mask.any(dim=2).sum())  # slots some query sees, over b
-        flops = 4 * D * Hq * vis
-        nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hs * D * slots)
-        k_cat = torch.cat([bufs[0][:, :, :SINK], bufs[2]], dim=2).repeat_interleave(G, dim=1)
-        v_cat = torch.cat([bufs[1][:, :, :SINK], bufs[3]], dim=2).repeat_interleave(G, dim=1)
+        flops = 4 * D * Hq_c * vis
+        nbytes = 2 * (2 * B * S * Hq_c * D) + 2 * (2 * Hs_c * D * slots)
+        k_cat = torch.cat([bufs[0][:, :, :sink], bufs[2]], dim=2).repeat_interleave(G_c, dim=1)
+        v_cat = torch.cat([bufs[1][:, :, :sink], bufs[3]], dim=2).repeat_interleave(G_c, dim=1)
         times = timed(
-            lambda: flash.streaming_cache_attention(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
-            lambda: flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, SINK, RECENT),
+            call,
+            lambda: flash.streaming_cache_attention_plain(q, *bufs, cs_arg, tot_arg, sink, recent),
             sdpa(q.transpose(1, 2), k_cat, v_cat, mask),
         )
+        extra = {}
+        if S == 1:
+            nsplit, split_keys = flash.stream_decode_split_plan(sink, recent, B * Hs_c)
+            extra = dict(nsplit=nsplit, split_keys=split_keys, blocks=B * Hs_c * nsplit)
         record(name, case, err, ok, times, _bound(flops, nbytes), ratio,
-               main=case in ("prefill cs=12288", "decode cs=16000"))
+               main=case in ("prefill cs=12288", "decode cs=16000"), **extra)
         del k_cat, v_cat, mask
+        if case == "decode cs=16000":
+            kernels = _device_kernels(call)
+            require(len(kernels) == 1 and "stream_decode_kernel" in kernels[0],
+                    f"the streaming decode launched {kernels}, not one stream_decode_kernel")
+            rec.results["launch_floor"] = _launch_floor(extra["blocks"], 32 * extra["split_keys"] // 16,
+                                                        extra["nsplit"], times[1])
+    rec.results["streaming_cache_attention.decode_sweep"] = _stream_decode_sweep(randn)
     del ks, vs, kr, vr
 
     # --- write_row: a layer's full-head K and V rows in one launch, read in place --
@@ -514,34 +604,45 @@ def phase_kernels_w8a8kv4(rec):
     rec.results["w8a8_matmul.route_sweep"] = sweep
     torch.cuda.empty_cache()
 
-    # --- write_q4_token: bitwise -------------------------------------------------
-    H, T2 = 4, T // 2
-    for case, B, start in [("t=16000 (even)", 1, 16000), ("t=16001 (odd)", 1, 16001),
-                           ("t=[B] B=4", 4, [0, 4097, 12345, 32767]), ("t=40000 (clamped) B=4", 4, 40000)]:
-        bq = torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8)
-        bs = randn(B, H, 4, T2)
-        before_q, before_s = bq.clone(), bs.clone()
-        ref_q, ref_s = bq.clone(), bs.clone()
-        row = randn(B, H, 1, D, mul=2.0)
+    # --- write_q4_token: bitwise ------------------------------------------------
+    # a layer's full-head K and V rows in one launch, read in place from [B, 1,
+    # Hkv, D] projections (the 8B model's 8 KV heads; 4 full ones), as the decode
+    # step hands them; the one-buffer form (the JAX function's) after them
+    H, HKV, T2 = 4, 8, T // 2
+    for case, B, start, pair in [("K+V t=16000 (even)", 1, 16000, True), ("K+V t=16001 (odd)", 1, 16001, True),
+                                 ("K+V t=[B] B=4", 4, [0, 4097, 12345, 32767], True),
+                                 ("t=16000 (even)", 1, 16000, False), ("t=16001 (odd)", 1, 16001, False),
+                                 ("t=[B] B=4", 4, [0, 4097, 12345, 32767], False),
+                                 ("t=40000 (clamped) B=4", 4, 40000, False)]:
+        nrows = 2 if pair else 1
+        bufs = [(torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+                 randn(B, H, 4, T2)) for _ in range(nrows)]
+        befores = [(q_.clone(), s_.clone()) for q_, s_ in bufs]
+        refs = [(q_.clone(), s_.clone()) for q_, s_ in bufs]
+        rows = [randn(B, 1, HKV, D, mul=2.0)[:, :, :H].transpose(1, 2) for _ in range(nrows)]  # strided views
         st = torch.as_tensor(start, dtype=torch.int32, device=dev)
-        inplace.write_q4_token(bq, bs, row, st)
-        inplace.write_q4_token_plain(ref_q, ref_s, row, st)
-        ok = torch.equal(bq, ref_q) and torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
-        # exactly one byte row per (b, head) changed, and in it only the token's nibble
+        args = (*bufs[0], rows[0], st, *bufs[1], rows[1]) if pair else (*bufs[0], rows[0], st)
+        ref_args = (*refs[0], rows[0], st, *refs[1], rows[1]) if pair else (*refs[0], rows[0], st)
+        before = inplace.write_q4_token.launches
+        inplace.write_q4_token(*args)
+        ok = inplace.write_q4_token.launches == before + 1
+        inplace.write_q4_token_plain(*ref_args)
         tv = torch.as_tensor(start, device=dev).reshape(-1).expand(B).clamp(0, T - 1)
         keep = torch.where(tv % 2 == 1, 0x0F, 0xF0).to(torch.uint8)[:, None, None]
         bi = torch.arange(B, device=dev)
-        ok = ok and torch.equal(bq[bi, :, tv // 2] & keep, before_q[bi, :, tv // 2] & keep)
         untouched = torch.ones((B, T2), dtype=torch.bool, device=dev)
         untouched[bi, tv // 2] = False
-        ok = ok and torch.equal(bq.transpose(1, 2)[untouched], before_q.transpose(1, 2)[untouched])
-        ok = ok and int((bs.view(torch.int16) != before_s.view(torch.int16)).sum()) <= 2 * B * H
-        nbytes = B * H * (2 * D + 2 * D + 4)
-        times = timed(lambda: inplace.write_q4_token(bq, bs, row, st),
-                                     lambda: inplace.write_q4_token_plain(ref_q, ref_s, row, st))
+        for (bq, bs), (ref_q, ref_s), (before_q, before_s) in zip(bufs, refs, befores):
+            ok = ok and torch.equal(bq, ref_q) and torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
+            # exactly one byte row per (b, head) changed, and in it only the token's nibble
+            ok = ok and torch.equal(bq[bi, :, tv // 2] & keep, before_q[bi, :, tv // 2] & keep)
+            ok = ok and torch.equal(bq.transpose(1, 2)[untouched], before_q.transpose(1, 2)[untouched])
+            ok = ok and int((bs.view(torch.int16) != before_s.view(torch.int16)).sum()) <= 2 * B * H
+        nbytes = nrows * B * H * (2 * D + 2 * D + 4)
+        times = timed(lambda: inplace.write_q4_token(*args), lambda: inplace.write_q4_token_plain(*ref_args))
         record("write_q4_token", case, 0.0 if ok else float("inf"), ok, times, _bound(0, nbytes),
-               main=B == 1)
-        del bq, bs, ref_q, ref_s, before_q, before_s
+               main=case == "K+V t=16000 (even)")
+        del bufs, refs, befores
 
     # --- full_cache_attention_q4 -------------------------------------------------
     Hkv = 4
@@ -629,19 +730,43 @@ def phase_kernels_w8a8kv4(rec):
     torch.cuda.empty_cache()
 
 
+def _profiled_window(fn):
+    """Run fn under torch.profiler (host and device) and return (the events
+    from the start of fn's marked range on, the window's wall ms). The
+    profiler can lose the device records of the first launches after it
+    starts (scripts/profiler_first_launches.py), so PREROLL_LAUNCHES tiny
+    kernels go first and only events from the start of the window, a marked
+    range after them, are kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PREROLL_LAUNCHES):
+            scratch.add_(1.0)
+        torch.cuda.synchronize()
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # the range on the host (the profiler may also draw it on the device timeline)
+    start = min(e.time_range.start for e in events if e.name == WINDOW)
+    return [e for e in events if e.time_range.start >= start and e.name != WINDOW], wall_ms
+
+
 def _device_kernels(fn):
     """Names of the device activities (kernels, copies) one call of fn makes,
     from torch.profiler, after a call outside the window."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events, _ = _profiled_window(fn)
+    return [e.name for e in events if e.device_type == DeviceType.CUDA]
 
 
 def _q4_decode_products(call, want, times):
@@ -749,8 +874,8 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
         full + ".decode": NEW_TOKENS * hf_layers,
         "streaming_cache_attention.prefill": n_chunks * hs_layers,
         "streaming_cache_attention.decode": NEW_TOKENS * hs_layers,
-        # INT4: K and V each quantized and written; bf16: K and V rows in one launch
-        "write_q4_token" if q4 else "write_row": (2 if q4 else 1) * NEW_TOKENS * hf_layers,
+        # K and V rows in one launch (INT4: each quantized on the way)
+        "write_q4_token" if q4 else "write_row": NEW_TOKENS * hf_layers,
         "write_streaming_rows": NEW_TOKENS * hs_layers,
         "plain_cuda_calls": 0,
     })
@@ -777,12 +902,17 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     torch.cuda.synchronize()
     ttft_ms = (time.perf_counter() - t0) * 1e3
     held = torch.cuda.memory_allocated()
+    blocks_before = _allocated_blocks(torch.cuda.memory_snapshot())
+    torch.cuda.memory._record_memory_history(max_entries=200000, stacks="python")
     t0 = time.perf_counter()
     again, cache = engine.decode_tokens(cache, first, NEW_TOKENS, length=PROMPT_LEN)
     torch.cuda.synchronize()
     # a new cache: its first step runs eagerly and the step is captured after it
     decode_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
     graph_bytes = torch.cuda.memory_allocated() - held  # the graph's pool, the decode scratch, the output
+    new_blocks = _new_blocks(blocks_before, torch.cuda.memory._snapshot()["segments"])
+    torch.cuda.memory._record_memory_history(enabled=None)
+    log(f"  the decode left {len(new_blocks)} more blocks allocated, the largest: {json.dumps(new_blocks[:6])}")
     require(np.array_equal(again, tokens), "a second run of the same prompt gave other tokens")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"  generate {PROMPT_LEN}+{NEW_TOKENS} tokens: {gen_s:.3f} s; TTFT {ttft_ms:.1f} ms; "
@@ -861,17 +991,45 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     return dict(counts=counts, expected=expected, generate_s=gen_s, ttft_ms=ttft_ms, profile=breakdown,
                 decode_ms_per_token=decode_ms, decode=decode, kernel_launches_per_token=kernel_launches,
                 tokens=tokens[0, :16].tolist(), peak_memory_gib=peak_gib, decode_allocated_bytes=graph_bytes,
-                kv_memory_bytes=kv_bytes)
+                decode_new_blocks=new_blocks[:20], kv_memory_bytes=kv_bytes)
+
+
+def _allocated_blocks(segments):
+    """The caching allocator's allocated blocks in a memory snapshot, by address."""
+    out = {}
+    for seg in segments:
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                out[blk.get("address", addr)] = (seg, blk)
+            addr += blk["size"]
+    return out
+
+
+def _new_blocks(before, segments):
+    """Blocks allocated in ``segments`` and not in ``before``, largest first:
+    bytes, the segment's pool (a CUDA graph's private pool is not (0, 0)) and
+    stream, and the innermost Python frames that allocated it (where memory
+    history was recorded)."""
+    new = []
+    for addr, (seg, blk) in _allocated_blocks(segments).items():
+        if addr in before:
+            continue
+        frames = [f"{os.path.basename(f.get('filename', '?'))}:{f.get('line', '?')} {f.get('name', '?')}"
+                  for f in blk.get("frames", [])[:4]]
+        new.append(dict(bytes=blk["size"], pool=str(seg.get("segment_pool_id")), stream=seg.get("stream"),
+                        frames=frames))
+    return sorted(new, key=lambda b: -b["bytes"])
 
 
 def _kernel_kind(name):
     """The port's kernels by name (prefill_kernel<0> is full heads, <1>
-    streaming; both full-head decodes are a split kernel and its merge),
+    streaming; the bf16 full-head decode is a split kernel and its merge),
     cuBLAS matrix products, and everything else."""
     ours = {"prefill_kernel<0>": "full_cache_attention.prefill",
             "prefill_kernel<1>": "streaming_cache_attention.prefill",
-            "decode_kernel<0,": "full_cache_attention.decode",
-            "decode_kernel<1,": "streaming_cache_attention.decode",
+            "stream_decode_kernel": "streaming_cache_attention.decode",  # before decode_kernel<, a part of its name
+            "decode_kernel<": "full_cache_attention.decode",
             "decode_merge_kernel": "full_cache_attention.decode",
             "write_streaming_rows_kernel": "write_streaming_rows", "write_row_kernel": "write_row",
             "prefill_q4_kernel": "full_cache_attention_q4.prefill",
@@ -896,33 +1054,14 @@ def device_breakdown(fn):
     the port's kernels as the device ran them, by counter name (a split
     decode's merge kernel, launched with it, is not counted again).
 
-    The profiler can lose the device records of the first launches after it
-    starts (scripts/profiler_first_launches.py), so PREROLL_LAUNCHES tiny
-    kernels go first and only events from the start of the window, a marked
-    range after them, are read."""
-    import torch
+    Read from a marked range behind a pre-roll, as ``_profiled_window``
+    says."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    scratch = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PREROLL_LAUNCHES):
-            scratch.add_(1.0)
-        torch.cuda.synchronize()
-        with record_function(WINDOW):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    # the range on the host (the profiler may also draw it on the device timeline)
-    start = min(e.time_range.start for e in events if e.name == WINDOW)
+    events, wall_ms = _profiled_window(fn)
     by_kind, other, ran = {}, {}, {}
     host_calls = device_activities = 0
     for e in events:
-        if e.time_range.start < start or e.name == WINDOW:
-            continue
         if e.device_type != DeviceType.CUDA:
             host_calls += e.name in HOST_LAUNCH_CALLS
             continue
@@ -988,6 +1127,12 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
     err = float((kern - plain).abs().max())
     scale = float(plain.abs().max())
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    # where the two argmaxes differ: the plain path's gap between its top two
+    # logits there, beside that position's largest |dlogit|
+    top2 = plain.float().topk(2, dim=-1).values
+    differ = [dict(position=i, plain_top2_gap=float(top2[i, 0] - top2[i, 1]),
+                   max_abs_logit_err=float((kern[i] - plain[i]).abs().max()))
+              for i in range(len(kern)) if int(kern[i].argmax()) != int(plain[i].argmax())]
     # Bound: 5% of the largest plain logit, plus 0.05 — bf16 activations
     # through 4 layers, where the two paths round attention differently. In
     # W8A8KV4 the int8 products are bitwise the same in both paths, but each
@@ -995,13 +1140,14 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
     # bound is twice as wide there.
     bound = (0.1 if kv_quant == "int4" else 0.05) * scale + 0.05
     log(f"  kernel vs plain, {layers} layers, {prompt}-token prompt + {steps} steps: max |dlogit| "
-        f"{err:.4f} (bound {bound:.4f}, max |logit| {scale:.3f}); argmax agreement {agree}/{steps + 1}")
+        f"{err:.4f} (bound {bound:.4f}, max |logit| {scale:.3f}); argmax agreement {agree}/{steps + 1}"
+        + (f"; where they differ: {json.dumps(differ)}" if differ else ""))
     require(bool(torch.isfinite(kern).all()), "kernel-path logits not finite")
     require(err <= bound, f"kernel path differs from plain path: {err} > {bound}")
     counts = read_counts()
     require(counts["plain_cuda_calls"] > 0, "the plain path made no plain-version call")
     return dict(max_abs_logit_err=err, bound=bound, max_abs_logit=scale,
-                argmax_agree=agree, positions=steps + 1)
+                argmax_agree=agree, positions=steps + 1, argmax_differ=differ)
 
 
 # ---------------------------------------------------------------------------

@@ -227,6 +227,21 @@ def write_full_q4(buf_q: torch.Tensor, buf_s: torch.Tensor, incoming: torch.Tens
     return buf_q, buf_s
 
 
+def write_full_q4_pair(k_q: torch.Tensor, k_s: torch.Tensor, v_q: torch.Tensor, v_s: torch.Tensor,
+                       k_in: torch.Tensor, v_in: torch.Tensor, start, plain: bool = False):
+    """``write_full_q4`` of a layer's K and V, in place; returns (k_q, k_s,
+    v_q, v_s).
+
+    S == 1 (decode) quantizes and writes both rows in one ``write_q4_token``
+    launch, which reads them by their strides (a ``transpose`` view of the
+    projection's output needs no copy); S > 1 writes each as
+    ``write_full_q4`` does."""
+    if k_in.shape[2] == 1:
+        (write_q4_token_plain if plain else write_q4_token)(k_q, k_s, k_in, start, v_q, v_s, v_in)
+        return k_q, k_s, v_q, v_s
+    return (*write_full_q4(k_q, k_s, k_in, start, plain), *write_full_q4(v_q, v_s, v_in, start, plain))
+
+
 def write_streaming(k_sink, v_sink, k_ring, v_ring, k_new, v_new, start, sink_size: int,
                     plain: bool = False):
     """Write a chunk [B, Hs, S, D] into the sink region (positionally, at

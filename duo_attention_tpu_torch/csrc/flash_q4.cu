@@ -592,20 +592,6 @@ static_assert(4 * (WACC_FLOATS + 3 * DEC_WARPS * DEC_MAX_G) <= DEC_SMEM, "the wa
 static_assert(4 * (2 * DEC_MAX_SPLITS * DEC_MAX_G + 2 * DEC_MAX_G) <= DEC_SMEM, "the splits' merge exceeds the ring");
 static_assert(DEC_MAX_SPLITS <= 32, "the merge gives each partial a lane");
 
-// c0/c1 (row gid, columns 2t and 2t + 1) += A B for A = (a0: row gid, k 2t
-// and 2t + 1; a2: k 2t + 8 and 2t + 9) with rows 8-15 zero, B = (b0, b1).
-// Rows 8-15 of the result are 0 and are thrown away.
-__device__ __forceinline__ void mma_16816(float& c0, float& c1, uint32_t a0, uint32_t a2, uint32_t b0, uint32_t b1) {
-  [[maybe_unused]] float z0, z1;
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"
-      : "+f"(c0), "+f"(c1), "=f"(z0), "=f"(z1)
-      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-
 // Byte I of word w (w4 = w >> 4) to the bf16 pair (low nibble, high nibble).
 template <int I>
 __device__ __forceinline__ uint32_t byte_to_bf16x2(uint32_t w, uint32_t w4) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async,
 // mbarriers, the 128-byte swizzle and its shared-memory matrix descriptor,
-// and the wgmma fences. Header-only; every helper is inlined into the
+// the wgmma fences, and the decode kernels' m16n8k16 `mma.sync` of a query
+// group. Header-only; every helper is inlined into the
 // including kernel. ops/_build.py hashes this file with each source that
 // includes it, so an edit here rebuilds them.
 
@@ -192,5 +193,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// m16n8k16 with a query tile of at most 8 rows (G <= 8 heads of a group):
+// c0/c1 (row gid, columns 2t and 2t + 1) += A B for A = (a0: row gid, k 2t
+// and 2t + 1; a2: k 2t + 8 and 2t + 9) with rows 8-15 zero, B = (b0, b1).
+// Rows 8-15 of the result are 0 and are thrown away.
+__device__ __forceinline__ void mma_16816(float& c0, float& c1, uint32_t a0, uint32_t a2, uint32_t b0, uint32_t b1) {
+  [[maybe_unused]] float z0, z1;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"
+      : "+f"(c0), "+f"(c1), "=f"(z0), "=f"(z1)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// The bf16 in the low or high half of a 32-bit word, as float32.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
 }  // namespace hopper

@@ -17,11 +17,14 @@
 // pos_stride = 0) so the host never waits for the cache length.
 //
 // write_q4_token quantizes and writes in the same kernel: one warp per
-// (head, b) reads the bf16 row (4 values a lane per 128 channels), takes min
-// and max by shuffles, computes the nibbles from the float32 scale with IEEE
-// division and round-half-even, merges them into the pair-row's bytes keeping
-// the partner token's nibble, and stores scale and zero-point rounded to
-// bf16. Bound: bytes (D*2 read, D read and written, 4 written per (b, head)).
+// (head, b) and row reads the bf16 row (4 values a lane per 128 channels),
+// takes min and max by shuffles, computes the nibbles from the float32 scale
+// with IEEE division and round-half-even, merges them into the pair-row's
+// bytes keeping the partner token's nibble, and stores scale and zero-point
+// rounded to bf16. Bound: bytes (D*2 read, D read and written, 4 written per
+// (b, head) and row). Like write_row it takes a layer's K row and V row in
+// one launch (a second warp for V), read in place by their strides from the
+// projection's output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,18 +84,25 @@ __global__ void write_streaming_rows_kernel(
 
 // INT4 token write. bq [B, H, T2, D] u8: byte (r, d) = q4(token 2r, d) |
 // q4(token 2r+1, d) << 4. bs [B, H, 4, T2] bf16: rows (scale_even, scale_odd,
-// zp_even, zp_odd). row [B, H, 1, D] bf16. The position is clamped into
-// [0, 2*T2 - 1], the clamp of duo_attention_tpu/ops/inplace.py::_as_vec(limit=2*T2).
+// zp_even, zp_odd). Row (b, h) of D bf16 starts at element b * row_sb + h *
+// row_sh of row. Warp 1, when the block has two, writes v_row into (v_bq,
+// v_bs) the same way. The position is clamped into [0, 2*T2 - 1], the clamp
+// of duo_attention_tpu/ops/inplace.py::_as_vec(limit=2*T2).
 // scale = (max - min) / 15 + 1e-8 and q = clip(rint((x - min) / scale), 0, 15)
 // in float32, exactly ops/quant.py::quantize_int4_nibbles (no mul-add pair
 // for the compiler to contract).
-__global__ void write_q4_token_kernel(uint8_t* bq, __nv_bfloat16* bs, const __nv_bfloat16* row,
-                                      const int* pos, int pos_stride, int H, int T2, int D) {
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+__global__ void write_q4_token_kernel(uint8_t* k_bq, __nv_bfloat16* k_bs, const __nv_bfloat16* k_row,
+                                      uint8_t* v_bq, __nv_bfloat16* v_bs, const __nv_bfloat16* v_row,
+                                      long long row_sb, long long row_sh, const int* pos, int pos_stride, int H,
+                                      int T2, int D) {
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x & 31;
+  const bool v = threadIdx.x >= 32;
+  uint8_t* bq = v ? v_bq : k_bq;
+  __nv_bfloat16* bs = v ? v_bs : k_bs;
   const int t = min(max(pos[b * pos_stride], 0), 2 * T2 - 1);
   const int par = t & 1, r = t >> 1;
   const size_t bh = (size_t)b * H + h;
-  const __nv_bfloat16* src = row + bh * D;
+  const __nv_bfloat16* src = (v ? v_row : k_row) + b * row_sb + h * row_sh;
 
   float mn = 3.402823466e38f, mx = -3.402823466e38f;
   for (int d = lane * 4; d < D; d += 128) {
@@ -166,13 +176,20 @@ int write_streaming_rows(void* k_sink, void* v_sink, void* k_ring, void* v_ring,
   return static_cast<int>(cudaGetLastError());
 }
 
-int write_q4_token(void* bq, void* bs, const void* row, const void* pos, int pos_stride, int B,
-                   int H, int T2, int D, void* stream) {
-  if (D % 128 != 0 || T2 <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// k_bq/v_bq [B, H, T2, D] u8, k_bs/v_bs [B, H, 4, T2] bf16 (v_bq null: K
+// only); rows [B, H, 1, D] at strides row_sb, row_sh (elements, multiples of
+// 4; both rows alike).
+int write_q4_token(void* k_bq, void* k_bs, const void* k_row, void* v_bq, void* v_bs, const void* v_row,
+                   long long row_sb, long long row_sh, const void* pos, int pos_stride, int B, int H, int T2,
+                   int D, void* stream) {
+  if (D % 128 != 0 || T2 <= 0 || row_sb % 4 != 0 || row_sh % 4 != 0 ||
+      (v_bq != nullptr && (v_bs == nullptr || v_row == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(H, B);
-  write_q4_token_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(bq), static_cast<__nv_bfloat16*>(bs),
-      static_cast<const __nv_bfloat16*>(row), static_cast<const int*>(pos), pos_stride, H, T2, D);
+  write_q4_token_kernel<<<grid, v_bq ? 64 : 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(k_bq), static_cast<__nv_bfloat16*>(k_bs), static_cast<const __nv_bfloat16*>(k_row),
+      static_cast<uint8_t*>(v_bq), static_cast<__nv_bfloat16*>(v_bs), static_cast<const __nv_bfloat16*>(v_row),
+      row_sb, row_sh, static_cast<const int*>(pos), pos_stride, H, T2, D);
   return static_cast<int>(cudaGetLastError());
 }
 

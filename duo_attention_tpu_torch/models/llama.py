@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..cache import DuoCache, DuoCacheQ4, write_full_pair, write_full_q4, write_streaming
+from ..cache import DuoCache, DuoCacheQ4, write_full_pair, write_full_q4_pair, write_streaming
 from ..config import DuoConfig, ModelConfig
 from ..ops import flash
 from ..ops.attention_ref import causal_attention_ref
@@ -162,10 +162,10 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
         k_in, v_in = k[:, :, :hf].transpose(1, 2), v[:, :, :hf].transpose(1, 2)  # views, [B, hf, S, D]
         q_f = q[:, :, : hf * G].contiguous()
         if isinstance(cache, DuoCacheQ4):
-            kq, ks = write_full_q4(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx], k_in.contiguous(),
-                                   write_start, plain)
-            vq, vs = write_full_q4(cache.v_full_q[layer_idx], cache.v_full_s[layer_idx], v_in.contiguous(),
-                                   write_start, plain)
+            # one launch for both rows at decode, read in place from the views
+            kq, ks, vq, vs = write_full_q4_pair(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx],
+                                                cache.v_full_q[layer_idx], cache.v_full_s[layer_idx],
+                                                k_in, v_in, write_start, plain)
             attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
             outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
         else:

@@ -5,10 +5,10 @@ Counterpart of duo_attention_tpu/ops/flash.py (``full_cache_attention``,
 plain PyTorch version, which runs the float32 oracle of ops/attention_ref.py
 on the same masks, and a CUDA kernel in ``csrc/flash.cu`` or
 ``csrc/flash_q4.cu`` (a prefill kernel for S > 1 and a decode kernel for
-S == 1; the full-head decode kernels split the key range over blocks by a
-plan made from the bucket, and merge). The wrapper takes the plain version
-for CPU tensors and launches the kernel for CUDA tensors; a launch failure
-raises. Counters:
+S == 1; the decode kernels split the key range over blocks by a plan made
+from host integers, the bucket or the streaming window, and merge). The
+wrapper takes the plain version for CPU tensors and launches the kernel for
+CUDA tensors; a launch failure raises. Counters:
 ``<wrapper>.prefill_launches`` and ``<wrapper>.decode_launches`` count
 kernel launches, ``<plain>.cuda_calls`` counts plain calls on CUDA tensors.
 
@@ -44,8 +44,9 @@ _SIGNATURES = {
     "decode_partial_floats": [],
     "streaming_cache_attention": [
         _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ],
+    "empty_kernel_launch": [_I, _I, _I, _P],
 }
 _Q4_SIGNATURES = {
     "full_cache_attention_q4": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -72,6 +73,15 @@ Q4_DECODE_TILE_KEYS, Q4_DECODE_WAVE_BLOCKS, Q4_DECODE_ONE_MERGE = 128, 132, 32
 DECODE_TILE_KEYS = 128
 DECODE_ONE_BLOCK_SPAN, DECODE_MIN_SPLIT_KEYS, DECODE_MAX_SPLITS = 512, 256, 64
 DECODE_TARGET_BLOCKS = 264
+# The streaming decode kernel's split plan (``stream_decode_split_plan``): a
+# warp takes STREAM_DECODE_TILE_KEYS keys (one tile) of its block's split, a
+# block at most STREAM_DECODE_MAX_WARPS warps, and a split aims at
+# STREAM_DECODE_SPLIT_TILES tiles (the fastest size at the main path's window,
+# chip_smoke.py's sweep); at most STREAM_DECODE_MAX_SPLITS splits a (sequence,
+# streaming KV head), the blocks of one thread-block cluster, and about one
+# wave of STREAM_DECODE_WAVE_BLOCKS blocks over all of them.
+STREAM_DECODE_TILE_KEYS, STREAM_DECODE_MAX_WARPS, STREAM_DECODE_SPLIT_TILES = 16, 8, 4
+STREAM_DECODE_MAX_SPLITS, STREAM_DECODE_WAVE_BLOCKS = 8, 132
 
 
 def _lib():
@@ -124,14 +134,35 @@ def q4_decode_split_plan(span: int, heads: int) -> tuple[int, int]:
     return -(-max(span, 1) // split_keys), split_keys
 
 
+def stream_decode_split_plan(sink: int, recent: int, heads: int) -> tuple[int, int]:
+    """(nsplit, split_keys) for the streaming decode kernel: split s walks
+    keys [s * split_keys, (s + 1) * split_keys) of a (sequence, streaming KV
+    head)'s visible range, which never holds more than sink + recent + 1 keys
+    (``heads`` = B * Hs such pairs).
+
+    Made from host integers alone (the DuoConfig's window and the head
+    count), so launching reads nothing back and the decode step captures into
+    a CUDA graph; splits past a short sequence's frontier stay empty. Splits
+    of about STREAM_DECODE_SPLIT_TILES whole tiles, no more than one wave of
+    STREAM_DECODE_WAVE_BLOCKS blocks allows and at most
+    STREAM_DECODE_MAX_SPLITS (the kernel's cluster), none left empty by the
+    plan itself."""
+    tile = STREAM_DECODE_TILE_KEYS
+    tiles = -(-(sink + recent + 1) // tile)
+    nsplit = max(1, min(STREAM_DECODE_MAX_SPLITS, -(-tiles // STREAM_DECODE_SPLIT_TILES),
+                        STREAM_DECODE_WAVE_BLOCKS // max(heads, 1)))
+    per_split = -(-tiles // nsplit)
+    return -(-tiles // per_split), per_split * tile
+
+
 _decode_scratch = {}
 
 
 def _scratch(kind: str, numel: int, dtype, device) -> torch.Tensor:
-    """A buffer kept per (kind, size, device) and reused by every call: the INT4
-    decode's partials, and its ticket counters, which start at 0 and which
-    each launch leaves at 0. Never freed, so a CUDA graph that captured one
-    stays valid."""
+    """A buffer kept per (kind, size, device) and reused by every call: the
+    full-head decode kernels' partials, and the INT4 decode's ticket counters,
+    which start at 0 and which each launch leaves at 0. Never freed, so a CUDA
+    graph that captured one stays valid."""
     key = (kind, numel, str(device))
     if key not in _decode_scratch:
         _decode_scratch[key] = torch.zeros(numel, dtype=dtype, device=device)
@@ -235,8 +266,7 @@ def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
     if S == 1:
         nsplit, split_keys = decode_split_plan(span, B * Hkv)
         if nsplit > 1:  # the splits' (acc, m, l); one split writes the output itself
-            part = torch.empty(B * Hq * nsplit * lib.decode_partial_floats(),
-                               dtype=torch.float32, device=q.device)
+            part = _scratch("part", B * Hq * nsplit * lib.decode_partial_floats(), torch.float32, q.device)
     err = lib.full_cache_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride, out.data_ptr(),
         B, S, Hq, Hkv, T, span, D, D**-0.5,
@@ -407,10 +437,11 @@ def streaming_cache_attention(q, k_sink, v_sink, k_ring, v_ring, cs, total_after
     tot_t, tot_stride = device_positions(total_after, B, q.device)
     out = torch.empty_like(q)
     lib = _lib()
+    nsplit, split_keys = stream_decode_split_plan(sink_size, recent_size, B * Hs) if S == 1 else (0, 0)
     err = lib.streaming_cache_attention(
         q.data_ptr(), k_sink.data_ptr(), v_sink.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
         cs_t.data_ptr(), cs_stride, tot_t.data_ptr(), tot_stride, out.data_ptr(),
-        B, S, Hq, Hs, Ts, R, D, sink_size, recent_size, D**-0.5,
+        B, S, Hq, Hs, Ts, R, D, sink_size, recent_size, D**-0.5, nsplit, split_keys,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "streaming_cache_attention")

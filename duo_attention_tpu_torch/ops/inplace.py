@@ -11,7 +11,8 @@ with CUDA tensors in ``<plain>.cuda_calls``.
 ``write_row`` takes the full heads' K row and V row of a layer in one
 launch, read in place by their strides from the projection's output.
 ``write_q4_token`` is the INT4 cache's decode write: it quantizes the row and
-merges its nibbles into the token-paired byte row in one kernel.
+merges its nibbles into the token-paired byte row in one kernel, and, like
+``write_row``, takes a layer's K and V rows in one launch, read in place.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "write_row": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "write_q4_token": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "write_q4_token": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -191,7 +192,13 @@ write_streaming_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def write_q4_token_plain(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start):
+def _q4_targets(bq, bs, row, v_bq, v_bs, v_row):
+    """(packed, scales, row) of K, and of V when the pair form is asked for."""
+    return [(bq, bs, row)] + ([] if v_bq is None else [(v_bq, v_bs, v_row)])
+
+
+def write_q4_token_plain(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start,
+                         v_bq=None, v_bs=None, v_row=None):
     """Plain version of write_q4_token: ``quantize_int4_nibbles`` plus
     indexed writes (the same clamp, the same bytes and scales)."""
     if bq.is_cuda:
@@ -199,21 +206,22 @@ def write_q4_token_plain(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, 
     B, H, T2, D = bq.shape
     t = position_vector(start, B, bq.device, limit=2 * T2)
     par, r = t % 2, t // 2
-    nib, scales = quantize_int4_nibbles(row)  # [B, H, 1, D] u8, [B, H, 2, 1] bf16
     bi = torch.arange(B, device=bq.device)
-    old = bq[bi, :, r]  # [B, H, D]
     odd = (par == 1)[:, None, None]
-    new = torch.where(odd, (old & 0x0F) | (nib[:, :, 0] << 4), (old & 0xF0) | nib[:, :, 0])
-    bq[bi, :, r] = new
-    bs[bi, :, par, r] = scales[:, :, 0, 0].to(bs.dtype)
-    bs[bi, :, 2 + par, r] = scales[:, :, 1, 0].to(bs.dtype)
+    for q_buf, s_buf, src in _q4_targets(bq, bs, row, v_bq, v_bs, v_row):
+        nib, scales = quantize_int4_nibbles(src)  # [B, H, 1, D] u8, [B, H, 2, 1] bf16
+        old = q_buf[bi, :, r]  # [B, H, D]
+        q_buf[bi, :, r] = torch.where(odd, (old & 0x0F) | (nib[:, :, 0] << 4), (old & 0xF0) | nib[:, :, 0])
+        s_buf[bi, :, par, r] = scales[:, :, 0, 0].to(s_buf.dtype)
+        s_buf[bi, :, 2 + par, r] = scales[:, :, 1, 0].to(s_buf.dtype)
     return bq, bs
 
 
 write_q4_token_plain.cuda_calls = 0
 
 
-def write_q4_token(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start):
+def write_q4_token(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start,
+                   v_bq=None, v_bs=None, v_row=None):
     """Quantize one token's row to INT4 and write it, IN PLACE.
 
     bq [B, H, T2, D] uint8, byte (r, d) = q4(token 2r, d) | q4(token 2r+1, d)
@@ -223,20 +231,38 @@ def write_q4_token(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start)
     in the low nibble when t is even and the high nibble when odd; its
     partner's nibble and every other byte are kept. Unlike the JAX function,
     which takes nibbles its caller quantized, this one quantizes too (one
-    kernel on the card). Returns (bq, bs)."""
+    kernel on the card). With ``v_bq``, ``v_bs`` and ``v_row`` (of bq's, bs's
+    and row's shapes) it writes v_row into them at the same positions in the
+    same launch: the decode step's K and V rows of a layer's full heads. The
+    rows need not be contiguous: the kernel reads each (b, h) row by its
+    strides (the channels contiguous, both rows with the same strides), as a
+    ``transpose`` view of the projection's ``[B, 1, Hkv, D]`` output gives
+    them. Returns (bq, bs)."""
     if not bq.is_cuda:
-        return write_q4_token_plain(bq, bs, row, start)
+        return write_q4_token_plain(bq, bs, row, start, v_bq, v_bs, v_row)
     B, H, T2, D = bq.shape
-    _check_bf16_cuda("write_q4_token", bs, row)
-    if (bq.device != bs.device or bq.dtype != torch.uint8 or not bq.is_contiguous()
-            or tuple(bs.shape) != (B, H, 4, T2) or tuple(row.shape) != (B, H, 1, D) or D % 128 != 0):
-        raise ValueError(f"write_q4_token: packed {tuple(bq.shape)} {bq.dtype}, scales {tuple(bs.shape)}, "
-                         f"row {tuple(row.shape)}: the kernel needs uint8 [B,H,T2,D], bf16 [B,H,4,T2] and "
-                         "[B,H,1,D] with D a multiple of 128")
+    pair = v_bq is not None
+    for q_buf, s_buf, r in _q4_targets(bq, bs, row, v_bq, v_bs, v_row):
+        _check_bf16_cuda("write_q4_token", s_buf)
+        if (q_buf.device != bq.device or s_buf.device != bq.device or q_buf.dtype != torch.uint8
+                or not q_buf.is_contiguous() or tuple(q_buf.shape) != (B, H, T2, D)
+                or tuple(s_buf.shape) != (B, H, 4, T2) or D % 128 != 0):
+            raise ValueError(f"write_q4_token: packed {tuple(q_buf.shape)} {q_buf.dtype}, scales "
+                             f"{tuple(s_buf.shape)}: the kernel needs contiguous uint8 [B,H,T2,D] and bf16 "
+                             "[B,H,4,T2] with D a multiple of 128")
+        # the kernel reads 4 channels (8 bytes) at a time
+        if (r.device != bq.device or r.dtype != torch.bfloat16 or tuple(r.shape) != (B, H, 1, D)
+                or r.stride() != row.stride() or r.stride(3) != 1 or r.stride(0) % 4 or r.stride(1) % 4
+                or r.data_ptr() % 8):
+            raise ValueError(f"write_q4_token: row {tuple(r.shape)} {r.dtype} with strides {r.stride()} for "
+                             f"packed buffer {tuple(bq.shape)}: the kernel takes bfloat16 [B, H, 1, D] rows "
+                             "with contiguous channels, 8-byte aligned, strides multiples of 4, K and V alike")
     p, stride = device_positions(start, B, bq.device)
     lib = _lib()
-    err = lib.write_q4_token(bq.data_ptr(), bs.data_ptr(), row.data_ptr(), p.data_ptr(), stride,
-                             B, H, T2, D, torch.cuda.current_stream(bq.device).cuda_stream)
+    err = lib.write_q4_token(bq.data_ptr(), bs.data_ptr(), row.data_ptr(),
+                             v_bq.data_ptr() if pair else None, v_bs.data_ptr() if pair else None,
+                             v_row.data_ptr() if pair else None, row.stride(0), row.stride(1),
+                             p.data_ptr(), stride, B, H, T2, D, torch.cuda.current_stream(bq.device).cuda_stream)
     _build.check(lib, err, "write_q4_token")
     write_q4_token.launches += 1
     return bq, bs

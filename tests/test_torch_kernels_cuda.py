@@ -11,7 +11,9 @@ groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, decode
 split plans with one, full and empty splits, capture into a CUDA graph,
 odd and even token parity in the INT4 cache, a poisoned cache past the INT4
 frontier, the INT4 decode at query groups of 1 to 8 with most of its splits
-empty and replayed from a graph, the K/V pair write from strided rows, every
+empty and replayed from a graph, the streaming decode before the sink is
+full, across the ring's wrap, with no sink, a tiny window and a wide one, and
+replayed from a graph, the K/V pair writes (bf16 and INT4) from strided rows, every
 route and tile boundary of the int8 matrix product and its model shapes at
 M = 17 and 4096, the engine's captured decode step against the eager loop in
 both formats, and the wrappers' refusals.
@@ -89,6 +91,13 @@ def test_full_cache_attention_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     (1, 100, 8, 2, 64, 256, 128, 512, 10),  # cs < sink: the chunk fills the sink as it goes
     (2, 65, 16, 2, 4, 8, 128, 256, [0, 1000]),  # G = 8, a one-row warpgroup, tiny window
     (1, 1, 4, 4, 64, 256, 4096, 4608, 40),  # decode before the sink is full, G = 1
+    (1, 1, 16, 4, 64, 256, 4096, 4608, 10),  # decode, cs < sink, G = 4
+    (1, 1, 16, 4, 64, 256, 4096, 4608, 4700),  # decode, tokens 4444..4700 cross slot R = 4608
+    (4, 1, 16, 4, 64, 256, 4096, 4608, [5, 64, 4700, 32000]),  # decode, B = 4, mixed lengths: empty splits
+    (1, 1, 16, 2, 64, 256, 4096, 4608, 16000),  # decode, G = 8
+    (2, 1, 8, 2, 0, 256, 4096, 4608, [300, 16000]),  # decode, no sink
+    (2, 1, 8, 4, 64, 8, 4096, 4608, [100, 16000]),  # decode, a tiny window (recent 8)
+    (1, 1, 4, 1, 128, 2048, 4096, 4608, 16000),  # decode, a window past one tile a warp
 ])
 def test_streaming_cache_attention_kernel(dev, B, S, Hq, Hs, sink, recent, chunk, R, cs):
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -129,6 +138,41 @@ def test_attention_kernels_capture_into_a_cuda_graph(dev, S):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert_bf16_close(got[0], flash.full_cache_attention_plain(q, k, v, cs, bucket=T))
+
+
+def test_streaming_decode_is_one_launch_and_replays(dev):
+    """One kernel a call (the profiler sees stream_decode_kernel and nothing
+    else); one captured call, replayed three times, equals the eager call bit
+    for bit each time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    B, Hq, Hs, sink, recent, R = 2, 16, 4, 64, 256, 4608
+    q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
+    bufs = [randn(gen, B, Hs, sink + 4096, 128), randn(gen, B, Hs, sink + 4096, 128),
+            randn(gen, B, Hs, R, 128), randn(gen, B, Hs, R, 128)]
+    cs = torch.tensor([16000, 4700], dtype=torch.int32, device=dev)
+    tot = cs + 1
+    call = lambda: flash.streaming_cache_attention(q, *bufs, cs, tot, sink, recent)  # noqa: E731
+    want = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        before = flash.streaming_cache_attention.decode_launches
+        call()
+        torch.cuda.synchronize()
+    assert flash.streaming_cache_attention.decode_launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "stream_decode_kernel" in kernels[0], kernels
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert_bf16_close(got, flash.streaming_cache_attention_plain(q, *bufs, cs, tot, sink, recent))
 
 
 @pytest.mark.parametrize("pos", [0, 511, 600, [3, 0, 511], [-4, 1000, 17]])
@@ -396,6 +440,33 @@ def test_write_q4_token_kernel(dev, start):
     assert torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
 
 
+@pytest.mark.parametrize("start", [0, 1, 1022, 1023, 1500, [3, 0, 1022], [-4, 2000, 17], [8, 9, 9]])
+def test_write_q4_token_pair_kernel_reads_strided_rows(dev, start):
+    """The decode step's INT4 write: K and V rows of the first 2 of 4 heads,
+    read in place as ``transpose`` views of [B, 1, Hkv, D] projections, in
+    one launch; bitwise equal to the plain version (bytes and bf16 scales)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B, H, T2, D = 3, 2, 512, 128
+    bufs = [torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+            randn(gen, B, H, 4, T2)]
+    bufs += [torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+             randn(gen, B, H, 4, T2)]
+    kproj, vproj = randn(gen, B, 1, 4, D, mul=3.0), randn(gen, B, 1, 4, D, mul=3.0)
+    kproj[0, 0, 1] = 1.25  # a constant row: scale is the 1e-8 floor
+    krow, vrow = kproj[:, :, :H].transpose(1, 2), vproj[:, :, :H].transpose(1, 2)
+    assert not krow.is_contiguous()
+    refs = [b.clone() for b in bufs]
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev)
+    before = inplace.write_q4_token.launches
+    inplace.write_q4_token(bufs[0], bufs[1], krow, start, bufs[2], bufs[3], vrow)
+    assert inplace.write_q4_token.launches == before + 1
+    inplace.write_q4_token_plain(refs[0], refs[1], krow, start, refs[2], refs[3], vrow)
+    torch.cuda.synchronize()
+    assert torch.equal(bufs[0], refs[0]) and torch.equal(bufs[2], refs[2])
+    assert torch.equal(bufs[1].view(torch.int16), refs[1].view(torch.int16))
+    assert torch.equal(bufs[3].view(torch.int16), refs[3].view(torch.int16))
+
+
 @pytest.mark.parametrize("route", ["tiled", "small"])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,N,K", [
@@ -495,6 +566,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash.full_cache_attention_q4(q, kq, torch.cat([ks, ks], dim=2), kq, torch.cat([ks, ks], dim=2), 0)
     with pytest.raises(ValueError):  # float32 row
         inplace.write_q4_token(kq, ks, torch.zeros(1, 2, 1, 128, device=dev), 0)
+    with pytest.raises(ValueError):  # a row stride the kernel's 8-byte loads cannot follow
+        inplace.write_q4_token(kq, ks, randn(gen, 1, 1, 2, 130)[..., 1:129].transpose(1, 2), 0)
+    with pytest.raises(ValueError):  # K and V rows of different strides
+        inplace.write_q4_token(kq, ks, randn(gen, 1, 2, 1, 128), 0, kq.clone(), ks.clone(),
+                               randn(gen, 1, 1, 2, 128).transpose(1, 2))
     x8 = torch.zeros(4, 24, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):  # K not a multiple of 16
         gemm.w8a8_matmul(x8, torch.ones(4, 1, device=dev), x8, torch.ones(4, device=dev))
