@@ -19,21 +19,26 @@ result):
      drawn 4x larger than keys, so scores are peaked and a dropped key shows;
      attention held to
      flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes (the K/V pair
-     forms read from strided views) and the int8 matrix product bitwise;
-     times of the kernel, the plain version and one library call (SDPA,
-     index_copy_, torch._int_mm; x padded to 17 rows below M = 17), each as
-     Python issues it and on the device alone, and the bound; an empty
-     kernel over the streaming decode's grid, plainly and in its clusters
-     (the launch floor); the INT4 decode once more built with float32 FMAs in
-     place of its tensor-core products (the measurement that chose them), and
-     at each main-path head count.
+     forms and the streaming write read from strided views) and the int8
+     matrix product bitwise; the small-M route as the decode step runs it (bf16
+     x quantized inside the kernel, wq+wk+wv and gate+up in one launch each)
+     at M = 1, 4 and 8, its weights cold in L2 (rotated copies); times of the
+     kernel, the plain version and one library call (SDPA, index_copy_,
+     torch._int_mm; for the small-M route several calls: the plain-torch
+     quantization, then torch._int_mm with x padded to 17 rows), each as
+     Python issues it and on the device alone, and the bound; an empty kernel
+     over the streaming decode's grid, plainly and in its clusters, and over
+     the streaming write's (the launch floor); the INT4 decode once more built
+     with float32 FMAs in place of its tensor-core products (the measurement
+     that chose them), and at each main-path head count.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
      tokens and every kernel's launch count; prints TTFT, decode ms/token, the
      blocks the first decode (its graph capture included) left allocated, and
      a torch.profiler breakdown of device time for the prefill and 8 decode
-     steps.
+     steps (with its copies, and no abs/round kernel of a plain-torch
+     activation quantization left in the decode).
      Decode runs as the engine runs it on the card, one CUDA-graph replay a
      token, and beside it, on the same cache, as a loop of eager forward_chunk
      steps: ms/token, device ms a step, idle share, kernel launches a token
@@ -82,7 +87,8 @@ REPLACES = {
     "full_cache_attention_q4.decode": "duo_attention_tpu/ops/flash.py:620",
     "write_q4_token": "duo_attention_tpu/ops/inplace.py:212",
     "w8a8_matmul.tiled": "duo_attention_tpu/ops/gemm.py:78",
-    "w8a8_matmul.small": "duo_attention_tpu/ops/gemm.py:78",
+    # below M = 256 JAX leaves the quantization and the product to XLA
+    "w8a8_matmul.small": "duo_attention_tpu/ops/quant.py:202",
 }
 SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "flash.cu",
            "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
@@ -91,12 +97,19 @@ FLASH_CU_KERNELS = ("prefill_kernel", "decode_kernel", "decode_merge_kernel", "s
 FMA_VARIANT = ("flash_q4", ("DUO_Q4_DECODE_FMA",))  # the INT4 decode with CUDA-core products
 # device_breakdown: tiny kernels launched before the profiled window, and its range's name
 PREROLL_LAUNCHES, WINDOW = 10000, "chip_smoke_window"
+# PyTorch's elementwise kernels that only ops/quant.py::quantize_act_per_token
+# runs on the decode step (abs and round), as the profiler names them
+QUANTIZE_KERNELS = ("abs_kernel", "round_kernel")
 # host calls that put work on the device, as the profiler names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
                      "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # The 8B model's weight shapes (N = out features, K = in features).
 GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 4096),
                "down": (4096, 14336), "head": (128256, 4096)}
+# The small-M route's cases: each weight shape alone, and the two groups the
+# decode step runs in one launch (label, output widths, K).
+SMALL_CASES = [*((label, (N,), K) for label, (N, K) in GEMM_SHAPES.items()),
+               ("wq+wk+wv", (4096, 1024, 1024), 4096), ("gate+up", (14336, 14336), 4096)]
 
 
 class SmokeFailure(Exception):
@@ -272,10 +285,10 @@ def _stream_decode_sweep(randn):
     return sweep
 
 
-def _launch_floor(blocks, threads, cluster, kernel_device_ms):
-    """Device ms of an empty kernel launched over the streaming decode's grid
-    at the main shape, plainly and in clusters of its splits, replayed from a
-    CUDA graph as the kernels are timed: the floor under the kernel's time."""
+def _empty_kernel_ms(blocks, threads, cluster=0):
+    """Device ms of an empty kernel over a grid of ``blocks`` blocks of
+    ``threads`` (in clusters of ``cluster`` along x, 0: none), replayed from a
+    CUDA graph as the kernels are timed: the launch floor under a kernel's time."""
     import torch
 
     from duo_attention_tpu_torch.ops import _build, flash
@@ -283,11 +296,17 @@ def _launch_floor(blocks, threads, cluster, kernel_device_ms):
 
     lib = flash._lib()
 
-    def empty(c):
-        err = lib.empty_kernel_launch(blocks, threads, c, torch.cuda.current_stream().cuda_stream)
+    def empty():
+        err = lib.empty_kernel_launch(blocks, threads, cluster, torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "empty_kernel_launch")
 
-    floor = dict(plain_ms=cuda_graph_time_ms(lambda: empty(0)), cluster_ms=cuda_graph_time_ms(lambda: empty(cluster)),
+    return cuda_graph_time_ms(empty)
+
+
+def _launch_floor(blocks, threads, cluster, kernel_device_ms):
+    """The empty kernel over the streaming decode's grid at the main shape,
+    plainly and in clusters of its splits."""
+    floor = dict(plain_ms=_empty_kernel_ms(blocks, threads), cluster_ms=_empty_kernel_ms(blocks, threads, cluster),
                  blocks=blocks, threads=threads, cluster=cluster, kernel_device_ms=kernel_device_ms)
     log(f"  launch floor: an empty kernel over {blocks} blocks of {threads} threads: {floor['plain_ms']:.4f} ms "
         f"on the device, {floor['cluster_ms']:.4f} in clusters of {cluster}; the streaming decode "
@@ -489,15 +508,21 @@ def phase_kernels(rec):
                main=case == "K+V pos=16000")
         del kbuf, vbuf, refs
 
-    # --- write_streaming_rows -------------------------------------------------
-    for case, B, start in [("start=16000", 1, 16000), ("start=[B] B=4", 4, [5, 64, 4700, 32000])]:
+    # --- write_streaming_rows: a layer's streaming-head K and V rows, read in place ---
+    # from [B, 1, Hkv, D] projections (the 8B model's 8 KV heads; the last 4 streaming),
+    # as the decode step hands them: at B = 4 mixed starts, the ring's wrap, a sink not full
+    for case, B, start in [("K+V start=16000 strided", 1, 16000),
+                           ("K+V start=[B] B=4 strided", 4, [5, 64, 4700, 32000]),
+                           ("K+V start=[B] B=4 wrap strided", 4, [4607, 4608, 9216, 63])]:
         bufs = [randn(B, H, Ts, D), randn(B, H, Ts, D), randn(B, H, R, D), randn(B, H, R, D)]
         refs = [t.clone() for t in bufs]
-        k_row, v_row = randn(B, H, 1, D), randn(B, H, 1, D)
+        k_row, v_row = (randn(B, 1, HKV, D)[:, :, HKV - H :].transpose(1, 2) for _ in range(2))  # strided views
         st = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        before = inplace.write_streaming_rows.launches
         inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK)
+        ok = inplace.write_streaming_rows.launches == before + 1
         inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK)
-        ok = all(torch.equal(a, b) for a, b in zip(bufs, refs))
+        ok = ok and all(torch.equal(a, b) for a, b in zip(bufs, refs))
         t = vec(start, B)
         sink_slot, ring_slot = t.clamp(max=SINK), t % R
         nbytes = 2 * (2 * B * H * D) + 4 * (2 * B * H * D)
@@ -510,16 +535,89 @@ def phase_kernels(rec):
                 else:
                     put_rows(buf, slot, row)
 
-        times = timed(
-            lambda: inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK),
-            lambda: inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK),
-            library,
-        )
+        call = lambda: inplace.write_streaming_rows(*bufs, k_row, v_row, st, SINK)  # noqa: E731
+        times = timed(call, lambda: inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK), library)
+        # the launch floor under it: an empty kernel over the same grid (one block of 16 threads a row)
+        threads = 2 * B * H * (D // 8)
+        floor_ms = _empty_kernel_ms(1, threads)
         record("write_streaming_rows", case, 0.0 if ok else float("inf"), ok, times,
-               _bound(0, nbytes), main=B == 1)
+               _bound(0, nbytes), main=B == 1, floor_ms=floor_ms, threads=threads)
+        log(f"    an empty kernel of 1 block x {threads} threads: {floor_ms:.4f} ms on the device; "
+            f"the write {times[1]:.4f} (+{times[1] - floor_ms:.4f})")
+        if B == 1:
+            kernels = _device_kernels(call)
+            require(kernels == [k for k in kernels if "write_streaming_rows_kernel" in k] and len(kernels) == 1,
+                    f"the streaming write from strided rows ran {kernels}, not one write_streaming_rows_kernel")
         del bufs, refs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def _small_case(rec, gen, label, ns, K, M, main=False):
+    """The small-M route at the main path's decode shapes: bf16 x [M, K]
+    through ``w8a8_linear_group`` (one launch, x quantized in the kernel)
+    against its plain version, bitwise, and the int8-input mode against
+    ``w8a8_matmul_plain``. Times, all with the weights cold: each call finds
+    its weights outside the 50 MB L2, as a decode step does, by rotating over
+    copies of them (at least 256 MB in all) inside one captured graph.
+    Beside them the same kernel with one copy replayed (weights warm in L2).
+    Library: plain-torch
+    quantize_act_per_token, then per weight torch._int_mm (x padded to 17
+    rows, its smallest M) and the two multiplies: several calls, no one call
+    computes this. Bound: weights, x, the scales and the outputs once over
+    the memory rate (or the int8 operations over the int8 peak)."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import gemm, quant
+    from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    dev = gen.device
+    out_dtype = torch.float32 if label == "head" else torch.bfloat16
+    group_bytes = sum(ns) * K
+    copies = [[(torch.randint(-127, 128, (n, K), generator=gen, device=dev, dtype=torch.int8),
+                torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4) for n in ns]
+              for _ in range(max(2, -(-(256 << 20) // group_bytes)))]
+    x = (torch.randn((M, K), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    weights = copies[0]
+    got = quant.w8a8_linear_group(x, weights, out_dtype)
+    want = quant.w8a8_linear_group(x, weights, out_dtype, plain=True)
+    ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    xq, xs = quant.quantize_act_per_token(x)
+    for wq, ws in weights:  # the int8-input mode (route="small"), bitwise
+        ok = ok and torch.equal(gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype, route="small"),
+                                gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype))
+
+    def library(ws_):
+        xq_, xs_ = quant.quantize_act_per_token(x)
+        xp = torch.cat([xq_, xq_.new_zeros(17 - M, K)])
+        return [((torch._int_mm(xp, wq.t())[:M].float() * xs_) * s).to(out_dtype) for wq, s in ws_]
+
+    require(all(torch.equal(a, b) for a, b in zip(library(weights), want)),
+            f"quantize + torch._int_mm disagrees with the plain version ({label}, M={M})")
+
+    def cold(fn):
+        def calls():
+            for ws_ in copies:
+                fn(ws_)
+        return calls
+
+    kernel = cold(lambda ws_: quant.w8a8_linear_group(x, ws_, out_dtype))
+    n = len(copies)
+    times = (cuda_time_ms(kernel, iters=2, warmup=1) / n, cuda_graph_time_ms(kernel, calls=2) / n,
+             cuda_time_ms(lambda: quant.w8a8_linear_group(x, weights, out_dtype, plain=True), iters=2, warmup=1),
+             cuda_time_ms(cold(library), iters=2, warmup=1) / n, cuda_graph_time_ms(cold(library), calls=2) / n)
+    warm_ms = cuda_graph_time_ms(lambda: quant.w8a8_linear_group(x, weights, out_dtype))
+    nbytes = group_bytes + M * K * 2 + 4 * sum(ns) + M * sum(ns) * (4 if out_dtype == torch.float32 else 2)
+    dt = "f32" if out_dtype == torch.float32 else "bf16"
+    shape = "+".join(str(n) for n in ns)
+    rec.record("w8a8_matmul.small", f"{label} {shape}x{K} M={M} {dt} cold", err, ok, times,
+               _bound(2 * M * sum(ns) * K, nbytes, PEAK_INT8_OPS), main=main, warm_device_ms=warm_ms, copies=n,
+               gbytes_per_s=nbytes / times[1] / 1e6, library_calls="quantize_act_per_token + torch._int_mm "
+               "(x padded to 17 rows) + 2 multiplies, per weight")
+    log(f"    {label} M={M}: weights warm in L2 (one copy replayed) {warm_ms:.4f} ms; "
+        f"{nbytes / times[1] / 1e6:.0f} GB/s cold")
+    del copies
 
 
 def phase_kernels_w8a8kv4(rec):
@@ -545,8 +643,9 @@ def phase_kernels_w8a8kv4(rec):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
     # --- w8a8_matmul: bitwise ---------------------------------------------------
-    # Operations: 2*M*N*K int8 operations. Bytes: x, w, both scale vectors, the output.
-    def gemm_case(label, N, K, M, out_dtype, route, main=False):
+    # The tiled route (prefill) from int8 x. Operations: 2*M*N*K int8 operations.
+    # Bytes: x, w, both scale vectors, the output.
+    def gemm_case(label, N, K, M, out_dtype, main=False):
         xq, wq = rand_q8(M, K), rand_q8(N, K)
         xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
         ws = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
@@ -555,27 +654,24 @@ def phase_kernels_w8a8kv4(rec):
         ok = torch.equal(got, want)
         err = float((got.float() - want.float()).abs().max())
         nbytes = M * K + N * K + 4 * (M + N) + M * N * got.element_size()
-        # torch._int_mm takes M > 16 only (and K, N multiples of 8): below that x is
-        # padded with zero rows to 17 and the first M rows of the result kept
         wt = wq.t()
-        xp = xq if M > 16 else torch.cat([xq, xq.new_zeros(17 - M, K)])
-        library = lambda: ((torch._int_mm(xp, wt)[:M].float() * xs) * ws).to(out_dtype)  # noqa: E731
+        library = lambda: ((torch._int_mm(xq, wt).float() * xs) * ws).to(out_dtype)  # noqa: E731
         require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
         times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype),
-                                     lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
-        name = "w8a8_matmul." + route
-        require((gemm.SMALL_M_MAX >= M) == (route == "small"), f"{label}: M={M} did not take the {route} route")
+                      lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
+        require(M > gemm.SMALL_M_MAX, f"{label}: M={M} would not take the tiled route")
         dt = "f32" if out_dtype == torch.float32 else "bf16"
-        record(name, f"{label} {N}x{K} M={M} {dt}", err, ok, times,
+        record("w8a8_matmul.tiled", f"{label} {N}x{K} M={M} {dt}", err, ok, times,
                _bound(2 * M * N * K, nbytes, PEAK_INT8_OPS), main=main, tops=2 * M * N * K / times[1] / 1e9,
                gbytes_per_s=nbytes / times[1] / 1e6)
 
     for label, (N, K) in GEMM_SHAPES.items():
-        out_dtype = torch.float32 if label == "head" else torch.bfloat16
         # (the main path runs the head at M = B only; M = 4096 is here for the float32 tiled epilogue)
-        gemm_case(label, N, K, CHUNK, out_dtype, "tiled", main=label == "gate/up")
-        gemm_case(label, N, K, 1, out_dtype, "small", main=label == "gate/up")
-        gemm_case(label, N, K, 4, out_dtype, "small")
+        gemm_case(label, N, K, CHUNK, torch.float32 if label == "head" else torch.bfloat16, main=label == "gate/up")
+    torch.cuda.empty_cache()
+    for label, ns, K in SMALL_CASES:
+        for M in (1, 4, 8):
+            _small_case(rec, gen, label, ns, K, M, main=(label, M) == ("gate+up", 1))
     torch.cuda.empty_cache()
 
     # Where the routes cross: device time of both kernels at M from 1 to 256, two
@@ -879,9 +975,10 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
         "write_streaming_rows": NEW_TOKENS * hs_layers,
         "plain_cuda_calls": 0,
     })
-    if q4:  # 7 projections a layer and the head: 225 products per chunk and per step
-        expected["w8a8_matmul.tiled"] = n_chunks * 7 * cfg.num_layers  # M = 4096
-        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * (7 * cfg.num_layers + 1)  # M = 1
+    if q4:  # 7 projections a layer and the head
+        expected["w8a8_matmul.tiled"] = n_chunks * 7 * cfg.num_layers  # M = 4096, one launch a weight
+        # M = 1: one launch for wq+wk+wv, wo, gate+up and down, and the head: 129 a step
+        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * (4 * cfg.num_layers + 1)
     kv_bytes = kv_memory_bytes(cache)
     require(type(cache).__name__ == ("DuoCacheQ4" if q4 else "DuoCache"), f"cache is a {type(cache).__name__}")
     log(f"  launches {counts}")
@@ -982,10 +1079,15 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
         b = breakdown[window]
         decode[mode].update(device_ms_per_step=b["device_busy_ms"] / 8, idle_share=b["idle_share"],
                             host_launch_calls_per_step=b["host_launch_calls"] / 8,
-                            device_activities_per_step=b["device_activities"] / 8)
+                            device_activities_per_step=b["device_activities"] / 8,
+                            copy_activities_per_step=b["copy_activities"] / 8)
         log(f"  decode, {mode}: {decode[mode]['ms_per_token']:.2f} ms/token, {b['device_busy_ms'] / 8:.3f} device "
             f"ms a step, idle {b['idle_share']:.3f} (profiled), {b['host_launch_calls'] / 8:.1f} launch calls "
-            f"from the host a step, {b['device_activities'] / 8:.1f} device activities a step")
+            f"from the host a step, {b['device_activities'] / 8:.1f} device activities a step, of them "
+            f"{b['copy_activities'] / 8:.1f} copies")
+        # the W8A8 linears quantize inside the small-M kernel: no plain-torch quantization is left
+        require(b["elementwise_quantize_kernels"] == 0,
+                f"the {mode} decode ran {b['elementwise_quantize_kernels']} abs/round elementwise kernels")
     del state, cache
     torch.cuda.empty_cache()
     return dict(counts=counts, expected=expected, generate_s=gen_s, ttft_ms=ttft_ms, profile=breakdown,
@@ -1035,7 +1137,7 @@ def _kernel_kind(name):
             "prefill_q4_kernel": "full_cache_attention_q4.prefill",
             "decode_q4_kernel": "full_cache_attention_q4.decode",
             "write_q4_token_kernel": "write_q4_token",
-            "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_kernel": "w8a8_matmul.small"}
+            "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_mma_kernel": "w8a8_matmul.small"}
     compact = name.replace(" ", "")
     for key, kind in ours.items():
         if key in compact:
@@ -1050,7 +1152,9 @@ def device_breakdown(fn):
     the window's wall time, and the share of it the device was idle (the
     profiler's own host cost inflates the wall time, so this idle share is
     an upper bound); the host's calls that put work on the device
-    (HOST_LAUNCH_CALLS, by name) and the device activities (kernels, copies);
+    (HOST_LAUNCH_CALLS, by name) and the device activities (kernels, copies),
+    among them the copies and the elementwise kernels of a plain-torch
+    activation quantization (QUANTIZE_KERNELS);
     the port's kernels as the device ran them, by counter name (a split
     decode's merge kernel, launched with it, is not counted again).
 
@@ -1060,12 +1164,14 @@ def device_breakdown(fn):
 
     events, wall_ms = _profiled_window(fn)
     by_kind, other, ran = {}, {}, {}
-    host_calls = device_activities = 0
+    host_calls = device_activities = copies = quantizing = 0
     for e in events:
         if e.device_type != DeviceType.CUDA:
             host_calls += e.name in HOST_LAUNCH_CALLS
             continue
         device_activities += 1
+        copies += "copy" in e.name.lower()  # copy kernels and memcpy activities
+        quantizing += any(k in e.name for k in QUANTIZE_KERNELS)
         ms = e.time_range.elapsed_us() / 1e3
         kind = _kernel_kind(e.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
@@ -1078,7 +1184,8 @@ def device_breakdown(fn):
     busy = sum(by_kind.values())
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=(1 - busy / wall_ms) if busy else None,
-                host_launch_calls=host_calls, device_activities=device_activities,
+                host_launch_calls=host_calls, device_activities=device_activities, copy_activities=copies,
+                elementwise_quantize_kernels=quantizing,
                 by_kind_ms=by_kind, kernels_ran=ran,
                 top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
 
@@ -1221,7 +1328,7 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], library_device_ms=head["library_device_ms"],
-            case=head["case"],
+            case=head["case"], **({"library_calls": head["library_calls"]} if "library_calls" in head else {}),
         ))
         if name == "full_cache_attention_q4.decode":  # its products on the CUDA cores instead (variant build)
             fma = rec.results["full_cache_attention_q4.decode_products"]["fma"]

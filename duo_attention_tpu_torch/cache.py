@@ -250,7 +250,8 @@ def write_streaming(k_sink, v_sink, k_ring, v_ring, k_new, v_new, start, sink_si
     Tokens past the sink land in the never-visible overflow pad; every token
     also lands in the ring (masks de-duplicate by position). S == 1 goes
     through ``write_streaming_rows`` (kernel, or its plain version when
-    ``plain``); S > 1 takes a scalar start.
+    ``plain``), which reads the rows by their strides (a ``transpose`` view
+    of the projection's output needs no copy); S > 1 takes a scalar start.
     """
     S = k_new.shape[2]
     R = k_ring.shape[2]

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async,
-// mbarriers, the 128-byte swizzle and its shared-memory matrix descriptor,
-// the wgmma fences, and the decode kernels' m16n8k16 `mma.sync` of a query
-// group. Header-only; every helper is inlined into the
-// including kernel. ops/_build.py hashes this file with each source that
+// mbarriers, ldmatrix, named barriers, the 128-byte swizzle and its
+// shared-memory matrix descriptor, the wgmma fences, and the decode kernels'
+// m16n8k16 `mma.sync` of a query group. Header-only; every helper is inlined
+// into the including kernel. ops/_build.py hashes this file with each source that
 // includes it, so an edit here rebuilds them.
 
 #pragma once
@@ -73,6 +73,31 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Four (two) 8x8 matrices of 16-byte rows from shared memory; lane l gives the
+// address of row l & 7 of matrix l >> 3 and receives, of each matrix, the 4
+// bytes at row l / 4, byte 4 * (l % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// A barrier among the first `threads` threads of the block (id 1-15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// This warp's arrival at such a barrier, without waiting for it.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Generic-proxy stores to shared memory become visible to wgmma and TMA.

@@ -7,11 +7,13 @@
 // itself is the whole job: B*H rows of D bf16 values (256 bytes at D=128).
 // Bound: bytes (one row read, one or two rows written per (b, head)), which
 // is nanoseconds of bandwidth, so the launch itself dominates. Design: one
-// block per (head, b), one 16-byte vector per thread, no shared memory.
+// 16-byte vector per thread, no shared memory; write_row one block per
+// (head, b), write_streaming_rows one block for the layer's rows.
 // write_row takes a layer's K row and V row of the full heads in one launch
 // (16 pieces of 16 bytes each at D = 128: one warp), and reads them in place
 // from the projection's [B, 1, Hkv, D] output by their strides, so the decode
-// step makes no copy before it.
+// step makes no copy before it; so does write_streaming_rows, for the
+// streaming heads' K and V rows.
 //
 // Positions come from device memory ([B] int32, or one value broadcast with
 // pos_stride = 0) so the host never waits for the cache length.
@@ -66,20 +68,23 @@ __global__ void write_row_kernel(__nv_bfloat16* k_buf, __nv_bfloat16* v_buf, con
 
 // Sink slot min(start, sink) (past the sink it lands in the never-visible
 // overflow pad) and ring slot start mod R, for K and V. No clamp, as in the
-// TPU kernel.
+// TPU kernel. The whole layer in one launch: thread i copies 16-byte piece i
+// of (b, head, K or V, piece) to both slots, so adjacent threads read and
+// write adjacent bytes of a row; row (b, h) of k_row and of v_row starts at
+// element b * row_sb + h * row_sh (in place in the projection's output).
 __global__ void write_streaming_rows_kernel(
     __nv_bfloat16* k_sink, __nv_bfloat16* v_sink, __nv_bfloat16* k_ring,
     __nv_bfloat16* v_ring, const __nv_bfloat16* k_row, const __nv_bfloat16* v_row,
-    const int* start, int start_stride, int H, int Ts, int R, int D, int sink) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int t = start[b * start_stride];
-  const int sink_slot = min(t, sink);
-  const int ring_slot = pmod(t, R);
-  const size_t bh = (size_t)b * H + h;
-  copy_row(k_sink + (bh * Ts + sink_slot) * D, k_row + bh * D, D);
-  copy_row(v_sink + (bh * Ts + sink_slot) * D, v_row + bh * D, D);
-  copy_row(k_ring + (bh * R + ring_slot) * D, k_row + bh * D, D);
-  copy_row(v_ring + (bh * R + ring_slot) * D, v_row + bh * D, D);
+    long long row_sb, long long row_sh, const int* start, int start_stride, int B, int H, int Ts, int R,
+    int D, int sink) {
+  const int pieces = D / 8, total = B * H * 2 * pieces;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int c = 8 * (i % pieces), row = i / pieces, v = row & 1, bh = row >> 1, b = bh / H, h = bh % H;
+    const int t = start[b * start_stride];
+    const uint4 val = *reinterpret_cast<const uint4*>((v ? v_row : k_row) + b * row_sb + h * row_sh + c);
+    *reinterpret_cast<uint4*>((v ? v_sink : k_sink) + ((size_t)bh * Ts + min(t, sink)) * D + c) = val;
+    *reinterpret_cast<uint4*>((v ? v_ring : k_ring) + ((size_t)bh * R + pmod(t, R)) * D + c) = val;
+  }
 }
 
 // INT4 token write. bq [B, H, T2, D] u8: byte (r, d) = q4(token 2r, d) |
@@ -163,16 +168,20 @@ int write_row(void* k_buf, void* v_buf, const void* k_row, const void* v_row, lo
   return static_cast<int>(cudaGetLastError());
 }
 
-int write_streaming_rows(void* k_sink, void* v_sink, void* k_ring, void* v_ring,
-                         const void* k_row, const void* v_row, const void* start,
-                         int start_stride, int B, int H, int Ts, int R, int D, int sink,
-                         void* stream) {
-  dim3 grid(H, B);
-  write_streaming_rows_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// k_sink, v_sink [B, H, Ts, D]; k_ring, v_ring [B, H, R, D]; rows [B, H, 1, D]
+// at strides row_sb, row_sh (elements, multiples of 8; both rows alike).
+int write_streaming_rows(void* k_sink, void* v_sink, void* k_ring, void* v_ring, const void* k_row,
+                         const void* v_row, long long row_sb, long long row_sh, const void* start, int start_stride,
+                         int B, int H, int Ts, int R, int D, int sink, void* stream) {
+  if (D % 8 != 0 || row_sb % 8 != 0 || row_sh % 8 != 0 || B <= 0 || H <= 0 || R <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one block for a decode layer's rows (16 threads a 256-byte row)
+  const int total = B * H * 2 * (D / 8), threads = total < 1024 ? (total + 31) / 32 * 32 : 1024;
+  write_streaming_rows_kernel<<<(total + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<__nv_bfloat16*>(k_sink), static_cast<__nv_bfloat16*>(v_sink),
       static_cast<__nv_bfloat16*>(k_ring), static_cast<__nv_bfloat16*>(v_ring),
-      static_cast<const __nv_bfloat16*>(k_row), static_cast<const __nv_bfloat16*>(v_row),
-      static_cast<const int*>(start), start_stride, H, Ts, R, D, sink);
+      static_cast<const __nv_bfloat16*>(k_row), static_cast<const __nv_bfloat16*>(v_row), row_sb, row_sh,
+      static_cast<const int*>(start), start_stride, B, H, Ts, R, D, sink);
   return static_cast<int>(cudaGetLastError());
 }
 

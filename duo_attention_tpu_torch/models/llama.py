@@ -26,7 +26,7 @@ from ..config import DuoConfig, ModelConfig
 from ..ops import flash
 from ..ops.attention_ref import causal_attention_ref
 from ..ops.norm import rms_norm
-from ..ops.quant import w8a8_linear
+from ..ops.quant import w8a8_linear, w8a8_linear_group
 from ..ops.rope import apply_rope, rope_tables
 from ..utils import resolve_device
 
@@ -122,10 +122,19 @@ def _proj(layer: Params, x: torch.Tensor, name: str, plain: bool = False) -> tor
     return F.linear(x, layer[name])
 
 
+def _proj_group(layer: Params, x: torch.Tensor, names, plain: bool = False):
+    """The projections ``names`` of one input x: when all are W8A8, one
+    ``w8a8_linear_group`` (x quantized once; one kernel launch at decode)."""
+    if all(name + "_q8" in layer for name in names):
+        weights = [(layer[name + "_q8"], layer[name + "_scale"]) for name in names]
+        return w8a8_linear_group(x, weights, x.dtype, plain)
+    return tuple(_proj(layer, x, name, plain) for name in names)
+
+
 def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False):
     B, S, _ = x.shape
     D = cfg.head_dim
-    q, k, v = (_proj(layer, x, name, plain) for name in ("wq", "wk", "wv"))
+    q, k, v = _proj_group(layer, x, ("wq", "wk", "wv"), plain)
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
     return (q.reshape(B, S, cfg.num_heads, D), k.reshape(B, S, cfg.num_kv_heads, D),
@@ -135,7 +144,9 @@ def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False):
 def _mlp(layer: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     if "moe_gate" in layer:
         raise NotImplementedError("MoE MLPs are not ported yet")
-    hidden = F.silu(_proj(layer, x, "w_gate", plain)) * _proj(layer, x, "w_up", plain)
+    gate, up = _proj_group(layer, x, ("w_gate", "w_up"), plain)
+    hidden = F.silu(gate).mul_(up)  # in place: gate and up are both alive here
+    del gate, up  # freed before the down projection's activations are made
     return _proj(layer, hidden, "w_down", plain)
 
 
@@ -178,7 +189,7 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
         bufs = write_streaming(
             cache.k_sink[layer_idx], cache.v_sink[layer_idx],
             cache.k_ring[layer_idx], cache.v_ring[layer_idx],
-            k[:, :, hf:].transpose(1, 2).contiguous(), v[:, :, hf:].transpose(1, 2).contiguous(),
+            k[:, :, hf:].transpose(1, 2), v[:, :, hf:].transpose(1, 2),  # views, read in place
             write_start, duo.sink_size, plain,
         )
         attn = flash.streaming_cache_attention_plain if plain else flash.streaming_cache_attention

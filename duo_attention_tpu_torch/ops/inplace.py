@@ -9,7 +9,8 @@ launches in ``<wrapper>.launches``; the plain versions count calls made
 with CUDA tensors in ``<plain>.cuda_calls``.
 
 ``write_row`` takes the full heads' K row and V row of a layer in one
-launch, read in place by their strides from the projection's output.
+launch, read in place by their strides from the projection's output;
+``write_streaming_rows`` does the same for the streaming heads.
 ``write_q4_token`` is the INT4 cache's decode write: it quantizes the row and
 merges its nibbles into the token-paired byte row in one kernel, and, like
 ``write_row``, takes a layer's K and V rows in one launch, read in place.
@@ -27,7 +28,7 @@ from .quant import quantize_int4_nibbles
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "write_row": [_P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
-    "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "write_streaming_rows": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "write_q4_token": [_P, _P, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -159,24 +160,33 @@ def write_streaming_rows(k_sink, v_sink, k_ring, v_ring, k_row, v_row,
     """Decode-step streaming write, IN PLACE. k/v_row [B, Hs, 1, D]; start
     int, 0-d or [B] tensor. Sink slot min(start, sink) (past the sink the row
     lands in the never-visible overflow pad), ring slot start mod R, for K
-    and V, in one launch. Returns the four buffers."""
+    and V, in one launch. The rows need not be contiguous: the kernel reads
+    each (b, h) row by its strides (the channels contiguous, both rows with
+    the same strides), as a ``transpose`` view of the projection's ``[B, 1,
+    Hkv, D]`` output gives them. Returns the four buffers."""
     if not k_sink.is_cuda:
         return write_streaming_rows_plain(
             k_sink, v_sink, k_ring, v_ring, k_row, v_row, start, sink_size
         )
     B, H, Ts, D = k_sink.shape
     R = k_ring.shape[2]
-    _check_bf16_cuda("write_streaming_rows", k_sink, v_sink, k_ring, v_ring, k_row, v_row)
+    _check_bf16_cuda("write_streaming_rows", k_sink, v_sink, k_ring, v_ring)
     if (tuple(v_sink.shape) != (B, H, Ts, D) or tuple(k_ring.shape) != (B, H, R, D)
-            or tuple(v_ring.shape) != (B, H, R, D) or tuple(k_row.shape) != (B, H, 1, D)
-            or tuple(v_row.shape) != (B, H, 1, D) or D % 8 != 0 or not 0 <= sink_size < Ts):
+            or tuple(v_ring.shape) != (B, H, R, D) or D % 8 != 0 or not 0 <= sink_size < Ts):
         raise ValueError("write_streaming_rows: inconsistent buffer shapes")
+    for r in (k_row, v_row):
+        if (r.device != k_sink.device or r.dtype != torch.bfloat16 or tuple(r.shape) != (B, H, 1, D)
+                or r.stride() != k_row.stride() or r.stride(3) != 1 or r.stride(0) % 8 or r.stride(1) % 8
+                or r.data_ptr() % 16):
+            raise ValueError(f"write_streaming_rows: row {tuple(r.shape)} {r.dtype} with strides {r.stride()} for "
+                             f"buffers {tuple(k_sink.shape)}: the kernel takes bfloat16 [B, H, 1, D] rows with "
+                             "contiguous channels, 16-byte aligned, K and V alike")
     p, stride = device_positions(start, B, k_sink.device)
     stream = torch.cuda.current_stream(k_sink.device).cuda_stream
     lib = _lib()
     err = lib.write_streaming_rows(
         k_sink.data_ptr(), v_sink.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(),
-        k_row.data_ptr(), v_row.data_ptr(), p.data_ptr(), stride,
+        k_row.data_ptr(), v_row.data_ptr(), k_row.stride(0), k_row.stride(1), p.data_ptr(), stride,
         B, H, Ts, R, D, sink_size, stream,
     )
     _build.check(lib, err, "write_streaming_rows")

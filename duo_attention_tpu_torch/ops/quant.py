@@ -13,8 +13,11 @@ straight-through backward of the JAX ``w8a8_linear`` belongs to training).
   channel-plane layout the tests and oracles use.
 * W8A8: int8 weights with per-out-channel scales, int8 activations with
   per-token dynamic scales, int8 x int8 -> int32, then
-  ``(float(acc) * x_scale) * w_scale``. The product itself is
-  ``ops/gemm.py::w8a8_matmul`` (a CUDA kernel on the card).
+  ``(float(acc) * x_scale) * w_scale``. ``w8a8_linear_group`` takes the
+  projections that share an input (wq, wk, wv; gate, up) together: on the
+  card at M <= ``gemm.SMALL_M_MAX`` one kernel quantizes x and multiplies it
+  by each weight (``gemm.w8a8_small_group``); otherwise x is quantized once
+  in plain torch and each product is ``gemm.w8a8_matmul``.
 
 Weights here are ``[out_features, in_features]`` (PyTorch's layout); the JAX
 package keeps ``[in, out]``. ``models/from_jax.py`` transposes.
@@ -22,12 +25,12 @@ package keeps ``[in, out]``. ``models/from_jax.py`` transposes.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from ..utils import resolve_device
-from .gemm import w8a8_matmul, w8a8_matmul_plain
+from .gemm import SMALL_M_MAX, w8a8_matmul, w8a8_matmul_plain, w8a8_small_group
 
 QUANTIZED_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _constants = {}
@@ -137,18 +140,34 @@ def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor, w_sca
     return out.reshape(*lead, wq.shape[0])
 
 
+def w8a8_linear_group(x: torch.Tensor, weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      out_dtype=torch.bfloat16, plain: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Dynamic-activation W8A8 linears of one input, forward only: x [...,
+    in] bfloat16 or float32 (the plain path takes any float dtype; the
+    small-M kernel raises on others), weights 1-3 (wq [out_i, in] int8,
+    w_scale [out_i] float32) -> a tuple of [..., out_i] ``out_dtype``.
+
+    Each output is bitwise ``w8a8_linear(x, wq_i, w_scale_i)``: x is
+    quantized per token once, then multiplied by each weight. A CUDA x of at
+    most ``gemm.SMALL_M_MAX`` tokens takes the small-M kernel, which does
+    both in one launch for the whole group; more tokens are quantized in
+    plain torch, then each product is ``gemm.w8a8_matmul`` (the tiled kernel).
+    ``plain=True`` (or a CPU x) runs the plain versions."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if x.is_cuda and not plain and x2.shape[0] <= SMALL_M_MAX:
+        outs = w8a8_small_group(x2, weights, out_dtype)
+    else:
+        xq, xs = quantize_act_per_token(x2)
+        fn = w8a8_matmul_plain if plain else w8a8_matmul
+        outs = [fn(xq, xs, wq, ws, out_dtype) for wq, ws in weights]
+    return tuple(out.reshape(*lead, out.shape[-1]) for out in outs)
+
+
 def w8a8_linear(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                 out_dtype=torch.bfloat16, plain: bool = False) -> torch.Tensor:
-    """Dynamic-activation W8A8 linear, forward only: x [..., in] in any float
-    dtype, wq [out, in] int8, w_scale [out] float32 -> [..., out] out_dtype.
-
-    Every shape goes through ``w8a8_matmul`` (the CUDA kernel for a CUDA
-    tensor, whatever M); ``plain=True`` forces its plain version."""
-    xq, xs = quantize_act_per_token(x)
-    lead = x.shape[:-1]
-    fn = w8a8_matmul_plain if plain else w8a8_matmul
-    out = fn(xq.reshape(-1, x.shape[-1]), xs.reshape(-1, 1), wq, w_scale, out_dtype)
-    return out.reshape(*lead, wq.shape[0])
+    """One W8A8 linear: ``w8a8_linear_group`` of a single weight."""
+    return w8a8_linear_group(x, [(wq, w_scale)], out_dtype, plain)[0]
 
 
 def quantize_layer_weights(layer: Dict, keys=QUANTIZED_PROJECTIONS) -> Dict:

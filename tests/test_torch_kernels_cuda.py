@@ -13,10 +13,14 @@ odd and even token parity in the INT4 cache, a poisoned cache past the INT4
 frontier, the INT4 decode at query groups of 1 to 8 with most of its splits
 empty and replayed from a graph, the streaming decode before the sink is
 full, across the ring's wrap, with no sink, a tiny window and a wide one, and
-replayed from a graph, the K/V pair writes (bf16 and INT4) from strided rows, every
-route and tile boundary of the int8 matrix product and its model shapes at
-M = 17 and 4096, the engine's captured decode step against the eager loop in
-both formats, and the wrappers' refusals.
+replayed from a graph, the K/V pair writes (bf16 and INT4) and the streaming
+write from strided rows, every route and tile boundary of the int8 matrix
+product and its model shapes at M = 17 and 4096, the fused small-M linear
+(quantization inside the kernel) at M = 1 to 8 for groups of one to three
+weights, ragged widths, K = 14,336 and row-strided inputs, fewer blocks
+than tiles and the longest K its ring takes, as one launch that a CUDA
+graph replays, the engine's captured decode step against the
+eager loop in both formats, and the wrappers' refusals.
 """
 
 import numpy as np
@@ -44,6 +48,31 @@ Q_PEAK = 4.0
 
 def randn(gen, *shape, mul=1.0):
     return (torch.randn(shape, generator=gen, device=gen.device) * mul).to(torch.bfloat16)
+
+
+def device_kernels(call):
+    """Names of the device kernels one call of ``call`` runs, from
+    torch.profiler. The profiler can lose the device records of the first
+    launches after it starts, so 10,000 tiny launches go first and only the
+    events of a marked range after them count (as chip_smoke.py's
+    _profiled_window does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10000):
+            scratch.add_(1.0)
+        torch.cuda.synchronize()
+        with record_function("device_kernels_window"):
+            call()
+            torch.cuda.synchronize()
+    events = prof.events()
+    # the range on the host (the profiler may also draw it on the device timeline)
+    start = min(e.time_range.start for e in events if e.name == "device_kernels_window")
+    return [e.name for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= start
+            and e.name != "device_kernels_window"]
 
 
 def assert_bf16_close(got, want):
@@ -144,9 +173,6 @@ def test_streaming_decode_is_one_launch_and_replays(dev):
     """One kernel a call (the profiler sees stream_decode_kernel and nothing
     else); one captured call, replayed three times, equals the eager call bit
     for bit each time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=dev).manual_seed(16)
     B, Hq, Hs, sink, recent, R = 2, 16, 4, 64, 256, 4608
     q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
@@ -157,12 +183,9 @@ def test_streaming_decode_is_one_launch_and_replays(dev):
     call = lambda: flash.streaming_cache_attention(q, *bufs, cs, tot, sink, recent)  # noqa: E731
     want = call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        before = flash.streaming_cache_attention.decode_launches
-        call()
-        torch.cuda.synchronize()
+    before = flash.streaming_cache_attention.decode_launches
+    kernels = device_kernels(call)
     assert flash.streaming_cache_attention.decode_launches == before + 1
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 1 and "stream_decode_kernel" in kernels[0], kernels
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -356,9 +379,6 @@ def test_full_cache_attention_q4_decode_is_one_launch_and_replays(dev):
     one captured call, replayed three times, equals the eager call bit for bit
     each time: the kernel puts its ticket counters back to 0, so the graph
     needs no memset."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=dev).manual_seed(15)
     B, Hq, Hkv, T = 2, 16, 4, 16384
     q = randn(gen, B, 1, Hq, 128, mul=Q_PEAK)
@@ -366,10 +386,7 @@ def test_full_cache_attention_q4_decode_is_one_launch_and_replays(dev):
     cs = torch.tensor([16000, 9001], dtype=torch.int32, device=dev)
     want = flash.full_cache_attention_q4(q, *cache, cs, bucket=T)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash.full_cache_attention_q4(q, *cache, cs, bucket=T)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(lambda: flash.full_cache_attention_q4(q, *cache, cs, bucket=T))
     assert len(kernels) == 1 and "decode_q4_kernel" in kernels[0], kernels
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -543,6 +560,146 @@ def test_w8a8_matmul_saturated_operands_and_auto_route(dev):
         assert (after[0] - before[0], after[1] - before[1]) == ((1, 0) if M <= gemm.SMALL_M_MAX else (0, 1))
 
 
+# (output widths of the group, K, x dtype, output dtype, x row-strided)
+SMALL_GROUPS = [
+    ((4096, 1024, 1024), 4096, torch.bfloat16, torch.bfloat16, False),  # wq, wk, wv
+    ((300, 17), 14336, torch.bfloat16, torch.float32, True),  # ragged widths, the down projection's K
+    ((128,), 1040, torch.float32, torch.float32, True),  # K % 32 == 16: a half k-step of zeros
+    ((1000, 24, 8), 48, torch.float32, torch.bfloat16, False),
+]
+
+
+def _small_group_inputs(gen, M, ns, K, x_dtype, strided):
+    base = torch.randn((M, K + 64), generator=gen, device=gen.device) * 3
+    x = base[:, 32 : 32 + K]  # row-strided: 64 elements past a row of K, 16-byte aligned
+    if M > 1:
+        x[0] = 0.0  # scale 1e-12
+        x[1, :8] = torch.tensor([126.5, -126.5, 0.5, -1.5, 2.5, 127.0, -3.5, 1.0], device=gen.device)
+        x[1, 8:] = x[1, 8:].clamp(-127, 127)  # absmax 127: scale 1, quotients on .5 ties
+    x = base.to(x_dtype)[:, 32 : 32 + K] if strided else torch.empty((M, K), dtype=x_dtype, device=gen.device).copy_(x)
+    weights = [(torch.randint(-127, 128, (n, K), generator=gen, device=gen.device, dtype=torch.int8),
+                torch.rand((n,), generator=gen, device=gen.device) * 1e-3 + 1e-4) for n in ns]
+    return x, weights
+
+
+@pytest.mark.parametrize("group", range(len(SMALL_GROUPS)))
+@pytest.mark.parametrize("M", range(1, 9))
+def test_w8a8_small_group_kernel_is_bitwise_the_plain_group(dev, M, group):
+    """The fused small-M route (x quantized per row inside the kernel, every
+    weight of the group in one launch) against the plain group (plain-torch
+    quantization once, then w8a8_matmul_plain each), bitwise, at M = 1 to 8."""
+    ns, K, x_dtype, out_dtype, strided = SMALL_GROUPS[group]
+    gen = torch.Generator(device=dev).manual_seed(20 + M)
+    x, weights = _small_group_inputs(gen, M, ns, K, x_dtype, strided)
+    assert x.stride(0) == (K + 64 if strided else K)
+    before = gemm.w8a8_matmul.small_launches
+    got = quant.w8a8_linear_group(x, weights, out_dtype)
+    assert gemm.w8a8_matmul.small_launches == before + 1
+    want = quant.w8a8_linear_group(x, weights, out_dtype, plain=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == out_dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_w8a8_small_route_at_the_model_shapes(dev, shape, M):
+    """Both modes of the small-M kernel at every weight shape of the 8B model,
+    bitwise: the fused linear from bf16 x (the head in float32, as the model
+    runs it), and the int8-input mode against w8a8_matmul_plain."""
+    N, K = GEMM_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(30 + M)
+    out_dtype = torch.float32 if shape == "head" else torch.bfloat16
+    x, weights = _small_group_inputs(gen, M, (N,), K, torch.bfloat16, False)
+    (got,) = quant.w8a8_linear_group(x, weights, out_dtype)
+    (want,) = quant.w8a8_linear_group(x, weights, out_dtype, plain=True)
+    assert torch.equal(got, want)
+    xq, xs = quant.quantize_act_per_token(x)
+    got = gemm.w8a8_matmul(xq, xs, *weights[0], out_dtype, route="small")
+    torch.cuda.synchronize()
+    assert torch.equal(got, gemm.w8a8_matmul_plain(xq, xs, *weights[0], out_dtype))
+
+
+@pytest.mark.parametrize("blocks", [7, 16])
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("M", [1, 8])
+def test_w8a8_small_route_with_fewer_blocks_than_tiles(dev, monkeypatch, M, group, blocks):
+    """The kernel's persistent walk when the blocks split the group's tiles
+    unevenly (as on a card of 7 or 16 SMs; 21 and 66 tiles here): every column
+    of every matrix is still computed once, bitwise the plain group."""
+    ns, K, x_dtype, out_dtype, strided = SMALL_GROUPS[group]
+    monkeypatch.setitem(gemm._sm_counts, torch.cuda.current_device(), blocks)
+    gen = torch.Generator(device=dev).manual_seed(60 + M)
+    x, weights = _small_group_inputs(gen, M, ns, K, x_dtype, strided)
+    got = quant.w8a8_linear_group(x, weights, out_dtype)
+    want = quant.w8a8_linear_group(x, weights, out_dtype, plain=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_w8a8_small_route_sizes_its_ring_beside_x(dev):
+    """The kernel fits two ring stages beside 8 rows of x up to K = 23,808,
+    bitwise the plain version there, and refuses the launch past it."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    x, weights = _small_group_inputs(gen, 8, (40,), 23808, torch.bfloat16, False)
+    (got,) = quant.w8a8_linear_group(x, weights)
+    (want,) = quant.w8a8_linear_group(x, weights, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x, weights = _small_group_inputs(gen, 8, (40,), 23824, torch.bfloat16, False)
+    before = gemm.w8a8_matmul.small_launches
+    with pytest.raises(RuntimeError):
+        quant.w8a8_linear_group(x, weights)
+    assert gemm.w8a8_matmul.small_launches == before
+
+
+def test_w8a8_small_group_is_one_launch_and_replays(dev):
+    """A group call is one launch (the counter, and the profiler sees
+    w8a8_small_mma_kernel and nothing else: no elementwise quantization), and
+    a CUDA graph that captured it quantizes the x it finds at each replay."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    x, weights = _small_group_inputs(gen, 2, (14336, 14336), 4096, torch.bfloat16, False)
+    quant.w8a8_linear_group(x, weights)  # builds the kernel outside the capture
+    torch.cuda.synchronize()
+    kernels = device_kernels(lambda: quant.w8a8_linear_group(x, weights))
+    assert len(kernels) == 1 and "w8a8_small_mma_kernel" in kernels[0], kernels
+    graph = torch.cuda.CUDAGraph()
+    before = gemm.w8a8_matmul.small_launches
+    with torch.cuda.graph(graph):
+        outs = quant.w8a8_linear_group(x, weights)
+    assert gemm.w8a8_matmul.small_launches == before + 1
+    for scale in (1.0, -0.25):
+        x.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = quant.w8a8_linear_group(x, weights, plain=True)
+        assert all(torch.equal(g, w) for g, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("start", [16000, [5, 64, 4700, 32000], [0, 63, 4607, 4608], [-1, 2, 9000, 70]])
+def test_write_streaming_rows_kernel_reads_strided_rows(dev, start):
+    """The decode step's streaming write: K and V rows of the last 4 of 8 KV
+    heads, read in place as ``transpose`` views of [B, 1, Hkv, D]
+    projections, in one launch at B = 4 (mixed starts, the ring's wrap at R
+    = 4608, starts before the sink is full); bitwise equal to the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, H, HKV, sink, R = 4, 4, 8, 64, 4608
+    bufs = [randn(gen, B, H, sink + 64, 128), randn(gen, B, H, sink + 64, 128),
+            randn(gen, B, H, R, 128), randn(gen, B, H, R, 128)]
+    refs = [b.clone() for b in bufs]
+    kproj, vproj = randn(gen, B, 1, HKV, 128), randn(gen, B, 1, HKV, 128)
+    krow, vrow = kproj[:, :, HKV - H :].transpose(1, 2), vproj[:, :, HKV - H :].transpose(1, 2)
+    assert not krow.is_contiguous()
+    st = torch.as_tensor(start, dtype=torch.int32, device=dev).clamp_min(0)
+    before = inplace.write_streaming_rows.launches
+    inplace.write_streaming_rows(*bufs, krow, vrow, st, sink)
+    assert inplace.write_streaming_rows.launches == before + 1
+    inplace.write_streaming_rows_plain(*refs, krow, vrow, st, sink)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bufs, refs))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     k = randn(gen, 1, 2, 256, 128)
@@ -571,6 +728,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # K and V rows of different strides
         inplace.write_q4_token(kq, ks, randn(gen, 1, 2, 1, 128), 0, kq.clone(), ks.clone(),
                                randn(gen, 1, 1, 2, 128).transpose(1, 2))
+    with pytest.raises(ValueError):  # streaming rows whose channels are not contiguous
+        inplace.write_streaming_rows(k, k, k, k, randn(gen, 1, 128, 1, 2).transpose(1, 3), k[:, :, :1], 0, 64)
+    # the small-M linear
+    xb = randn(gen, 2, 4096)
+    w8 = [(torch.zeros(64, 4096, dtype=torch.int8, device=dev), torch.ones(64, device=dev))]
+    with pytest.raises(ValueError):  # four weights in one group
+        gemm.w8a8_small_group(xb, w8 * 4)
+    with pytest.raises(ValueError):  # more rows than SMALL_M_MAX
+        gemm.w8a8_small_group(randn(gen, gemm.SMALL_M_MAX + 1, 4096), w8)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        gemm.w8a8_small_group(randn(gen, 2, 4100)[:, 2:4098], w8)
+    with pytest.raises(ValueError):  # a weight of another K
+        gemm.w8a8_small_group(xb, [(torch.zeros(64, 2048, dtype=torch.int8, device=dev), torch.ones(64, device=dev))])
     x8 = torch.zeros(4, 24, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):  # K not a multiple of 16
         gemm.w8a8_matmul(x8, torch.ones(4, 1, device=dev), x8, torch.ones(4, device=dev))
