@@ -30,7 +30,12 @@ result):
      over the streaming decode's grid, plainly and in its clusters, and over
      the streaming write's (the launch floor); the INT4 decode once more built
      with float32 FMAs in place of its tensor-core products (the measurement
-     that chose them), and at each main-path head count.
+     that chose them), and at each main-path head count; the serving pool's
+     shapes: the streaming decode and the streaming write on its decode-only
+     buffers (sink rows 72, ring R = 384, B = 4 and 8, [B] lengths and starts
+     across the ring's wrap and before the sink is full), and the INT4 decode
+     and the INT4 pair write at B = 8 with the bench's ragged lengths near
+     32,500 beside short rows (bucket 32768).
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
@@ -49,6 +54,28 @@ result):
   6. end to end, W8A8KV4: phase 4 with random int8 weights (int8 embedding and
      head) and DuoEngine(kv_quant="int4").
   7. kernel path vs plain path, W8A8KV4: phase 5 in that format.
+  8. serving (ServingEngine: a decode-only pool with [B] lengths, admission
+     chunk by chunk between decode bursts of 16, the pool step replayed from
+     CUDA graphs, greedy and sampled rows):
+     8c (run after phase 5, on the bf16 weights): 4 slots, 3 requests;
+     8a (after phase 7, W8A8KV4): 4 slots, 6 requests of 16000, 3000, 9000,
+        500, 12000 and 6000 tokens, 64 new tokens each, two sampled, one
+        explicitly greedy, one with a stop token: a stop-free run comes
+        first, and the stop token is the first token of the last request's
+        stream there, past its first burst where it can be, that does not
+        occur earlier in that stream (of the request before it where that
+        stream has none). Both require that every request finishes, that the stopped
+        request's stream is the stop-free run's cut just before its stop
+        token, that a second run on a new engine gives the same tokens, that
+        each greedy request's first token is its isolated DuoEngine.generate
+        first token and its stream the isolated stream up to the isolated
+        run's first top-2 logit gap below NEAR_TIE, and that the kernels of 8
+        replays of the pool step (greedy, then sampled) equal 8 times the
+        counters; they print the pool's KV bytes, the captures, TTFT, the
+        per-token latency, the admission stalls and the pool step's device ms;
+     8b: evals/serving_bench.py at its defaults (8 slots, 8 prompts of 32,256
+        tokens, 256 new tokens each), without its warm-up pass; requires every
+        token generated, then times the B = 8 pool step, greedy and sampled.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -75,6 +102,12 @@ PROMPT_LEN, NEW_TOKENS = 16000, 64
 CHUNK, MAX_CACHE, SINK, RECENT, GROUP, HEAD_DIM = 4096, 32768, 64, 256, 4, 128
 ITERS = 10  # timed calls per kernel case (a third as many for the plain version)
 Q_PEAK = 4.0  # phase 3 queries are this many times larger than the keys
+# Phase 8: the serving pool, its bursts, and the requests of 8a (the 16k prompt
+# takes 4 admission chunks between decode bursts) and of the short bf16 run
+SERVE_SLOTS, SERVE_BURST, SERVE_NEW = 4, 16, 64
+SERVE_LENS = (16000, 3000, 9000, 500, 12000, 6000)
+SERVE_LENS_BF16 = (5000, 1200, 300)
+NEAR_TIE = 0.25  # top-2 logit gap: about twice phase 7's largest |dlogit| on the H100 (0.1199)
 # the pallas_call each kernel replaces
 REPLACES = {
     "full_cache_attention.prefill": "duo_attention_tpu/ops/flash.py:467",
@@ -199,13 +232,21 @@ def timed(kernel, plain, library=None):
     issues it and on the device alone, measured as the kernel is)."""
     from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
-    ms = cuda_time_ms(kernel, iters=ITERS, warmup=1)
-    device_ms = cuda_graph_time_ms(kernel)
-    plain_ms = cuda_time_ms(plain, iters=ITERS // 3, warmup=1)
+    def window(label, fn):
+        # each window ends in a synchronize, so a device fault raised here was
+        # made by a launch of this window: its label says whose
+        try:
+            return fn()
+        except RuntimeError as e:
+            raise SmokeFailure(f"device fault in the {label}'s timing window: {e}") from e
+
+    ms = window("kernel", lambda: cuda_time_ms(kernel, iters=ITERS, warmup=1))
+    device_ms = window("kernel", lambda: cuda_graph_time_ms(kernel))
+    plain_ms = window("plain version", lambda: cuda_time_ms(plain, iters=ITERS // 3, warmup=1))
     lib_ms = lib_device_ms = None
     if library is not None:
-        lib_ms = cuda_time_ms(library, iters=ITERS, warmup=1)
-        lib_device_ms = cuda_graph_time_ms(library, calls=3)
+        lib_ms = window("library call", lambda: cuda_time_ms(library, iters=ITERS, warmup=1))
+        lib_device_ms = window("library call", lambda: cuda_graph_time_ms(library, calls=3))
     return ms, device_ms, plain_ms, lib_ms, lib_device_ms
 
 
@@ -469,13 +510,39 @@ def phase_kernels(rec):
             rec.results["launch_floor"] = _launch_floor(extra["blocks"], 32 * extra["split_keys"] // 16,
                                                         extra["nsplit"], times[1])
     rec.results["streaming_cache_attention.decode_sweep"] = _stream_decode_sweep(randn)
+    # the serving pool's decode-only buffers (cache.sink_rows / ring_capacity with decode_only:
+    # sink rows 72, R = 384 at sink 64 / recent 256) at [B] lengths, B = 4 and 8
+    Ts_pool, R_pool = SINK + 8, -(-(RECENT + 8) // 128) * 128
+    for B in (4, 8):
+        csl = [16000, 10, 383, 384, 32511, 700, 65, 5000][:B]  # before the sink is full, across the wrap
+        csv = vec(csl, B)
+        q = randn(B, 1, Hq, D, mul=Q_PEAK)
+        pool = [randn(B, Hs, Ts_pool, D), randn(B, Hs, Ts_pool, D), randn(B, Hs, R_pool, D), randn(B, Hs, R_pool, D)]
+        cs_arg = torch.tensor(csl, dtype=torch.int32, device=dev)
+        tot_arg = cs_arg + 1
+        call = lambda: flash.streaming_cache_attention(q, *pool, cs_arg, tot_arg, SINK, RECENT)  # noqa: E731
+        want = flash.streaming_cache_attention_plain(q, *pool, cs_arg, tot_arg, SINK, RECENT)
+        err, ratio, ok = _attn_tol_ok(call(), want)
+        mask = torch.stack([torch.cat([sink_mask(csv[b][None], SINK, SINK),
+                                       ring_mask(csv[b][None], R_pool, csv[b] + 1, csv[b], SINK, RECENT)], dim=-1)
+                            for b in range(B)])[:, None]  # [B, 1, 1, sink + R_pool]
+        nbytes = 2 * (2 * B * Hq * D) + 2 * (2 * Hs * D * int(mask.sum()))
+        k_cat = torch.cat([pool[0][:, :, :SINK], pool[2]], dim=2).repeat_interleave(G, dim=1)
+        v_cat = torch.cat([pool[1][:, :, :SINK], pool[3]], dim=2).repeat_interleave(G, dim=1)
+        times = timed(call, lambda: flash.streaming_cache_attention_plain(q, *pool, cs_arg, tot_arg, SINK, RECENT),
+                      sdpa(q.transpose(1, 2), k_cat, v_cat, mask))
+        nsplit, split_keys = flash.stream_decode_split_plan(SINK, RECENT, B * Hs)
+        record("streaming_cache_attention.decode", f"decode pool B={B} cs=[B] (sink rows {Ts_pool}, R={R_pool})",
+               err, ok, times, _bound(4 * D * Hq * int(mask.sum()), nbytes), ratio, nsplit=nsplit,
+               split_keys=split_keys, blocks=B * Hs * nsplit)
+        del k_cat, v_cat, mask, pool
     del ks, vs, kr, vr
 
     # --- write_row: a layer's full-head K and V rows in one launch, read in place --
     # from [B, 1, Hkv, D] projections (the 8B model's 8 KV heads; 4 full ones), as
     # the decode step hands them; the one-buffer form (the JAX function's) last
     H, HKV = 4, 8
-    batch_index = {n: torch.arange(n, device=dev) for n in (1, 4)}
+    batch_index = {n: torch.arange(n, device=dev) for n in (1, 4, 8)}
 
     def put_rows(buf, slot, row):
         """One indexed assignment: buf[b, :, slot[b]] = row[b, :, 0]."""
@@ -510,11 +577,16 @@ def phase_kernels(rec):
 
     # --- write_streaming_rows: a layer's streaming-head K and V rows, read in place ---
     # from [B, 1, Hkv, D] projections (the 8B model's 8 KV heads; the last 4 streaming),
-    # as the decode step hands them: at B = 4 mixed starts, the ring's wrap, a sink not full
-    for case, B, start in [("K+V start=16000 strided", 1, 16000),
-                           ("K+V start=[B] B=4 strided", 4, [5, 64, 4700, 32000]),
-                           ("K+V start=[B] B=4 wrap strided", 4, [4607, 4608, 9216, 63])]:
-        bufs = [randn(B, H, Ts, D), randn(B, H, Ts, D), randn(B, H, R, D), randn(B, H, R, D)]
+    # as the decode step hands them: at B = 4 mixed starts, the ring's wrap, a sink not
+    # full; then on the serving pool's decode-only buffers (sink rows 72, R = 384)
+    for case, B, start, *rows in [("K+V start=16000 strided", 1, 16000),
+                                  ("K+V start=[B] B=4 strided", 4, [5, 64, 4700, 32000]),
+                                  ("K+V start=[B] B=4 wrap strided", 4, [4607, 4608, 9216, 63]),
+                                  ("K+V pool start=[B] B=4 strided", 4, [63, 383, 384, 32511], Ts_pool, R_pool),
+                                  ("K+V pool start=[B] B=8 strided", 8, [10, 64, 383, 384, 767, 768, 32511, 5000],
+                                   Ts_pool, R_pool)]:
+        Ts_c, R_c = rows or (Ts, R)
+        bufs = [randn(B, H, Ts_c, D), randn(B, H, Ts_c, D), randn(B, H, R_c, D), randn(B, H, R_c, D)]
         refs = [t.clone() for t in bufs]
         k_row, v_row = (randn(B, 1, HKV, D)[:, :, HKV - H :].transpose(1, 2) for _ in range(2))  # strided views
         st = torch.as_tensor(start, dtype=torch.int32, device=dev)
@@ -524,7 +596,7 @@ def phase_kernels(rec):
         inplace.write_streaming_rows_plain(*refs, k_row, v_row, st, SINK)
         ok = ok and all(torch.equal(a, b) for a, b in zip(bufs, refs))
         t = vec(start, B)
-        sink_slot, ring_slot = t.clamp(max=SINK), t % R
+        sink_slot, ring_slot = t.clamp(max=SINK), t % R_c
         nbytes = 2 * (2 * B * H * D) + 4 * (2 * B * H * D)
 
         def library():  # four index_copy_ (B == 1) or indexed assignments (B > 1)
@@ -707,6 +779,8 @@ def phase_kernels_w8a8kv4(rec):
     H, HKV, T2 = 4, 8, T // 2
     for case, B, start, pair in [("K+V t=16000 (even)", 1, 16000, True), ("K+V t=16001 (odd)", 1, 16001, True),
                                  ("K+V t=[B] B=4", 4, [0, 4097, 12345, 32767], True),
+                                 # the bench's pool: ragged lengths near 32,500 beside short rows
+                                 ("K+V t=[B] B=8", 8, [32500, 32511, 32256, 32301, 5, 300, 16001, 32767], True),
                                  ("t=16000 (even)", 1, 16000, False), ("t=16001 (odd)", 1, 16001, False),
                                  ("t=[B] B=4", 4, [0, 4097, 12345, 32767], False),
                                  ("t=40000 (clamped) B=4", 4, 40000, False)]:
@@ -743,8 +817,8 @@ def phase_kernels_w8a8kv4(rec):
     # --- full_cache_attention_q4 -------------------------------------------------
     Hkv = 4
     Hq = Hkv * G
-    kq, ks = quant.quantize_int4_paired(randn(4, Hkv, T, D))
-    vq, vs = quant.quantize_int4_paired(randn(4, Hkv, T, D))
+    kq, ks = quant.quantize_int4_paired(randn(8, Hkv, T, D))
+    vq, vs = quant.quantize_int4_paired(randn(8, Hkv, T, D))
     q4_cases = [  # (case, B, S, cs[, bucket])
         ("prefill cs=0", 1, CHUNK, 0),
         ("prefill cs=12288", 1, CHUNK, 12288),
@@ -755,6 +829,8 @@ def phase_kernels_w8a8kv4(rec):
         ("decode cs=16001 (odd)", 1, 1, 16001),
         ("decode cs=16000 B=4", 4, 1, 16000),
         ("decode cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000]),
+        # the bench's B = 8 pool (bucket 32768): ragged lengths near 32,500 beside short rows
+        ("decode cs=[B] B=8", 8, 1, [32500, 32511, 32256, 32301, 5, 300, 16001, 32767]),
         ("decode cs=300 bucket 32768 (most splits empty)", 1, 1, 300, MAX_CACHE),
     ]
     for case, B, S, cs, *fixed_bucket in q4_cases:
@@ -1258,6 +1334,216 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: continuous-batching serving
+# ---------------------------------------------------------------------------
+
+
+def _top2_margins(engine, params, cfg, duo, prompt, stream):
+    """The isolated run's top-2 logit gap before each token of ``stream``:
+    a prefill on a new cache, then eager forward_chunk steps fed the stream
+    (teacher-forced). Returns [len(stream)] floats."""
+    import torch
+
+    from duo_attention_tpu_torch.models import llama
+
+    cache, logits = engine.prefill(prompt[None])
+    bucket = engine.bucket_for(len(prompt) + len(stream))
+    gaps = []
+    with torch.no_grad():
+        for t in range(len(stream)):
+            top = logits.float().topk(2, dim=-1).values[0]
+            gaps.append(float(top[0] - top[1]))
+            if t + 1 < len(stream):
+                tok = torch.tensor([[stream[t]]], device="cuda")
+                hidden, cache = llama.forward_chunk(params, cfg, duo, cache, tok, 1, full_bucket=bucket)
+                logits = llama.logits_at(params, hidden, 0)
+    return gaps
+
+
+def _pool_window(engine, bucket, sample):
+    """8 replays of the pool's captured step (every slot set active) under
+    the profiler; the kernels the device ran must equal 8 times the launch
+    counters' movement a step. Returns the window's device breakdown."""
+    from duo_attention_tpu_torch.ops import launches
+
+    graph, _ = engine.pool_graph(bucket, sample)
+    engine._active.fill_(True)
+    b = device_breakdown(lambda: [graph.replay() for _ in range(8)])
+    counted = {name: 8 * d for name, d in zip(launches.counters(), graph.delta) if d}
+    require(b["kernels_ran"] == counted, f"pool step (bucket {bucket}, sampled {sample}): the device ran "
+            f"{b['kernels_ran']}, 8 x the counters give {counted}")
+    b["device_ms_per_step"] = b["device_busy_ms"] / 8
+    return b
+
+
+def _pool_steps(engine, bucket, label):
+    """The greedy and the sampled pool step at ``bucket``: device ms a step
+    of each and the sampled step's extra."""
+    greedy, sampled = _pool_window(engine, bucket, False), _pool_window(engine, bucket, True)
+    extra = sampled["device_ms_per_step"] - greedy["device_ms_per_step"]
+    log(f"  {label} pool step, bucket {bucket}: greedy {greedy['device_ms_per_step']:.3f} device ms a step, "
+        f"sampled {sampled['device_ms_per_step']:.3f} (+{extra:.3f}); idle {greedy['idle_share']:.3f} / "
+        f"{sampled['idle_share']:.3f}; kernels of 8 replays = 8 x the counters: {greedy['kernels_ran']}; "
+        f"device activities a step {greedy['device_activities'] / 8:.1f} / {sampled['device_activities'] / 8:.1f}; "
+        f"sampled window's largest other kernels (ms over 8): {json.dumps(sampled['top_other_ms'])}")
+    return dict(greedy=greedy, sampled=sampled, sampled_extra_ms=extra)
+
+
+def _serve_once(params, cfg, duo, kv_quant, prompts, max_new, sampling, stops, slots=SERVE_SLOTS):
+    """One ServingEngine run of the prompts. Returns (engine, tokens by rid, wall s)."""
+    import torch
+
+    from duo_attention_tpu_torch import Request, ServingEngine
+
+    engine = ServingEngine(params, cfg, duo, max_batch_size=slots, kv_quant=kv_quant,
+                           decode_burst=SERVE_BURST, device="cuda", timing=True)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt_ids=prompt, max_new_tokens=max_new, sampling=sampling.get(rid),
+                              stop_token_ids=stops.get(rid, ())))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(len(finished) == len(prompts) and all(r.done for r in finished), "a request did not finish")
+    return engine, {r.rid: list(r.generated) for r in finished}, wall
+
+
+def _stop_choice(streams, prefer):
+    """Where a stop token ends a request mid-stream: the first token of its
+    stream, past the first burst where it can be (else at index 1 or later),
+    that does not occur earlier in the stream. Request ``prefer`` first, then
+    the others from the last down (a stream of one repeated token has none).
+    Returns (rid, index of the stop token)."""
+    for rid in [prefer] + sorted((r for r in streams if r != prefer), reverse=True):
+        s = streams[rid]
+        new = [t for t in range(1, len(s)) if s[t] not in s[:t]]
+        if new:
+            return rid, next((t for t in new if t > SERVE_BURST), new[0])
+    raise SmokeFailure(f"no served stream has a token, past its first, that it did not emit before: {streams}")
+
+
+def phase_serving(params, cfg, duo, kv_quant, lens, max_new, sampling):
+    """ServingEngine over a pool of SERVE_SLOTS slots at the smoke geometry:
+    more requests than slots, prompts that take several admission chunks
+    between decode bursts, greedy and sampled rows, one request with a stop
+    token (``_stop_choice`` over a stop-free run's streams). Requires that
+    every request finishes, that the stopped request's stream is its
+    stop-free stream cut just before the stop token (the run is the
+    stop-free one until the burst that emits it), that a second run on a
+    new engine gives the same tokens, that each greedy request's first token
+    is its isolated DuoEngine.generate first token and its stream the
+    isolated stream up to the first near-tie (top-2 gap < NEAR_TIE) of the
+    isolated run, and that 8 replays of the pool step launch 8 times the
+    counters' kernels."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
+    from duo_attention_tpu_torch.evals import serving_bench
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    greedy = [i for i in range(len(lens)) if sampling.get(i) is None or sampling[i].is_greedy]
+    single = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant, decode_burst=SERVE_BURST)
+    iso, gaps = {}, {}
+    t0 = time.perf_counter()
+    for i in greedy:
+        iso[i] = single.generate(prompts[i][None], max_new)[0][0].tolist()
+        gaps[i] = _top2_margins(single, params, cfg, duo, prompts[i], iso[i])
+    iso_s = time.perf_counter() - t0
+    _, free, _ = _serve_once(params, cfg, duo, kv_quant, prompts, max_new, sampling, {})
+    stop_rid, stop_at = _stop_choice(free, len(lens) - 1)
+    stop = free[stop_rid][stop_at]
+    stops = {stop_rid: (stop,)}
+
+    reset_counts()
+    engine, served, wall = _serve_once(params, cfg, duo, kv_quant, prompts, max_new, sampling, stops)
+    counts = read_counts()
+    require(counts["plain_cuda_calls"] == 0, f"the serving path called plain versions: {counts}")
+    summary = serving_bench.summarize(engine, wall, lens)
+    _, again, wall2 = _serve_once(params, cfg, duo, kv_quant, prompts, max_new, sampling, stops)
+    require(again == served, f"a second run on a new ServingEngine gave other tokens: {again} vs {served}")
+
+    # the stopped request ends just before its stop token, which the burst emitted mid-way
+    require(served[stop_rid] == free[stop_rid][:stop_at],
+            f"request {stop_rid} with stop token {stop} (index {stop_at} of its stop-free stream "
+            f"{free[stop_rid]}) served {served[stop_rid]}")
+    others_as_free = [i for i in served if i != stop_rid and served[i] == free[i]]
+    log(f"  request {stop_rid}: stop token {stop}, index {stop_at} of its stop-free stream, in burst "
+        f"{(stop_at - 1) // SERVE_BURST + 1} at step {(stop_at - 1) % SERVE_BURST + 1} of {SERVE_BURST}; served "
+        f"{len(served[stop_rid])} tokens; the other requests' streams as in the stop-free run: {others_as_free}")
+    agreement = {}
+    for i in greedy:
+        tie = next((t for t, g in enumerate(gaps[i]) if g < NEAR_TIE), len(gaps[i]))
+        prefix = next((t for t, (a, b) in enumerate(zip(served[i], iso[i])) if a != b), min(len(served[i]), len(iso[i])))
+        diverged = prefix < len(served[i])
+        agreement[i] = dict(agreeing_prefix=prefix, first_near_tie=tie, served=len(served[i]),
+                            gap_at_first_near_tie=gaps[i][tie] if tie < len(gaps[i]) else None,
+                            gap_at_divergence=gaps[i][prefix] if diverged else None)
+        log(f"  request {i} (prompt {lens[i]}): served {len(served[i])} tokens, agrees with its isolated run for "
+            f"{prefix}" + (f" (isolated top-2 gap there {gaps[i][prefix]:.4f})" if diverged else "")
+            + f"; its first near-tie (top-2 gap < {NEAR_TIE}) at {tie}"
+            + (f" (gap {gaps[i][tie]:.4f})" if tie < len(gaps[i]) else " (none)"))
+        require(served[i][0] == iso[i][0], f"request {i}: first token {served[i][0]}, isolated {iso[i][0]}")
+        require(prefix >= min(tie, len(served[i])), f"request {i} diverged at {prefix} before its first near-tie {tie}")
+        # the same context up to the divergence: the served step flipped a token only where the
+        # isolated run had a near-tie
+        require(not diverged or agreement[i]["gap_at_divergence"] < NEAR_TIE,
+                f"request {i} diverged at {prefix}, where the isolated top-2 gap is {agreement[i]['gap_at_divergence']}")
+    bucket = max(b for b, _ in engine._graphs)
+    steps = _pool_steps(engine, bucket, f"B={SERVE_SLOTS}")
+    kv = kv_memory_bytes(engine.cache)
+    captures = engine.graph_captures()
+    log(f"  pool KV {kv / 2**30:.3f} GiB; {len(captures)} captures, {sum(c['seconds'] for c in captures):.3f} s: "
+        f"{json.dumps(captures)}; wall {wall:.2f} s (second run {wall2:.2f} s), isolated runs {iso_s:.1f} s")
+    log(f"  aggregate {json.dumps(summary['aggregate'])}")
+    log(f"  per-token latency {json.dumps(summary['per_token_latency_s'])}; admission stall "
+        f"{json.dumps(summary['admission_stall_s'])}; TTFT {json.dumps(summary['requests'])}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(counts=counts, tokens={i: t[:16] for i, t in served.items()}, agreement=agreement,
+                stop=dict(rid=stop_rid, token=stop, index=stop_at, served=len(served[stop_rid]),
+                          others_as_stop_free=others_as_free), kv_memory_bytes=kv,
+                captures=captures, pool_steps=steps, isolated_s=iso_s, second_wall_s=wall2,
+                **{k: summary[k] for k in ("aggregate", "per_token_latency_s", "admission_stall_s", "requests")})
+
+
+def _serve_sampling():
+    from duo_attention_tpu_torch import SamplingParams
+
+    return {1: SamplingParams(temperature=0.8, top_p=0.95, top_k=0, seed=1),
+            4: SamplingParams(temperature=0.8, top_p=0.95, top_k=50, seed=4),
+            3: SamplingParams(temperature=0.0)}
+
+
+def phase_serving_bench():
+    """evals/serving_bench.py at its defaults (8 slots, 8 prompts of 32,256
+    tokens, 256 new tokens each, bursts of 16, chunks of 4096, sparsity 0.5),
+    without its warm-up pass; then the B=8 pool step, greedy and sampled."""
+    import torch
+
+    from duo_attention_tpu_torch.evals import serving_bench
+
+    args = serving_bench.build_parser().parse_args(
+        ["--no-warmup-run", "--out-dir", os.path.join(REPO, "chiprun_out", "serving")])
+    t0 = time.perf_counter()
+    report, engine = serving_bench.run_bench_engine(args)
+    secs = time.perf_counter() - t0
+    agg = report["aggregate"]
+    require(agg["total_generated_tokens"] == args.slots * args.max_new,
+            f"the bench generated {agg['total_generated_tokens']} tokens, not {args.slots * args.max_new}")
+    require(all(r["generated"] == args.max_new for r in report["requests"]), "a bench request fell short")
+    log(f"  aggregate {json.dumps(agg)}")
+    log(f"  per-token latency {json.dumps(report['per_token_latency_s'])}; admission stall "
+        f"{json.dumps(report['admission_stall_s'])}")
+    log(f"  TTFT {json.dumps(report['requests'])}")
+    steps = _pool_steps(engine, max(b for b, _ in engine._graphs), f"B={args.slots}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, pool_steps=steps, **{k: v for k, v in report.items() if k != "trace"})
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1307,13 +1593,29 @@ def main():
             log(f"phase {phase + 1}: kernel path vs plain path, {fmt}")
             record["kernel_vs_plain_" + fmt] = phase_kernel_vs_plain(params, cfg, duo, kv_quant)
             phase += 2
+            t0 = time.perf_counter()
+            if kv_quant == "int4":
+                log("phase 8a: serving, W8A8KV4 (ServingEngine, 4 slots, 6 requests)")
+                record["serving_" + fmt] = phase_serving(params, cfg, duo, kv_quant, SERVE_LENS, SERVE_NEW,
+                                                         _serve_sampling())
+            else:  # while the bf16 weights are alive: a short run puts their kernels on a serving path
+                log("phase 8c: serving, bf16 (ServingEngine, 4 slots, 3 requests)")
+                record["serving_" + fmt] = phase_serving(params, cfg, duo, kv_quant, SERVE_LENS_BF16, 24,
+                                                         {1: _serve_sampling()[1]})
+            record["serving_" + fmt]["phase_s"] = time.perf_counter() - t0
+            log(f"  serving phase, {fmt}: {record['serving_' + fmt]['phase_s']:.1f} s")
             del params  # free this format's weights before the next one's are made
             torch.cuda.empty_cache()
+        log("phase 8b: serving bench (evals/serving_bench.py, W8A8KV4, defaults, no warm-up pass)")
+        t0 = time.perf_counter()
+        record["serving_bench"] = phase_serving_bench()
+        log(f"  serving bench phase: {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
     runs = {fmt: record["end_to_end_" + fmt]["counts"] for fmt, _, _ in formats}
+    runs.update({"serving_" + fmt: record["serving_" + fmt]["counts"] for fmt, _, _ in formats})
     line = []
     for name, cases in rec.results.items():
         if name not in REPLACES:

@@ -32,6 +32,7 @@ from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4, kv_memory_by
 from .config import PRESETS, DuoConfig, ModelConfig, RopeScaling
 from .engine import DuoEngine
 from .models.llama import init_params
+from .ops.sampling import SamplingParams
 from .ops.quant import init_params_w8a8, init_params_w8a8_random
 from .patterns import (
     load_attn_pattern,
@@ -39,6 +40,7 @@ from .patterns import (
     save_attn_pattern,
     sparsify_attention_heads,
 )
+from .serving import Request, ServingEngine
 
 __version__ = "0.1.0"
 
@@ -60,4 +62,7 @@ __all__ = [
     "init_params",
     "init_params_w8a8",
     "init_params_w8a8_random",
+    "SamplingParams",
+    "Request",
+    "ServingEngine",
 ]

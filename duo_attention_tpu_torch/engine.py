@@ -1,4 +1,4 @@
-"""Inference engine: chunked prefill, then greedy decode over the split cache.
+"""Inference engine: chunked prefill, then greedy or sampled decode over the split cache.
 
 Counterpart of duo_attention_tpu/engine.py's ``DuoEngine`` for the bf16 cache
 and, with ``kv_quant="int4"``, the INT4 full-head cache of the W8A8KV4
@@ -12,19 +12,29 @@ on the TPU, and is fixed for a whole ``decode_tokens`` call.
 On the card a decode step is captured once into a CUDA graph and replayed
 once per token, the counterpart of the JAX engine's device-side ``lax.scan``
 over a burst: the host issues two launches a step (the token's copy into the
-burst's output and the replay), not the step's ~1,800 (bf16) or ~3,650
-(W8A8KV4). There is one graph per (format, B, bucket), captured on the cache
-it decodes after an eager warm-up step that builds and loads every kernel;
-a new cache is captured anew. On the CPU the step runs eagerly, as
-``models.llama.forward_chunk``, which also stays the eager step on the card.
+burst's output and the replay), not the step's ~1,500-1,800 kernels. There is
+one graph per (format, B, bucket, sampled), captured on the cache it decodes
+after an eager warm-up step that builds and loads every kernel; a new cache
+is captured anew. ``capture_step`` captures any step closure that reads and
+writes only tensors (``serving.ServingEngine`` captures its pool step with
+it); a capture that fails raises, and nothing falls back to eager decode. On
+the CPU the step runs eagerly, as ``models.llama.forward_chunk``.
 
-Not ported yet: sampling (greedy only), meshes.
+Sampling (``ops/sampling.py``) draws from JAX's threefry stream with the key
+sequence of the JAX engine: ``key, sub = split(PRNGKey(seed))`` for the first
+token, one split per burst on the host side, and one per step inside the
+step. The sampled step reads its key, temperature, top-p and top-k from the
+graph's buffers and writes the advanced key back in place, so each replay
+draws anew.
+
+Not ported yet: meshes.
 """
 
 from __future__ import annotations
 
+import time
 import weakref
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +43,7 @@ from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4
 from .config import DuoConfig, ModelConfig
 from .models import llama
 from .ops import launches
+from .ops.sampling import prng_key, sample_tokens, split
 from .utils import resolve_device
 
 
@@ -41,6 +52,63 @@ def _next_bucket(n: int, lo: int = 512) -> int:
     while b < n:
         b *= 2
     return b
+
+
+class StepGraph:
+    """A captured step: ``graph`` replays its launches on the tensors it was
+    captured on, ``bufs`` the static tensors through which the caller feeds
+    and reads it, ``owner`` a weak reference to the cache it decodes,
+    ``delta`` each launch counter's movement in one step (``ops.launches``),
+    added on every replay, and ``seconds`` the capture's host time (the
+    warm-up step excluded)."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, bufs: tuple, owner, delta: list, seconds: float):
+        self.graph, self.bufs, self.owner, self.delta, self.seconds = graph, bufs, owner, delta, seconds
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.add(self.delta)
+
+
+_capture_streams = {}
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream every capture on ``device`` runs on, one per device
+    and shared by all engines: cuBLAS keeps a workspace for each stream it
+    has run on for the life of the process, so one stream makes one."""
+    dev = torch.device(device)
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    if dev not in _capture_streams:
+        _capture_streams[dev] = torch.cuda.Stream(dev)
+    return _capture_streams[dev]
+
+
+def capture_step(step: Callable[[], None], stream: torch.cuda.Stream, owner, bufs: tuple) -> StepGraph:
+    """Run ``step`` once eagerly on ``stream`` (it builds and loads every
+    kernel and makes the decode scratch outside the capture; it is a real
+    step, whose results the caller keeps), then capture it on the same
+    stream. ``step`` must read and write only device tensors that outlive the
+    graph (``bufs`` and ``owner``'s cache). A capture that fails raises."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        step()
+        graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        t0 = time.perf_counter()
+        # capture_begin/end rather than torch.cuda.graph(), whose gc.collect()
+        # and empty_cache() cost ~0.3 s a capture after a 16k-token prefill
+        graph.capture_begin()
+        try:
+            step()
+        finally:
+            graph.capture_end()
+        seconds = time.perf_counter() - t0
+        delta = [after - b for after, b in zip(launches.snapshot(), before)]
+        launches.add([-d for d in delta])  # the capture launched nothing
+    current.wait_stream(stream)
+    return StepGraph(graph, bufs, weakref.ref(owner), delta, seconds)
 
 
 class DuoEngine:
@@ -69,8 +137,7 @@ class DuoEngine:
         self.dtype = dtype
         # decode steps per host round trip (the stop-token check runs between bursts)
         self.decode_burst = max(int(decode_burst), 0)
-        self._graphs = {}  # (kv_quant, B, bucket) -> _DecodeGraph, on the card
-        self._capture_stream = None
+        self._graphs = {}  # (kv_quant, B, bucket, sampled) -> StepGraph, on the card
 
     def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
         init = init_cache_q4 if self.kv_quant == "int4" else init_cache
@@ -108,17 +175,18 @@ class DuoEngine:
             pos += n_valid
         return cache, logits
 
+    @torch.no_grad()
     def generate(self, input_ids: np.ndarray, max_new_tokens: int,
                  cache: Optional[DuoCache] = None, stop_token_ids: Optional[list] = None,
                  sampling=None) -> Tuple[np.ndarray, DuoCache]:
-        """Chunked prefill, then greedy decode.
+        """Chunked prefill, then decode.
 
-        sampling: None, or an object whose ``is_greedy`` is true; anything
-        else raises NotImplementedError (sampling is not ported yet).
-        Returns (generated ids [B, max_new_tokens] int32 host array, cache).
+        sampling: None or an ``ops.sampling.SamplingParams``; None or
+        temperature 0 decodes greedily, anything else samples with
+        temperature / top-p / top-k from ``PRNGKey(sampling.seed)``, as the
+        JAX engine does. Returns (generated ids [B, max_new_tokens] int32
+        host array, cache).
         """
-        if sampling is not None and not getattr(sampling, "is_greedy", False):
-            raise NotImplementedError("only greedy decoding is ported so far")
         input_ids = np.asarray(input_ids)
         if cache is None:
             total = input_ids.shape[1] + max_new_tokens
@@ -126,29 +194,46 @@ class DuoEngine:
                 raise ValueError(f"prompt+generation = {total} tokens exceeds max_cache_size "
                                  f"= {self.duo.max_cache_size}")
         cache, logits = self.prefill(input_ids, cache)
-        first_token = torch.argmax(logits, dim=-1)
-        tokens, cache = self.decode_tokens(cache, first_token, max_new_tokens,
-                                           length=input_ids.shape[1], stop_token_ids=stop_token_ids)
+        sample_args = None
+        if sampling is not None and not sampling.is_greedy:
+            B = input_ids.shape[0]
+            vec = lambda v, dt: torch.full((B,), v, dtype=dt, device=self.device)  # noqa: E731
+            temp, top_p = vec(sampling.temperature, torch.float32), vec(sampling.top_p, torch.float32)
+            top_k = vec(sampling.top_k, torch.int32)
+            key, sub = split(prng_key(sampling.seed, self.device))
+            first_token = sample_tokens(logits.float(), sub, temp, top_p, top_k)
+            sample_args = (key, temp, top_p, top_k)
+        else:
+            first_token = torch.argmax(logits, dim=-1)
+        tokens, cache = self.decode_tokens(cache, first_token, max_new_tokens, length=input_ids.shape[1],
+                                           sample_args=sample_args, stop_token_ids=stop_token_ids)
         if stop_token_ids:
             tokens = _truncate_at_stop(tokens, stop_token_ids)
         return tokens, cache
 
     def decode_tokens(self, cache: DuoCache, first_token: torch.Tensor, max_new_tokens: int,
-                      length: int, stop_token_ids: Optional[list] = None
+                      length: int, sample_args=None, stop_token_ids: Optional[list] = None
                       ) -> Tuple[np.ndarray, DuoCache]:
         """Decode ``max_new_tokens`` steps in bursts (``_burst_plan``).
 
         ``length`` is the host-known token count in the cache; first_token
-        [B] is fed at that position. With ``stop_token_ids``, decoding stops
-        after the first burst in which every row has emitted a stop token and
-        the output is padded with the first stop id. Returns (tokens
-        [B, max_new_tokens] host array, cache)."""
+        [B] is fed at that position. ``sample_args``: None (greedy) or (key
+        [2], temperature [B], top_p [B], top_k [B]) device tensors; each
+        burst splits ``key`` and hands the subkey to its steps. With
+        ``stop_token_ids``, decoding stops after the first burst in which
+        every row has emitted a stop token and the output is padded with the
+        first stop id. Returns (tokens [B, max_new_tokens] host array, cache)."""
         plan = _burst_plan(self.decode_burst, max_new_tokens)
         bucket = self.bucket_for(length + sum(plan))
         out = []
         token = first_token.to(self.device)
+        key = None if sample_args is None else sample_args[0]
         for steps in plan:
-            tokens, cache, token = self._decode_burst(cache, token, steps, bucket)
+            samp = None
+            if sample_args is not None:
+                key, sub = split(key)
+                samp = (sub.clone(), *sample_args[1:])
+            tokens, cache, token = self._decode_burst(cache, token, steps, bucket, samp)
             out.append(tokens)
             if stop_token_ids:
                 acc = np.concatenate(out, axis=1)
@@ -162,98 +247,74 @@ class DuoEngine:
         return tokens[:, :max_new_tokens], cache
 
     def decode_step(self, cache: DuoCache, token: torch.Tensor, length: int):
-        """One decode step; ``length`` is the host-known count before it.
-        Returns (the predicted next token [B], cache)."""
+        """One greedy decode step; ``length`` is the host-known count before
+        it. Returns (the predicted next token [B], cache)."""
         _, cache, nxt = self._decode_burst(cache, token.to(self.device), 1, self.bucket_for(length + 1))
         return nxt, cache
 
-    def _step(self, cache, token: torch.Tensor, bucket: int) -> torch.Tensor:
-        """One greedy decode step fed ``token`` [B]; returns the next token [B]."""
+    def _next_token(self, cache, token: torch.Tensor, bucket: int, samp=None) -> torch.Tensor:
+        """One decode step fed ``token`` [B]; returns the next token [B]: the
+        argmax, or with ``samp`` = (key [2], temperature, top_p, top_k) a draw
+        on a split of ``key``, which advances in place."""
         hidden, _ = llama.forward_chunk(self.params, self.cfg, self.duo, cache, token[:, None], 1,
                                         full_bucket=bucket)
-        return torch.argmax(llama.logits_at(self.params, hidden, 0), dim=-1)
+        logits = llama.logits_at(self.params, hidden, 0)
+        if samp is None:
+            return torch.argmax(logits, dim=-1)
+        key, temp, top_p, top_k = samp
+        both = split(key)
+        nxt = sample_tokens(logits.float(), both[1], temp, top_p, top_k)
+        key.copy_(both[0])
+        return nxt
 
     @torch.no_grad()
-    def _decode_burst(self, cache: DuoCache, token: torch.Tensor, steps: int, bucket: int):
-        """``steps`` greedy steps. Emits the token fed at each step, so the
+    def _decode_burst(self, cache: DuoCache, token: torch.Tensor, steps: int, bucket: int, samp=None):
+        """``steps`` decode steps. Emits the token fed at each step, so the
         output starts with ``token``; also returns the token after the last
-        one emitted, so bursts chain. Decoding past max_cache_size clamps the
-        full-cache writes, so the results are garbage: the whole output is
-        then poisoned with -1."""
+        one emitted, so bursts chain. ``samp``: None (greedy) or (key [2],
+        temperature, top_p, top_k), the burst's own key. Decoding past max_cache_size clamps the full-cache writes, so the
+        results are garbage: the whole output is then poisoned with -1."""
         if self.device.type == "cuda":
-            tokens, token = self._graph_burst(cache, token, steps, bucket)
+            tokens, token = self._graph_burst(cache, token, steps, bucket, samp)
         else:
             emitted = []
             for _ in range(steps):
                 emitted.append(token)
-                token = self._step(cache, token, bucket)
+                token = self._next_token(cache, token, bucket, samp)
             tokens = torch.stack(emitted, dim=1) if emitted else token.new_empty((token.shape[0], 0))
         overrun = (cache.length > self.duo.max_cache_size).any()
         tokens = torch.where(overrun, torch.full_like(tokens, -1), tokens)
         return tokens.cpu().numpy().astype(np.int32), cache, token
 
-    def _graph_burst(self, cache, token: torch.Tensor, steps: int, bucket: int):
+    def _graph_burst(self, cache, token: torch.Tensor, steps: int, bucket: int, samp=None):
         """The burst on the card: per step, one copy puts the token fed into
         the output, then the captured step is replayed, which writes the next
-        token into the graph's token buffer. Without a graph for this cache,
-        the first step runs eagerly and the step is captured after it."""
+        token into the graph's token buffer (and, sampled, advances the
+        graph's key). Without a graph for this cache, the first step runs
+        eagerly and the step is captured after it."""
         out = torch.empty((token.shape[0], steps), dtype=torch.long, device=self.device)
         if steps == 0:
             return out, token
-        key = (self.kv_quant, token.shape[0], bucket)
+        key = (self.kv_quant, token.shape[0], bucket, samp is not None)
+        inputs = (token.to(torch.long), *(samp or ()))
         graph = self._graphs.get(key)
         first = 0
-        if graph is None or graph.cache() is not cache:  # none yet, or captured on another cache
+        if graph is None or graph.owner() is not cache:  # none yet, or captured on another cache
             self._graphs.pop(key, None)  # frees the old graph's memory pool
-            tok = token.to(torch.long).clone()
-            out[:, 0].copy_(tok)
-            graph = self._graphs[key] = self._capture(cache, tok, bucket)
+            bufs = tuple(t.clone() for t in inputs)
+            out[:, 0].copy_(bufs[0])
+            tok, samp_bufs = bufs[0], (bufs[1:] or None)
+            graph = self._graphs[key] = capture_step(
+                lambda: tok.copy_(self._next_token(cache, tok, bucket, samp_bufs)),
+                capture_stream(self.device), cache, bufs)
             first = 1
         else:
-            graph.tok.copy_(token)
+            for buf, t in zip(graph.bufs, inputs):
+                buf.copy_(t)
         for i in range(first, steps):
-            out[:, i].copy_(graph.tok)
+            out[:, i].copy_(graph.bufs[0])
             graph.replay()
-        return out, graph.tok.clone()
-
-    def _capture(self, cache, tok: torch.Tensor, bucket: int) -> "_DecodeGraph":
-        """An eager warm-up step (it builds and loads every kernel and makes
-        the decode scratch outside the capture; it is the burst's first step),
-        then the step captured on the same side stream. A capture that fails
-        raises."""
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        stream = self._capture_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            tok.copy_(self._step(cache, tok, bucket))
-            graph = torch.cuda.CUDAGraph()
-            before = launches.snapshot()
-            # capture_begin/end rather than torch.cuda.graph(), whose gc.collect()
-            # and empty_cache() cost ~0.3 s a capture after a 16k-token prefill
-            graph.capture_begin()
-            try:
-                tok.copy_(self._step(cache, tok, bucket))
-            finally:
-                graph.capture_end()
-            delta = [after - b for after, b in zip(launches.snapshot(), before)]
-            launches.add([-d for d in delta])  # the capture launched nothing
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        return _DecodeGraph(graph, tok, weakref.ref(cache), delta)
-
-
-class _DecodeGraph:
-    """A captured decode step: ``tok`` [B] is the token it is fed, which the
-    step overwrites with its argmax; ``cache`` a weak reference to the cache
-    whose buffers it was captured on; ``delta`` each launch counter's
-    movement in one step (``ops.launches``), added on every replay."""
-
-    def __init__(self, graph: torch.cuda.CUDAGraph, tok: torch.Tensor, cache: weakref.ref, delta: list):
-        self.graph, self.tok, self.cache, self.delta = graph, tok, cache, delta
-
-    def replay(self) -> None:
-        self.graph.replay()
-        launches.add(self.delta)
+        return out, graph.bufs[0].clone()
 
 
 def _burst_plan(burst: int, n: int) -> list:

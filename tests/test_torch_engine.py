@@ -113,17 +113,6 @@ def test_overrun_poison():
         eng.generate(ids, max_new_tokens=12)
 
 
-def test_sampling_is_not_ported():
-    tcfg, _, tp, _ = models("tiny-llama", 6)
-    tduo, _ = duos(tcfg, 1)
-
-    class Sampling:
-        is_greedy = False
-
-    with pytest.raises(NotImplementedError):
-        port_engine(tcfg, tp, tduo).generate(ids_for(tcfg, 1, 8, 0), 2, sampling=Sampling())
-
-
 def test_entry_points_default_to_the_card(monkeypatch):
     """No device= means the card: with no GPU present, each entry point
     raises instead of falling back to the CPU."""

@@ -1,5 +1,6 @@
 """The port stands alone: no module of duo_attention_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package (whose __init__ pulls in jax).
+chip_smoke.py, imports jax, the JAX package (whose __init__ pulls in jax),
+ml_dtypes or the repo's bench.py.
 
 The imports are read with ``ast``: a text search would also match the
 port's own name, which starts with the JAX package's.
@@ -13,7 +14,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted(p.relative_to(REPO).as_posix()
                for p in (REPO / "duo_attention_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "duo_attention_tpu")
+# ml_dtypes comes with jax, and bench.py imports both: neither is on the card machine
+FORBIDDEN = ("jax", "jaxlib", "duo_attention_tpu", "ml_dtypes", "bench")
 
 
 def _forbidden(module: str) -> bool:

@@ -20,7 +20,12 @@ product and its model shapes at M = 17 and 4096, the fused small-M linear
 weights, ragged widths, K = 14,336 and row-strided inputs, fewer blocks
 than tiles and the longest K its ring takes, as one launch that a CUDA
 graph replays, the engine's captured decode step against the
-eager loop in both formats, and the wrappers' refusals.
+eager loop in both formats (greedy and sampled), the serving pool's
+captured steps against its eager step and a freed slot past the bucket in
+both formats, sampling under capture, the serving pool's shapes (the
+streaming decode and the streaming write on its decode-only buffers at B = 4
+and 8, the INT4 decode and pair write at B = 8 with ragged lengths near
+32,500), and the wrappers' refusals.
 """
 
 import numpy as np
@@ -333,6 +338,8 @@ def _q4_cache(gen, B, Hkv, T):
     (1, 16, 4, 32768, 300, 32768),  # a sequence far shorter than the bucket: 31 of 32 splits empty
     (2, 24, 6, 32768, [32767, 0], 0),  # bucket 0 (the whole buffer); one key in b = 1
     (1, 20, 5, 16384, 16000, 16384),  # the main path's hf = 5: splits of two tiles
+    # the serving bench's B = 8 pool: ragged lengths near 32,500 beside short rows
+    (8, 16, 4, 32768, [32500, 32511, 32256, 32301, 5, 300, 16001, 32767], 32768),
 ])
 def test_full_cache_attention_q4_decode_kernel(dev, B, Hq, Hkv, T, cs, bucket):
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -457,18 +464,22 @@ def test_write_q4_token_kernel(dev, start):
     assert torch.equal(bs.view(torch.int16), ref_s.view(torch.int16))
 
 
-@pytest.mark.parametrize("start", [0, 1, 1022, 1023, 1500, [3, 0, 1022], [-4, 2000, 17], [8, 9, 9]])
-def test_write_q4_token_pair_kernel_reads_strided_rows(dev, start):
-    """The decode step's INT4 write: K and V rows of the first 2 of 4 heads,
+@pytest.mark.parametrize("B,H,T2,start", [
+    *((3, 2, 512, start) for start in [0, 1, 1022, 1023, 1500, [3, 0, 1022], [-4, 2000, 17], [8, 9, 9]]),
+    # the serving bench's B = 8 pool (max_cache_size 32768): ragged positions near 32,500 beside short rows
+    (8, 4, 16384, [32500, 32511, 32256, 32301, 5, 300, 16001, 32767]),
+])
+def test_write_q4_token_pair_kernel_reads_strided_rows(dev, B, H, T2, start):
+    """The decode step's INT4 write: K and V rows of the first H of 2H heads,
     read in place as ``transpose`` views of [B, 1, Hkv, D] projections, in
     one launch; bitwise equal to the plain version (bytes and bf16 scales)."""
     gen = torch.Generator(device=dev).manual_seed(17)
-    B, H, T2, D = 3, 2, 512, 128
+    D = 128
     bufs = [torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8),
             randn(gen, B, H, 4, T2)]
     bufs += [torch.randint(0, 256, (B, H, T2, D), generator=gen, device=dev, dtype=torch.uint8),
              randn(gen, B, H, 4, T2)]
-    kproj, vproj = randn(gen, B, 1, 4, D, mul=3.0), randn(gen, B, 1, 4, D, mul=3.0)
+    kproj, vproj = randn(gen, B, 1, 2 * H, D, mul=3.0), randn(gen, B, 1, 2 * H, D, mul=3.0)
     kproj[0, 0, 1] = 1.25  # a constant row: scale is the 1e-8 floor
     krow, vrow = kproj[:, :, :H].transpose(1, 2), vproj[:, :, :H].transpose(1, 2)
     assert not krow.is_contiguous()
@@ -676,16 +687,21 @@ def test_w8a8_small_group_is_one_launch_and_replays(dev):
         assert all(torch.equal(g, w) for g, w in zip(outs, want))
 
 
-@pytest.mark.parametrize("start", [16000, [5, 64, 4700, 32000], [0, 63, 4607, 4608], [-1, 2, 9000, 70]])
-def test_write_streaming_rows_kernel_reads_strided_rows(dev, start):
+@pytest.mark.parametrize("B,rows,R,start", [
+    *((4, 128, 4608, start) for start in [16000, [5, 64, 4700, 32000], [0, 63, 4607, 4608], [-1, 2, 9000, 70]]),
+    # the serving pool's decode-only buffers (sink rows 72, R = 384)
+    (4, 72, 384, [63, 383, 384, 32511]),
+    (8, 72, 384, [10, 64, 383, 384, 767, 768, 32511, 5000]),
+])
+def test_write_streaming_rows_kernel_reads_strided_rows(dev, B, rows, R, start):
     """The decode step's streaming write: K and V rows of the last 4 of 8 KV
     heads, read in place as ``transpose`` views of [B, 1, Hkv, D]
-    projections, in one launch at B = 4 (mixed starts, the ring's wrap at R
-    = 4608, starts before the sink is full); bitwise equal to the plain
-    version."""
+    projections, in one launch at B = 4 and 8 (mixed starts, the ring's wrap
+    at R = 4608 and at the pool's 384, starts before the sink is full);
+    bitwise equal to the plain version."""
     gen = torch.Generator(device=dev).manual_seed(13)
-    B, H, HKV, sink, R = 4, 4, 8, 64, 4608
-    bufs = [randn(gen, B, H, sink + 64, 128), randn(gen, B, H, sink + 64, 128),
+    H, HKV, sink = 4, 8, 64
+    bufs = [randn(gen, B, H, rows, 128), randn(gen, B, H, rows, 128),
             randn(gen, B, H, R, 128), randn(gen, B, H, R, 128)]
     refs = [b.clone() for b in bufs]
     kproj, vproj = randn(gen, B, 1, HKV, 128), randn(gen, B, 1, HKV, 128)
@@ -747,3 +763,194 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x8 = torch.zeros(4, 32, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):  # float16 output
         gemm.w8a8_matmul(x8, torch.ones(4, 1, device=dev), x8, torch.ones(4, device=dev), torch.float16)
+
+
+# --- serving: the pool step from a graph, sampling inside it -----------------
+
+
+SERVE_CFG = ModelConfig(vocab_size=2048, hidden_size=1024, intermediate_size=2048, num_layers=3,
+                        num_heads=16, num_kv_heads=4, head_dim=128, rope_theta=500000.0)
+SERVE_DUO = DuoConfig(sink_size=64, recent_size=256, num_full_kv_heads=(2, 4, 1),
+                      max_cache_size=4096, prefill_chunk_size=512)
+
+
+def _serve_params(kv_quant):
+    if kv_quant == "int4":
+        return quant.init_params_w8a8_random(SERVE_CFG, seed=0, device="cuda", quantize_embeds=True)
+    return llama.init_params(SERVE_CFG, seed=0, device="cuda")
+
+
+class _EagerStep:
+    """Stands in for a captured pool step: ``replay`` runs the step eagerly."""
+
+    def __init__(self, engine, bucket, sample):
+        self.engine, self.bucket, self.sample = engine, bucket, sample
+
+    def replay(self):
+        with torch.no_grad():
+            self.engine._pool_step(self.bucket, self.sample)
+
+
+def _eager_serving(params, kv_quant, **kw):
+    from duo_attention_tpu_torch import ServingEngine
+
+    eng = ServingEngine(params, SERVE_CFG, SERVE_DUO, kv_quant=kv_quant, device="cuda", **kw)
+    eng.pool_graph = lambda bucket, sample: (_EagerStep(eng, bucket, sample), False)
+    return eng
+
+
+def _serve(eng, requests):
+    from duo_attention_tpu_torch import Request
+
+    for rid, (plen, n, sp) in requests.items():
+        prompt = np.random.default_rng(rid).integers(0, SERVE_CFG.vocab_size, plen)
+        eng.submit(Request(rid=rid, prompt_ids=prompt, max_new_tokens=n, sampling=sp))
+    return {r.rid: r.generated for r in eng.run()}
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_serving_pool_graph_equals_the_eager_pool_step(dev, kv_quant):
+    """The ServingEngine's pool step replayed from its graphs (greedy and
+    sampled, B = 3 with [B] lengths, slots reused, a request admitted into a
+    freed slot after the graphs were captured) gives the eager pool step's
+    tokens and leaves the same pool cache, bitwise."""
+    from duo_attention_tpu_torch import SamplingParams, ServingEngine
+
+    params = _serve_params(kv_quant)
+    sp = SamplingParams(temperature=0.9, top_p=0.95, top_k=40, seed=5)
+    first = {0: (700, 12, None), 1: (150, 20, sp), 2: (1300, 9, None), 3: (60, 14, None)}
+    later = {4: (900, 10, SamplingParams(temperature=1.1, seed=6)), 5: (40, 6, None)}
+    graph = ServingEngine(params, SERVE_CFG, SERVE_DUO, max_batch_size=3, kv_quant=kv_quant, decode_burst=4,
+                          device="cuda")
+    eager = _eager_serving(params, kv_quant, max_batch_size=3, decode_burst=4)
+    assert _serve(graph, first) == _serve(eager, first)
+    captured = dict(graph._graphs)
+    assert any(s for _, s in captured) and any(not s for _, s in captured)
+    assert _serve(graph, later) == _serve(eager, later)
+    for key, g in captured.items():  # the splices wrote in place: the graphs were replayed, not captured anew
+        assert graph._graphs[key] is g
+    for name in graph.cache.BUFFERS:
+        for a, b in zip(getattr(graph.cache, name), getattr(eager.cache, name)):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), name
+    assert torch.equal(graph.cache.length, eager.cache.length)
+    assert torch.equal(graph.samp_keys, eager.samp_keys)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_serving_freed_slot_past_the_bucket_leaves_live_rows_unchanged(dev, kv_quant):
+    """A request finishes at admission and frees its slot with a device
+    length of 3000; the live row then decodes at bucket 512, with the freed
+    row inactive and past the bucket. The live row's tokens equal a pool in
+    which the other slot was never used."""
+    from duo_attention_tpu_torch import ServingEngine
+
+    params = _serve_params(kv_quant)
+    runs = []
+    for requests in ({0: (100, 40, None), 1: (3000, 1, None)}, {0: (100, 40, None)}):
+        eng = ServingEngine(params, SERVE_CFG, SERVE_DUO, max_batch_size=2, kv_quant=kv_quant, decode_burst=8,
+                            device="cuda")
+        runs.append(_serve(eng, requests)[0])
+        if len(requests) == 2:
+            assert int(eng.cache.length[1]) == 3000 and max(b for b, _ in eng._graphs) == 512
+    assert runs[0] == runs[1]
+
+
+def test_sampled_step_captures_reproduces_and_draws_anew(dev):
+    """``sample_tokens_rowkeys`` captured into a CUDA graph on static logits
+    and keys: each replay advances the keys in place and draws anew; the
+    keys put back to the seed's reproduce the first draw; the draws and keys
+    equal the same function run eagerly on the CPU."""
+    from duo_attention_tpu_torch.ops import sampling
+
+    B, V = 4, 128256
+    gen = torch.Generator(device=dev).manual_seed(21)
+    logits = torch.randn((B, V), generator=gen, device=dev) * 0.1  # flat: draws spread
+    seed_keys = sampling.split(sampling.prng_key(3, dev), B)
+    keys = seed_keys.clone()
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0], device=dev)
+    top_p = torch.tensor([1.0, 0.95, 0.9, 1.0], device=dev)
+    top_k = torch.tensor([0, 0, 1000, 50], dtype=torch.int32, device=dev)
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
+
+    def step():
+        nxt, nk = sampling.sample_tokens_rowkeys(logits, keys, temp, top_p, top_k)
+        tok.copy_(nxt)
+        keys.copy_(nk)
+
+    step()  # builds everything outside the capture
+    keys.copy_(seed_keys)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin()
+        step()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    draws, key_states = [], []
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        draws.append(tok.clone())
+        key_states.append(keys.clone())
+    assert not torch.equal(draws[0], draws[1]) and not torch.equal(draws[1], draws[2])
+    assert not torch.equal(key_states[0], key_states[1])
+    keys.copy_(seed_keys)
+    g.replay()
+    assert torch.equal(tok, draws[0])
+    # the CPU's eager run: the same keys bitwise, the same tokens
+    cpu_keys = seed_keys.cpu()
+    for i in range(3):
+        want, cpu_keys = sampling.sample_tokens_rowkeys(logits.cpu(), cpu_keys, temp.cpu(), top_p.cpu(), top_k.cpu())
+        assert torch.equal(cpu_keys, key_states[i].cpu())
+        assert torch.equal(want, draws[i].cpu())
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_engine_sampled_graph_equals_the_eager_loop(dev, kv_quant):
+    """DuoEngine.generate(sampling=...) on the card (bursts of 8: the first
+    step eager, then the captured sampled step) gives the tokens of the same
+    key sequence run as a loop of eager steps, and a seed reproduces them."""
+    from duo_attention_tpu_torch import SamplingParams
+    from duo_attention_tpu_torch.ops import sampling
+
+    params = _serve_params(kv_quant)
+    engine = DuoEngine(params, SERVE_CFG, SERVE_DUO, device="cuda", kv_quant=kv_quant, decode_burst=8)
+    ids = np.random.default_rng(3).integers(0, SERVE_CFG.vocab_size, (1, 900))
+    sp = SamplingParams(temperature=1.0, top_p=0.95, seed=9)
+    steps = 20
+    tokens, _ = engine.generate(ids, steps, sampling=sp)
+    again, _ = engine.generate(ids, steps, sampling=sp)
+    assert np.array_equal(tokens, again)
+
+    cache, logits = engine.prefill(ids)
+    one = lambda v, dt: torch.full((1,), v, dtype=dt, device=dev)  # noqa: E731
+    temp, top_p, top_k = one(1.0, torch.float32), one(0.95, torch.float32), one(0, torch.int32)
+    key, sub = sampling.split(sampling.prng_key(9, dev))
+    token = sampling.sample_tokens(logits.float(), sub, temp, top_p, top_k)
+    bucket = engine.bucket_for(900 + steps)
+    eager = []
+    with torch.no_grad():
+        for burst in (8, 8, 4):
+            key, sub = sampling.split(key)
+            sub = sub.clone()
+            for _ in range(burst):
+                eager.append(int(token[0]))
+                token = engine._next_token(cache, token, bucket, (sub, temp, top_p, top_k))
+    assert tokens[0].tolist() == eager
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_streaming_decode_at_the_pool_shapes(dev, B):
+    """The streaming decode over the serving pool's decode-only buffers (sink
+    rows 72, ring R = 384 at sink 64 / recent 256) at [B] lengths, some past
+    the ring's wrap and one before the sink is full."""
+    gen = torch.Generator(device=dev).manual_seed(30 + B)
+    Hs, G = 4, 4
+    q = randn(gen, B, 1, Hs * G, 128, mul=Q_PEAK)
+    bufs = [randn(gen, B, Hs, 72, 128), randn(gen, B, Hs, 72, 128),
+            randn(gen, B, Hs, 384, 128), randn(gen, B, Hs, 384, 128)]
+    cs = torch.tensor([16000, 10, 383, 384, 32511, 700, 65, 5000][:B], dtype=torch.int32, device=dev)
+    got = flash.streaming_cache_attention(q, *bufs, cs, cs + 1, 64, 256)
+    want = flash.streaming_cache_attention_plain(q, *bufs, cs, cs + 1, 64, 256)
+    assert_bf16_close(got, want)
