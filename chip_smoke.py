@@ -76,6 +76,31 @@ result):
      8b: evals/serving_bench.py at its defaults (8 slots, 8 prompts of 32,256
         tokens, 256 new tokens each), without its warm-up pass; requires every
         token generated, then times the B = 8 pool step, greedy and sampled.
+  9. the eval stack, after every earlier format's weights are freed: the
+     constructed retrieval circuit grafted into the 8B geometry
+     (evals/niah.py::build_model("constructed-8b"): W8A8, built on the card),
+     artifacts/niah_8b/pattern at sparsity 0.5, reordered, INT4 cache in bf16,
+     sink 64, recent 256, single_bucket engines:
+     9a NIAHTester, bucket 131,200 (the smallest multiple of 128 at or above
+        131,072 + 8), chunk 4096, the CLI's needle (_NAMES[7], _CODE_WORDS[9:12]),
+        8 generated tokens: ctx 32,768 at 9 depths with the trained and with
+        the inverted pattern, one 131,072 cell and one 32,768 cell in
+        simulation mode (16 tokens), trained; then the same 32k cell in a
+        bucket of 32,896 (TTFT and steady decode in both buckets: what the
+        keys past the live length cost). Requires word overlap 1.0 in every
+        trained cell, a mean <= 0.25 over the inverted interior depths, and a
+        launch of kernels 2 and 4-7; prints the grid, each cell's latency and
+        prefill time, the 131k cell's TTFT, ms/token and KV bytes;
+     9b longbench.predict_task and score_file on trec and lsht (8 records
+        each), with scripts/run_longbench_tpu.sh's settings (prompt 8000,
+        cache 16384, chunk 2048, 16 simulated tokens, stop at "."), trained
+        (each >= 87.5) and inverted (each <= 25);
+     9c evals/efficiency.py at the 8B geometry (random int8 weights, 32
+        layers) at 32k, sparsity 0.0 and 0.5: bench_prefill (median of 3),
+        bench_decode (64 steps, best of 3), bench_serving (B = 8); every
+        cache's bytes must equal their reckoning from the shapes, and the
+        serving pool's at 0.5 must be below 0.0's. Prints the ratios.
+     Each sub-phase's seconds are printed; its launches join the kernels line.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -107,6 +132,20 @@ Q_PEAK = 4.0  # phase 3 queries are this many times larger than the keys
 SERVE_SLOTS, SERVE_BURST, SERVE_NEW = 4, 16, 64
 SERVE_LENS = (16000, 3000, 9000, 500, 12000, 6000)
 SERVE_LENS_BF16 = (5000, 1200, 300)
+# Phase 9, the eval stack: NIAH at 32k over 9 depths (8 generated tokens, the CLI's budget for a
+# 3-word answer), one 131k cell and one 32k cell in simulation mode, all in a single bucket of
+# the smallest max_cache_size the cache accepts (a multiple of 128) at or above 131,080; one
+# 32k cell in a bucket just above 32k for the cost of the dead keys; LongBench as
+# scripts/run_longbench_tpu.sh runs it; efficiency at 32k, every head full and half of them.
+EVAL_CTX, NIAH_LONG_CTX, EVAL_DEPTHS, EVAL_GEN, EVAL_SIM, EVAL_STEADY_STEPS = 32768, 131072, 9, 8, 16, 64
+NIAH_MAX_CACHE = -(-(NIAH_LONG_CTX + EVAL_GEN) // 128) * 128
+NIAH_SMALL_CACHE = -(-(EVAL_CTX + EVAL_GEN) // 128) * 128
+LB_TASKS, LB_PROMPT, LB_MAX_CACHE, LB_CHUNK, LB_SIM = ("trec", "lsht"), 8000, 16384, 2048, 16
+EFF_SPARSITIES, EFF_BATCH = (0.0, 0.5), 8
+# the kernels every eval run must launch: rows 2 and 4-7 of the TPU kernel table
+EVAL_KERNELS = ("streaming_cache_attention.prefill", "streaming_cache_attention.decode", "write_streaming_rows",
+                "write_q4_token", "full_cache_attention_q4.prefill", "full_cache_attention_q4.decode",
+                "w8a8_matmul.tiled", "w8a8_matmul.small")
 NEAR_TIE = 0.25  # top-2 logit gap: about twice phase 7's largest |dlogit| on the H100 (0.1199)
 # the pallas_call each kernel replaces
 REPLACES = {
@@ -1544,6 +1583,305 @@ def phase_serving_bench():
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the eval stack at full width (the constructed circuit in the 8B geometry)
+# ---------------------------------------------------------------------------
+
+
+class _EngineClock:
+    """Times a DuoEngine's prefill calls (each through a synchronize), as
+    generate and the NIAH harness make them, and keeps the cache its last
+    decode_tokens call returned."""
+
+    def __init__(self, engine):
+        import torch
+
+        self.prefill_s, self.cache = [], None
+        prefill, decode = engine.prefill, engine.decode_tokens
+
+        def timed_prefill(*a, **k):
+            t0 = time.perf_counter()
+            out = prefill(*a, **k)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            return out
+
+        def kept_decode(*a, **k):
+            tokens, self.cache = decode(*a, **k)
+            return tokens, self.cache
+
+        engine.prefill, engine.decode_tokens = timed_prefill, kept_decode
+
+
+def _steady_decode(engine, clock, steps=EVAL_STEADY_STEPS):
+    """(ms/token of ``steps`` more greedy tokens on the cache of the clock's
+    last decode, its captured step replayed once a token; the prompt tokens
+    that cache held). Frees the cache."""
+    import torch
+
+    length = int(clock.cache.length)
+    token = torch.zeros((1,), dtype=torch.long, device="cuda")
+    t0 = time.perf_counter()
+    tokens, _ = engine.decode_tokens(clock.cache, token, steps, length=length)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    require(((tokens >= 0) & (tokens < engine.cfg.vocab_size)).all(), "steady decode overran the cache")
+    clock.cache = None
+    return ms, length - EVAL_GEN
+
+
+def _niah_engine(params, cfg, nf, sink, recent, max_cache):
+    import torch
+
+    from duo_attention_tpu_torch import DuoConfig, DuoEngine
+
+    duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=nf, max_cache_size=max_cache,
+                    prefill_chunk_size=CHUNK)
+    engine = DuoEngine(params, cfg, duo, dtype=torch.bfloat16, device="cuda", kv_quant="int4", single_bucket=True)
+    return engine, _EngineClock(engine)
+
+
+def _fresh_dir(*parts):
+    import shutil
+
+    path = os.path.join(REPO, "chiprun_out", "phase9", *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def phase_eval_niah(base, cfg, needle, heads, sink, recent):
+    """9a: the NIAH grid through NIAHTester on the constructed 8B graft in
+    W8A8KV4: 32k at EVAL_DEPTHS depths with the trained pattern and with
+    the inverted one, one 131k cell and one simulation-mode 32k cell
+    (trained). Also one 32k cell on an engine whose single bucket is just
+    above 32k: the prefill and decode cost of the dead keys past the live
+    length in the 131k bucket."""
+    import torch
+
+    from duo_attention_tpu_torch import kv_memory_bytes
+    from duo_attention_tpu_torch.evals.niah import NIAHConfig, NIAHTester
+    from duo_attention_tpu_torch.models.convert import reorder_params
+    from duo_attention_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer("word")
+    depths = list(np.linspace(0, 100, EVAL_DEPTHS))
+    out = dict(cells={})
+
+    def tester(engine, name, sim=0):
+        return NIAHTester(engine, tok, NIAHConfig(
+            context_lengths=[EVAL_CTX], depth_percents=depths, gen_tokens=EVAL_GEN, simulation_tokens=sim,
+            output_dir=_fresh_dir("niah", name), resume=False, **needle))
+
+    reset_counts()
+    for name, pattern in (("trained", heads), ("inverted", 1.0 - heads)):
+        params, nf = reorder_params(base, cfg, pattern)
+        engine, clock = _niah_engine(params, cfg, nf, sink, recent, NIAH_MAX_CACHE)
+        t0 = time.perf_counter()
+        cells = tester(engine, name).run()
+        for c, ttft in zip(cells, clock.prefill_s):
+            c["ttft_s"] = ttft
+            log(f"  {name} ctx {c['context_length']} depth {c['depth_percent']:5.1f}%: overlap "
+                f"{c['word_overlap']:.2f} score {c['score']:.2f} response {c['response']!r} latency "
+                f"{c['latency_s']:.3f} s (prefill {ttft:.3f} s)")
+        out["cells"][name] = cells
+        out[name + "_grid_s"] = time.perf_counter() - t0
+        if name == "trained":
+            # the cache of the last cell (32k): steady decode at 32k in the 131k bucket
+            ms, tokens = _steady_decode(engine, clock)
+            live = dict(ttft_s=float(np.median(clock.prefill_s)), decode_ms=ms, prompt_tokens=tokens)
+            clock.prefill_s.clear()
+            t0 = time.perf_counter()
+            long_cell = tester(engine, "long").run_cell(NIAH_LONG_CTX, 50.0)
+            long_cell.update(ttft_s=clock.prefill_s[-1], kv_bytes=kv_memory_bytes(clock.cache))
+            long_cell["decode_ms"], long_cell["prompt_tokens"] = _steady_decode(engine, clock)
+            out["long_cell"], out["long_s"] = long_cell, time.perf_counter() - t0
+            log(f"  trained ctx {NIAH_LONG_CTX} ({long_cell['prompt_tokens']} prompt tokens) depth 50%: overlap "
+                f"{long_cell['word_overlap']:.2f} response "
+                f"{long_cell['response']!r}; TTFT {long_cell['ttft_s']:.3f} s, steady decode "
+                f"{long_cell['decode_ms']:.3f} ms/token, KV {long_cell['kv_bytes'] / 2**30:.3f} GiB, latency "
+                f"{long_cell['latency_s']:.3f} s")
+            sim_cell = tester(engine, "simulation", sim=EVAL_SIM).run_cell(EVAL_CTX, 50.0)
+            out["simulation_cell"] = sim_cell
+            log(f"  trained ctx {EVAL_CTX} depth 50%, simulation mode ({EVAL_SIM} tokens): overlap "
+                f"{sim_cell['word_overlap']:.2f} response {sim_cell['response']!r}")
+            # the same 32k cell on an engine whose single bucket is the smallest above 32k
+            del engine, clock
+            small, sclock = _niah_engine(params, cfg, nf, sink, recent, NIAH_SMALL_CACHE)
+            cell = tester(small, "small_bucket").run_cell(EVAL_CTX, 50.0)
+            ms, tokens = _steady_decode(small, sclock)
+            tight = dict(ttft_s=sclock.prefill_s[-1], decode_ms=ms, prompt_tokens=tokens,
+                         word_overlap=cell["word_overlap"], response=cell["response"])
+            out["bucket_cost"] = {str(NIAH_MAX_CACHE): live, str(NIAH_SMALL_CACHE): tight}
+            log(f"  {tokens}-token prompt, single bucket {NIAH_MAX_CACHE}: TTFT {live['ttft_s']:.3f} s (median of the grid), "
+                f"decode {live['decode_ms']:.3f} ms/token; bucket {NIAH_SMALL_CACHE}: TTFT {tight['ttft_s']:.3f} s, "
+                f"decode {tight['decode_ms']:.3f} ms/token, overlap {cell['word_overlap']:.2f}")
+            del small, sclock
+        else:
+            del engine, clock
+        del params
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    out["counts"] = counts
+    log("  grid (word overlap), ctx " + str(EVAL_CTX) + ":\n" + "\n".join(
+        f"    depth {d:5.1f}%  trained {t['word_overlap']:.2f}  inverted {i['word_overlap']:.2f}"
+        for d, t, i in zip(depths, out["cells"]["trained"], out["cells"]["inverted"])))
+    log(f"  launches during 9a: {counts}")
+    require(counts["plain_cuda_calls"] == 0, f"9a called plain versions on the card: {counts}")
+    for name in EVAL_KERNELS:
+        require(counts[name] > 0, f"9a launched no {name}")
+    trained = out["cells"]["trained"] + [out["long_cell"], out["simulation_cell"],
+                                         dict(word_overlap=out["bucket_cost"][str(NIAH_SMALL_CACHE)]["word_overlap"])]
+    require(all(c["word_overlap"] == 1.0 for c in trained),
+            f"a trained cell missed the needle: {[c['word_overlap'] for c in trained]}")
+    interior = [c["word_overlap"] for c in out["cells"]["inverted"][1:-1]]
+    out["inverted_interior_mean"] = float(np.mean(interior))
+    require(out["inverted_interior_mean"] <= 0.25,
+            f"the inverted pattern still retrieves at interior depths: mean overlap {out['inverted_interior_mean']}")
+    return out
+
+
+def phase_eval_longbench(base, cfg, heads, sink, recent):
+    """9b: trec and lsht through longbench.predict_task and score_file with
+    scripts/run_longbench_tpu.sh's settings, trained and inverted."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoConfig, DuoEngine
+    from duo_attention_tpu_torch.evals import longbench
+    from duo_attention_tpu_torch.models.convert import reorder_params
+    from duo_attention_tpu_torch.tokenizer import encode_ids, get_tokenizer
+
+    tok = get_tokenizer("word")
+    stop = tuple(encode_ids(tok, ".")[-1:])
+    data_dir = os.path.join(REPO, "artifacts", "longbench_tpu", "data")
+    scores = {}
+    reset_counts()
+    for name, pattern in (("trained", heads), ("inverted", 1.0 - heads)):
+        params, nf = reorder_params(base, cfg, pattern)
+        duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=nf, max_cache_size=LB_MAX_CACHE,
+                        prefill_chunk_size=LB_CHUNK)
+        engine = DuoEngine(params, cfg, duo, dtype=torch.bfloat16, device="cuda", kv_quant="int4",
+                           single_bucket=True)
+        out_dir = _fresh_dir("longbench", name)
+        for task in LB_TASKS:
+            path = os.path.join(out_dir, f"{task}.jsonl")
+            longbench.predict_task(engine, tok, task, longbench.load_task_data(task, data_dir), LB_PROMPT, path,
+                                   simulation_tokens=LB_SIM, stop_ids=stop)
+            scores[f"{name}/{task}"] = longbench.score_file(task, path)
+            preds = [json.loads(line)["pred"] for line in open(path)]
+            log(f"  {name} {task}: {scores[name + '/' + task]} ({len(preds)} records; predictions {preds})")
+        del engine, params
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"  launches during 9b: {counts}")
+    require(counts["plain_cuda_calls"] == 0, f"9b called plain versions on the card: {counts}")
+    for task in LB_TASKS:
+        require(scores[f"trained/{task}"] >= 87.5, f"trained {task} scored {scores['trained/' + task]}")
+        require(scores[f"inverted/{task}"] <= 25.0, f"inverted {task} scored {scores['inverted/' + task]}")
+    return dict(scores=scores, counts=counts)
+
+
+def _kv_bytes_reckoned(cfg, duo, batch, decode_only=False):
+    """The INT4 cache's bytes from its shapes: a full head holds a byte a
+    channel per token pair and four bf16 scale rows per pair (scale and zero
+    point of both tokens), K and V; a streaming head its bf16 sink rows and
+    ring rows (chunked prefill: sink + chunk and round_up(recent + chunk,
+    512); decode-only: round_up(sink + 8, 8) and round_up(recent + 8, 128))."""
+    T, D = duo.max_cache_size, cfg.head_dim
+    if decode_only:
+        sink, ring = -(-(duo.sink_size + 8) // 8) * 8, -(-(duo.recent_size + 8) // 128) * 128
+    else:
+        sink, ring = duo.sink_size + duo.prefill_chunk_size, -(-(duo.recent_size + duo.prefill_chunk_size) // 512) * 512
+    return sum(2 * batch * (hf * (T // 2) * (D + 4 * 2) + (cfg.num_kv_heads - hf) * (sink + ring) * D * 2)
+               for hf in duo.num_full_kv_heads)
+
+
+def phase_eval_efficiency():
+    """9c: evals/efficiency.py's functions at the 8B geometry (32 layers,
+    random int8 weights, INT4 cache) at 32k, every head full (sparsity 0)
+    and half of them (0.5). Every cache's bytes must equal their reckoning
+    from the shapes, and the serving pool's at 0.5 must be below 0.0's."""
+    import argparse
+
+    import torch
+
+    from duo_attention_tpu_torch.evals import efficiency
+
+    rows = {}
+    params = None
+    reset_counts()
+    for sparsity in EFF_SPARSITIES:
+        args = argparse.Namespace(model="Llama-3-8B-Instruct-Gradient-1048k", num_layers=32, attn_pattern=None,
+                                  sparsity=sparsity, sink=SINK, recent=RECENT, ctx_len=EVAL_CTX,
+                                  prefill_chunk=CHUNK, w8a8=True, kv_quant="int4", batch_size=1, device="cuda")
+        engine, cfg, duo = efficiency.build_engine(args, params)
+        params = engine.params
+        prefill_s, kv = efficiency.bench_prefill(engine, EVAL_CTX, runs=3)
+        decode_s, kv_decode = efficiency.bench_decode(engine, EVAL_CTX, steps=64, repeats=3)
+        tok_s, kv_pool = efficiency.bench_serving(cfg, duo, EFF_BATCH, EVAL_CTX, kv_quant="int4", steps=64,
+                                                  params=params, device="cuda")
+        want, want_pool = _kv_bytes_reckoned(cfg, duo, 1), _kv_bytes_reckoned(cfg, duo, EFF_BATCH, True)
+        require(kv == kv_decode == want, f"sparsity {sparsity}: KV bytes {kv} / {kv_decode}, reckoned {want}")
+        require(kv_pool == want_pool, f"sparsity {sparsity}: pool KV bytes {kv_pool}, reckoned {want_pool}")
+        rows[str(sparsity)] = dict(full_heads=sum(duo.num_full_kv_heads), prefill_s=prefill_s,
+                                   decode_ms=decode_s * 1e3, serving_tok_s=tok_s, kv_bytes=kv, pool_kv_bytes=kv_pool)
+        log(f"  sparsity {sparsity}: {sum(duo.num_full_kv_heads)} full heads; prefill {prefill_s:.3f} s "
+            f"({EVAL_CTX / prefill_s:.0f} tok/s), decode {decode_s * 1e3:.3f} ms/token, serving B={EFF_BATCH} "
+            f"{tok_s:.1f} tok/s; KV {kv / 2**30:.3f} GiB, pool KV {kv_pool / 2**30:.3f} GiB")
+        del engine
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    require(counts["plain_cuda_calls"] == 0, f"9c called plain versions on the card: {counts}")
+    full, duo_row = rows[str(EFF_SPARSITIES[0])], rows[str(EFF_SPARSITIES[1])]
+    # The serving pool's streaming heads hold sink + recent rows: half the heads streaming must
+    # take less memory. The B=1 prefill cache's do not have to: a streaming head keeps a whole
+    # chunk of pad beside its sink and a ring of recent + chunk rows in bf16, 8,768 rows at chunk
+    # 4096, which weigh about what an INT4 full head's 32k tokens do (reported, not required).
+    require(duo_row["pool_kv_bytes"] < full["pool_kv_bytes"], f"pool KV bytes at sparsity 0.5 not below 0.0: {rows}")
+    ratios = {k: full[k] / duo_row[k] for k in ("prefill_s", "decode_ms", "kv_bytes", "pool_kv_bytes")}
+    ratios["serving_tok_s"] = duo_row["serving_tok_s"] / full["serving_tok_s"]
+    log(f"  sparsity 0.0 / 0.5: {json.dumps(ratios)} (serving: 0.5 / 0.0)")
+    del params
+    torch.cuda.empty_cache()
+    return dict(rows=rows, ratios=ratios, counts=counts)
+
+
+def phase_eval():
+    """Phase 9: builds the constructed 8B graft once (niah.build_model, the
+    function the CLI builds it with) and runs 9a and 9b on it, then 9c on
+    random weights."""
+    import torch
+
+    from duo_attention_tpu_torch import load_attn_pattern, sparsify_attention_heads
+    from duo_attention_tpu_torch.evals import niah
+
+    out = {}
+    t0 = time.perf_counter()
+    base, cfg, needle = niah.build_model("constructed-8b", True, "cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  constructed-8b W8A8: {sum(t.numel() * t.element_size() for t in _leaves(base)) / 2**30:.2f} GiB "
+        f"on the card in {out['build_s']:.1f} s")
+    heads, sink, recent = load_attn_pattern(os.path.join(REPO, "artifacts", "niah_8b", "pattern"))
+    heads, _ = sparsify_attention_heads(heads, sparsity=0.5)
+    for key, label, fn in (("niah", "9a: NIAH, constructed-8b, W8A8KV4",
+                            lambda: phase_eval_niah(base, cfg, needle, heads, sink, recent)),
+                           ("longbench", "9b: LongBench trec/lsht, constructed-8b, W8A8KV4",
+                            lambda: phase_eval_longbench(base, cfg, heads, sink, recent))):
+        log(f"phase {label}")
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase {label.split(':')[0]}: {out[key]['phase_s']:.1f} s")
+    del base
+    torch.cuda.empty_cache()
+    log("phase 9c: efficiency (evals/efficiency.py, 8B geometry, W8A8KV4, 32k, sparsity 0.0 and 0.5)")
+    t0 = time.perf_counter()
+    out["efficiency"] = phase_eval_efficiency()
+    out["efficiency"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 9c: {out['efficiency']['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1610,12 +1948,18 @@ def main():
         t0 = time.perf_counter()
         record["serving_bench"] = phase_serving_bench()
         log(f"  serving bench phase: {time.perf_counter() - t0:.1f} s")
+        log("phase 9: the eval stack (constructed-8b NIAH and LongBench, efficiency)")
+        t0 = time.perf_counter()
+        record["eval"] = phase_eval()
+        record["eval"]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 9: {record['eval']['phase_s']:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
     runs = {fmt: record["end_to_end_" + fmt]["counts"] for fmt, _, _ in formats}
     runs.update({"serving_" + fmt: record["serving_" + fmt]["counts"] for fmt, _, _ in formats})
+    runs.update({"eval_" + key: record["eval"][key]["counts"] for key in ("niah", "longbench", "efficiency")})
     line = []
     for name, cases in rec.results.items():
         if name not in REPLACES:

@@ -8,6 +8,11 @@ padding). Decode runs in bursts: tokens stay on the device within a burst and
 come to the host once per burst, where the stop-token early exit is decided.
 The power-of-two ``bucket`` bounds the full-head keys the attention reads, as
 on the TPU, and is fixed for a whole ``decode_tokens`` call.
+``single_bucket=True`` pins every step to ``max_cache_size``, as the JAX
+engine's does (one captured graph per format, B and sampled instead of one
+per bucket): the prefill kernels stop at each query tile's causal end, and
+the decode kernels' splits past the live length exit at once, so the
+runtime still follows the true length (``PERF.md`` says how closely).
 
 On the card a decode step is captured once into a CUDA graph and replayed
 once per token, the counterpart of the JAX engine's device-side ``lax.scan``
@@ -116,7 +121,7 @@ class DuoEngine:
 
     def __init__(self, params, cfg: ModelConfig, duo: DuoConfig, batch_size: int = 1,
                  dtype=torch.bfloat16, device="cuda", decode_burst: int = 64,
-                 kv_quant: str = "none"):
+                 kv_quant: str = "none", single_bucket: bool = False):
         if len(duo.num_full_kv_heads) != cfg.num_layers:
             raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has "
                              f"{cfg.num_layers} — wrong attn_patterns dir for this model?")
@@ -137,6 +142,7 @@ class DuoEngine:
         self.dtype = dtype
         # decode steps per host round trip (the stop-token check runs between bursts)
         self.decode_burst = max(int(decode_burst), 0)
+        self.single_bucket = single_bucket
         self._graphs = {}  # (kv_quant, B, bucket, sampled) -> StepGraph, on the card
 
     def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
@@ -144,6 +150,8 @@ class DuoEngine:
         return init(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
 
     def bucket_for(self, length: int) -> int:
+        if self.single_bucket:
+            return self.duo.max_cache_size
         return min(_next_bucket(length), self.duo.max_cache_size)
 
     def _ids(self, ids) -> torch.Tensor:

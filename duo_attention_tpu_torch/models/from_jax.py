@@ -25,22 +25,24 @@ _AS_IS = frozenset(("embed", "final_norm", "input_norm", "post_norm", "bq", "bk"
 _QUANTIZABLE = _TRANSPOSED | {"embed"}
 
 
-def _convert(name: str, arr, device, dtype) -> torch.Tensor:
+def leaf_from_numpy(name: str, arr, device, dtype) -> torch.Tensor:
+    """One leaf of a JAX params tree (numpy) as the port's tensor named
+    ``name`` on ``device``: copied there as it is, then transposed there where
+    the port's layout is the transpose (a large leaf is never transposed on
+    the host). ``*_q8`` leaves stay int8 and ``*_scale`` leaves float32; the
+    others take ``dtype``."""
     arr = np.asarray(arr)
     for suffix, kind in (("_q8", torch.int8), ("_scale", torch.float32)):
         base = name[: -len(suffix)]
         if name.endswith(suffix) and base in _QUANTIZABLE:
-            if kind is torch.int8:
-                if arr.dtype != np.int8:
-                    raise ValueError(f"parameter {name!r} must be int8, got {arr.dtype}")
-                if base in _TRANSPOSED:
-                    arr = arr.T
-            return torch.tensor(np.ascontiguousarray(arr), dtype=kind, device=device)
-    if name in _TRANSPOSED:
-        arr = arr.T
-    elif name not in _AS_IS:
+            if kind is torch.int8 and arr.dtype != np.int8:
+                raise ValueError(f"parameter {name!r} must be int8, got {arr.dtype}")
+            t = torch.tensor(arr, dtype=kind, device=device)
+            return t.t().contiguous() if kind is torch.int8 and base in _TRANSPOSED else t
+    if name not in _TRANSPOSED and name not in _AS_IS:
         raise ValueError(f"parameter {name!r} has no counterpart in this slice of the port")
-    return torch.tensor(arr, dtype=dtype, device=device)
+    t = torch.tensor(arr, dtype=dtype, device=device)
+    return t.t().contiguous() if name in _TRANSPOSED else t
 
 
 def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=torch.float32) -> dict:
@@ -50,9 +52,9 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda", dtype=torch.float3
     port it defaults to the card and raises without one; pass
     ``device="cpu"`` for the plain path."""
     device = resolve_device(device)
-    out = {name: _convert(name, arr, device, dtype) for name, arr in tree.items() if name != "layers"}
+    out = {name: leaf_from_numpy(name, arr, device, dtype) for name, arr in tree.items() if name != "layers"}
     out["layers"] = [
-        {name: _convert(name, arr, device, dtype) for name, arr in layer.items()}
+        {name: leaf_from_numpy(name, arr, device, dtype) for name, arr in layer.items()}
         for layer in tree["layers"]
     ]
     return out

@@ -29,6 +29,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -78,13 +80,14 @@ def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor) -> Tuple[torch.Tens
     return x1, x2
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)``: the key words (seed >> 32, seed & 0xFFFFFFFF)
-    as an int64 [2] tensor on ``device``. seed: 0 <= seed < 2**63."""
+    as an int64 [2] tensor on ``device`` (the card unless the caller asks for
+    the CPU; raises without one). seed: 0 <= seed < 2**63."""
     seed = int(seed)
     if not 0 <= seed < 2**63:
         raise ValueError(f"seed must be in [0, 2**63), got {seed}")
-    return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64, device=device)
+    return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64, device=resolve_device(device))
 
 
 def _iota_2x32(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:

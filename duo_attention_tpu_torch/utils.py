@@ -19,6 +19,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the card's queued work when ``device`` is a CUDA device (a
+    timing's fence); nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def cuda_time_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
     """Mean device milliseconds per call of fn, from CUDA events around
     ``iters`` back-to-back calls on the current stream (after ``warmup``)."""

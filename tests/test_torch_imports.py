@@ -35,6 +35,13 @@ def test_the_rule_catches_what_it_must():
     assert [m for m in imported_modules(src) if _forbidden(m)] == ["jax.numpy", "duo_attention_tpu.ops"]
 
 
+def test_the_eval_stack_is_covered():
+    for module in ("tokenizer", "demo", "train/data", "evals/niah", "evals/metrics", "evals/longbench",
+                   "evals/longbench_data", "evals/efficiency", "evals/accuracy_loop", "models/constructed",
+                   "models/synth"):
+        assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules((REPO / path).read_text()) if _forbidden(m)]

@@ -43,9 +43,9 @@ def jkey_words(key):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_and_splits_are_jax_bitwise(seed):
     key = jax.random.PRNGKey(seed)
-    np.testing.assert_array_equal(S.prng_key(seed).numpy(), jkey_words(key))
+    np.testing.assert_array_equal(S.prng_key(seed, "cpu").numpy(), jkey_words(key))
     for n in (2, 3, 8):
-        np.testing.assert_array_equal(S.split(S.prng_key(seed), n).numpy(), jkey_words(jax.random.split(key, n)))
+        np.testing.assert_array_equal(S.split(S.prng_key(seed, "cpu"), n).numpy(), jkey_words(jax.random.split(key, n)))
     # a batch of keys splits row by row, as vmap of jax.random.split
     keys = jax.random.split(key, 5)
     want = jax.vmap(lambda k: jax.random.split(k, 2))(keys)
@@ -57,9 +57,9 @@ def test_keys_and_splits_are_jax_bitwise(seed):
 def test_bits_are_jax_bitwise_and_gumbel_within_2_ulp(seed, shape):
     key = jax.random.PRNGKey(seed)
     bits = np.asarray(jax.random.bits(key, shape, jnp.uint32)).astype(np.int64)
-    np.testing.assert_array_equal(S.random_bits(S.prng_key(seed), shape).numpy(), bits)
+    np.testing.assert_array_equal(S.random_bits(S.prng_key(seed, "cpu"), shape).numpy(), bits)
     want = np.asarray(jax.random.gumbel(key, shape, jnp.float32, mode="low"))
-    got = S.gumbel(S.prng_key(seed), shape).numpy()
+    got = S.gumbel(S.prng_key(seed, "cpu"), shape).numpy()
     assert got.dtype == np.float32 and got.shape == shape
     ulp = np.spacing(np.maximum(np.abs(want), 1.0).astype(np.float32))
     assert float((np.abs(got - want) / ulp).max()) <= 2.0
@@ -82,7 +82,7 @@ def test_sample_tokens_match_jax(top_p, top_k):
         key = jax.random.PRNGKey(seed)
         want = jsampling.sample_tokens(jnp.asarray(logits), key, jnp.asarray(temp), jnp.asarray(top_p_v),
                                        jnp.asarray(top_k_v))
-        got = S.sample_tokens(t(logits), S.prng_key(seed), t(temp), t(top_p_v), t(top_k_v))
+        got = S.sample_tokens(t(logits), S.prng_key(seed, "cpu"), t(temp), t(top_p_v), t(top_k_v))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -117,7 +117,7 @@ def test_temperature_zero_rows_are_argmax():
     rng = np.random.default_rng(0)
     logits = t(rng.standard_normal((4, 64)), torch.float32)
     temp = torch.tensor([0.0, 1.0, 0.0, 2.0])
-    out = S.sample_tokens(logits, S.prng_key(0), temp, torch.ones(4), torch.zeros(4, dtype=torch.int32))
+    out = S.sample_tokens(logits, S.prng_key(0, "cpu"), temp, torch.ones(4), torch.zeros(4, dtype=torch.int32))
     am = torch.argmax(logits, dim=-1)
     assert out[0] == am[0] and out[2] == am[2]
 
@@ -131,19 +131,19 @@ def test_tight_filters_reproduce_greedy(knob):
     top_k = torch.full((3,), 1 if knob == "top_k" else 0, dtype=torch.int32)
     am = torch.argmax(logits, dim=-1)
     for seed in range(5):
-        assert torch.equal(S.sample_tokens(logits, S.prng_key(seed), temp, top_p, top_k), am)
+        assert torch.equal(S.sample_tokens(logits, S.prng_key(seed, "cpu"), temp, top_p, top_k), am)
 
 
 def test_top_p_excludes_tail():
     # probs ~ [0.71, 0.14, 0.14, ~0]: top_p=0.5 keeps only the head
     logits = torch.tensor([[2.0, 0.4, 0.4, -20.0]])
     for seed in range(8):
-        out = S.sample_tokens(logits, S.prng_key(seed), torch.ones(1), torch.tensor([0.5]),
+        out = S.sample_tokens(logits, S.prng_key(seed, "cpu"), torch.ones(1), torch.tensor([0.5]),
                               torch.zeros(1, dtype=torch.int32))
         assert int(out[0]) == 0
     # top_p=0.9 keeps the first three but never the -20 tail
     for seed in range(8):
-        out = S.sample_tokens(logits, S.prng_key(seed), torch.ones(1), torch.tensor([0.9]),
+        out = S.sample_tokens(logits, S.prng_key(seed, "cpu"), torch.ones(1), torch.tensor([0.9]),
                               torch.zeros(1, dtype=torch.int32))
         assert int(out[0]) in (0, 1, 2)
 
@@ -152,7 +152,7 @@ def test_distribution_matches_softmax():
     logits = torch.tensor([[1.0, 0.0, -1.0, 0.5]])
     want = torch.softmax(logits[0], dim=0).numpy()
     n = 4000
-    keys = S.split(S.prng_key(42), n)
+    keys = S.split(S.prng_key(42, "cpu"), n)
     one, zero = torch.ones(1), torch.zeros(1, dtype=torch.int32)
     draws = [int(S.sample_tokens(logits, keys[i], one, one, zero)[0]) for i in range(n)]
     freqs = np.bincount(draws, minlength=4) / n
@@ -164,12 +164,12 @@ def test_rowkeys_independent_streams():
     and logits does not change it (continuous-batching reproducibility)."""
     rng = np.random.default_rng(3)
     logits = t(rng.standard_normal((2, 32)), torch.float32)
-    keys = S.split(S.prng_key(7), 2)
+    keys = S.split(S.prng_key(7, "cpu"), 2)
     temp, top_p, top_k = torch.ones(2), torch.ones(2), torch.zeros(2, dtype=torch.int32)
     t1, k1 = S.sample_tokens_rowkeys(logits, keys, temp, top_p, top_k)
     logits2, keys2 = logits.clone(), keys.clone()
     logits2[1] = t(rng.standard_normal(32), torch.float32)
-    keys2[1] = S.prng_key(99)
+    keys2[1] = S.prng_key(99, "cpu")
     t2, k2 = S.sample_tokens_rowkeys(logits2, keys2, temp, top_p, top_k)
     assert int(t1[0]) == int(t2[0])
     assert torch.equal(k1[0], k2[0])
