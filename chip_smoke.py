@@ -101,6 +101,29 @@ result):
         cache's bytes must equal their reckoning from the shapes, and the
         serving pool's at 0.5 must be below 0.0's. Prints the ratios.
      Each sub-phase's seconds are printed; its launches join the kernels line.
+ 10. gate training (train/trainer.py, ops/blockwise.py, the W8A8 linear's
+     straight-through backward), after phase 9's weights are freed:
+     10a GateTrainer on constructed-8b (W8A8, built on the card), B = 1, sink
+        64, recent 256, lr 0.05, reg 0.05, warmup 4, block 1024, 4 passkeys:
+        40 steps at 1,024-2,048 tokens padded to 2,048 (every step's loss
+        finite, gates in [0, 1], 21 tiled W8A8 launches a layer and no plain
+        product; one step profiled, its tiled kernels equal to the counter,
+        its device time by kind); the gates above 0.5 must be exactly the
+        circuit's two retrieval heads (artifacts/niah_8b/pattern_gt). The
+        pattern is written (finalize), read back, made binary at sparsity 0.5
+        (reported: equal to phase 9's or not) and deployed: one NIAH cell at
+        32k, depth 50%, phase 9's engine, word overlap 1.00. Then 3 steps at
+        1,024-4,096 tokens padded to 4,096 (the TPU recipe's length) for the
+        time a step and the peak memory, a 4th profiled;
+     10b evals/accuracy_loop.py::run_loop with 80 gate steps and the JAX
+        loop's other defaults (B = 8, 16 samples) on constructed-d128 (the
+        kernels take head_dim 128): its gates separated as
+        tests/test_accuracy_loop.py:99-123 requires (retrieval > 0.6, local <
+        0.35, a gap > 0.4), word overlap >= 0.95 full and trained, >= 0.90
+        their W8A8KV4 variants, <= 0.25 inverted; then that test's 80-step
+        gate training on the 64-wide constructed circuit, its gates (same
+        bounds; retrieval heads layer 1, heads 0 and 1) beside the TPU's
+        record.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -108,6 +131,7 @@ detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -146,6 +170,15 @@ EFF_SPARSITIES, EFF_BATCH = (0.0, 0.5), 8
 EVAL_KERNELS = ("streaming_cache_attention.prefill", "streaming_cache_attention.decode", "write_streaming_rows",
                 "write_q4_token", "full_cache_attention_q4.prefill", "full_cache_attention_q4.decode",
                 "w8a8_matmul.tiled", "w8a8_matmul.small")
+# Phase 10, gate training: 10a's recipe is tests/test_graft_8b.py:141's (lr, reg, warmup, 40 steps, B = 1
+# here) with scripts/run_niah_8b_tpu.sh's sink/recent (SINK, RECENT), 4 passkeys and block 1024;
+# contexts 1,024-2,048 padded to 2,048, and the TPU recipe's 1,024-4,096 padded to 4,096 for the
+# time a step. Each layer runs 7 tiled W8A8 products in the teacher, 7 in the student and 7 again
+# in the student's recompute (per-layer remat).
+TRAIN_STEPS, TRAIN_TIME_STEPS, TRAIN_CTX, TRAIN_PAD, TRAIN_LONG_PAD = 40, 3, (1024, 2048), 2048, 4096
+TRAIN_LR, TRAIN_REG, TRAIN_WARMUP, TRAIN_PASSKEYS, TRAIN_BLOCK, TILED_PER_LAYER = 0.05, 0.05, 4, 4, 1024, 21
+# 10b: tests/test_accuracy_loop.py:99-123's length; at the JAX default of 600 steps 10b took 266 s on an H100
+LOOP_GATE_STEPS = 80
 NEAR_TIE = 0.25  # top-2 logit gap: about twice phase 7's largest |dlogit| on the H100 (0.1199)
 # the pallas_call each kernel replaces
 REPLACES = {
@@ -182,6 +215,16 @@ GEMM_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (1024, 4096), "gate/up": (14336, 
 # decode step runs in one launch (label, output widths, K).
 SMALL_CASES = [*((label, (N,), K) for label, (N, K) in GEMM_SHAPES.items()),
                ("wq+wk+wv", (4096, 1024, 1024), 4096), ("gate+up", (14336, 14336), 4096)]
+# Gate training's shapes (10a): every projection of a layer at M = B*S on the tiled route.
+TRAIN_GEMM_LABELS = ("wq/wo", "wk/wv", "gate/up", "down")
+# 10b's W8A8KV4 eval on constructed-d128 (hidden 512, 8 q and 4 KV heads of 128, intermediate 128;
+# the head stays bf16): prefill chunks of 256 and a ragged tail on the tiled route, and the decode
+# step's groups at M = 1 on the small-M route.
+D128_GEMM_SHAPES = {"d128 wq": (1024, 512), "d128 wk/wv": (512, 512), "d128 wo": (512, 1024),
+                    "d128 gate/up": (128, 512), "d128 down": (512, 128)}
+D128_PREFILL_MS = (256, 136)
+D128_SMALL_CASES = [("d128 wq+wk+wv", (1024, 512, 512), 512), ("d128 wo", (512,), 1024),
+                    ("d128 gate+up", (128, 128), 512), ("d128 down", (512,), 128)]
 
 
 class SmokeFailure(Exception):
@@ -665,7 +708,7 @@ def phase_kernels(rec):
 
 
 def _small_case(rec, gen, label, ns, K, M, main=False):
-    """The small-M route at the main path's decode shapes: bf16 x [M, K]
+    """The small-M route at a path's decode shapes: bf16 x [M, K]
     through ``w8a8_linear_group`` (one launch, x quantized in the kernel)
     against its plain version, bitwise, and the int8-input mode against
     ``w8a8_matmul_plain``. Times, all with the weights cold: each call finds
@@ -779,10 +822,17 @@ def phase_kernels_w8a8kv4(rec):
     for label, (N, K) in GEMM_SHAPES.items():
         # (the main path runs the head at M = B only; M = 4096 is here for the float32 tiled epilogue)
         gemm_case(label, N, K, CHUNK, torch.float32 if label == "head" else torch.bfloat16, main=label == "gate/up")
+    for label in TRAIN_GEMM_LABELS:  # 10a's M: at N = 1024 one wave of tiles is not filled
+        gemm_case(label, *GEMM_SHAPES[label], TRAIN_PAD, torch.bfloat16)
+    for label, (N, K) in D128_GEMM_SHAPES.items():
+        for M in D128_PREFILL_MS:
+            gemm_case(label, N, K, M, torch.bfloat16)
     torch.cuda.empty_cache()
     for label, ns, K in SMALL_CASES:
         for M in (1, 4, 8):
             _small_case(rec, gen, label, ns, K, M, main=(label, M) == ("gate+up", 1))
+    for label, ns, K in D128_SMALL_CASES:
+        _small_case(rec, gen, label, ns, K, 1)
     torch.cuda.empty_cache()
 
     # Where the routes cross: device time of both kernels at M from 1 to 256, two
@@ -1639,10 +1689,10 @@ def _niah_engine(params, cfg, nf, sink, recent, max_cache):
     return engine, _EngineClock(engine)
 
 
-def _fresh_dir(*parts):
+def _fresh_dir(*parts, phase="phase9"):
     import shutil
 
-    path = os.path.join(REPO, "chiprun_out", "phase9", *parts)
+    path = os.path.join(REPO, "chiprun_out", phase, *parts)
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
     return path
@@ -1882,6 +1932,343 @@ def phase_eval():
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: gate training (the constructed circuit at the 8B geometry, W8A8)
+# ---------------------------------------------------------------------------
+
+
+def _train_kinds(events):
+    """Device ms of a training window's activities by what they compute: the
+    tiled W8A8 product, float32 products (the blockwise attention's: no other
+    product of a step is float32), bf16 products (the straight-through
+    estimator's: no other product of a W8A8 step is bf16), and the rest
+    (elementwise work, reductions, copies); with the tiled kernels' count and
+    the products' kernel names."""
+    from torch.autograd import DeviceType
+
+    by_kind, names, tiled = {}, {}, 0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name == "train_step":
+            continue
+        if "w8a8_tiled_kernel" in e.name:
+            kind = "tiled_w8a8"
+            tiled += 1
+        elif _kernel_kind(e.name) == "matmul":
+            kind = "f32_products" if any(k in e.name for k in ("f32f32", "sgemm")) else "bf16_products"
+            names.setdefault(kind, set()).add(e.name[:70])
+        else:
+            kind = "elementwise_and_other"
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_kind, tiled, {k: sorted(v)[:6] for k, v in names.items()}
+
+
+def train_breakdown(fn):
+    """One training step (fn) under torch.profiler: the window's wall ms, the
+    device's busy ms and idle share, device ms by ``_train_kinds``, and the
+    tiled kernels the device ran."""
+    from torch.profiler import record_function
+
+    def step():
+        with record_function("train_step"):
+            fn()
+
+    events, wall_ms = _profiled_window(step)
+    by_kind, tiled, names = _train_kinds(events)
+    busy = sum(by_kind.values())
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=(1 - busy / wall_ms) if busy else None,
+                by_kind_ms=by_kind, tiled_kernels=tiled, product_names=names)
+
+
+def blockwise_layer_breakdown(cfg, S, sink, recent, block_k):
+    """One layer's blockwise attention as a training step runs it, alone and
+    profiled: the teacher's causal pass without a gradient, then the
+    student's Λ pass under a per-layer checkpoint, its backward from a random
+    cotangent (the forward, the layer's recompute, the blocks' recomputes and
+    the backward). Device ms of its float32 products and of the rest: times
+    the layer count, the step's blockwise share."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from duo_attention_tpu_torch.ops.blockwise import blockwise_attention, causal_mask_fn, lambda_mask_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, S, h, cfg.head_dim), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    ct = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    lam = lambda_mask_fn(sink, recent)
+
+    def layer():
+        with torch.no_grad():
+            blockwise_attention(q, k, v, causal_mask_fn, block_k=block_k)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = checkpoint(lambda a, b, c: blockwise_attention(a, b, c, lam, block_k=block_k), qs, ks, vs,
+                         use_reentrant=False)
+        out.backward(ct)
+
+    layer()
+    events, _ = _profiled_window(layer)
+    by_kind, tiled, _ = _train_kinds(events)
+    require(tiled == 0 and "bf16_products" not in by_kind, f"blockwise attention ran other products: {by_kind}")
+    return by_kind
+
+
+def _split_breakdown(b, layer, layers):
+    """The step's device ms (train_breakdown) split into five
+    kinds: its float32 products are the blockwise matmuls; the blockwise
+    elementwise work is ``layers`` times one layer's, measured alone; other
+    is the step's remaining elementwise work."""
+    k = b["by_kind_ms"]
+    blockwise_elementwise = layers * layer.get("elementwise_and_other", 0.0)
+    return dict(blockwise_matmul=k.get("f32_products", 0.0), blockwise_elementwise=blockwise_elementwise,
+                tiled_w8a8=k.get("tiled_w8a8", 0.0), ste_bf16_products=k.get("bf16_products", 0.0),
+                other=k.get("elementwise_and_other", 0.0) - blockwise_elementwise,
+                blockwise_matmul_alone=layers * layer.get("f32_products", 0.0))
+
+
+def _train_data(ctx_min, ctx_max, pad_to):
+    """The trainer CLI's passkey batches (4 passkeys, padded to a multiple of
+    128, then to ``pad_to``), B = 1, word tokens."""
+    from duo_attention_tpu_torch.tokenizer import get_tokenizer
+    from duo_attention_tpu_torch.train.data import MultiPasskeyDataset, PasskeyDataConfig, data_iterator
+
+    dcfg = PasskeyDataConfig(context_length_min=ctx_min, context_length_max=ctx_max, num_passkeys=TRAIN_PASSKEYS,
+                             pad_to_multiple=128)
+    return data_iterator(MultiPasskeyDataset(get_tokenizer("word"), dcfg), 1, pad_to=pad_to)
+
+
+def _train_steps(trainer, it, n, per_step_tiled):
+    """n steps of ``trainer``: each step's loss finite, its gates in [0, 1],
+    its tiled launches ``per_step_tiled`` and no plain product on the card.
+    Returns the per-step records."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import gemm
+
+    steps = []
+    for _ in range(n):
+        batch = next(it)
+        tiled, plain = gemm.w8a8_matmul.tiled_launches, gemm.w8a8_matmul_plain.cuda_calls
+        t0 = time.perf_counter()
+        loss, d, reg = trainer.train_step(batch["input_ids"], batch["labels"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = trainer.gates_numpy()
+        launched = gemm.w8a8_matmul.tiled_launches - tiled
+        steps.append(dict(step=trainer.step_idx, loss=loss, distill=d, reg=reg, wall_s=wall, tiled=launched,
+                          gates_min=float(g.min()), gates_max=float(g.max()), len=int(batch["input_ids"].shape[1])))
+        require(np.isfinite(loss) and np.isfinite(d), f"step {trainer.step_idx}: loss {loss}, distill {d}")
+        require(0.0 <= g.min() and g.max() <= 1.0, f"step {trainer.step_idx}: gates outside [0, 1]")
+        require(launched == per_step_tiled, f"step {trainer.step_idx}: {launched} tiled launches, reckoned "
+                f"{per_step_tiled}")
+        require(gemm.w8a8_matmul_plain.cuda_calls == plain, f"step {trainer.step_idx} ran a plain product")
+    return steps
+
+
+def phase_train_8b():
+    """10a: GateTrainer on constructed-8b (W8A8, built on the card) with
+    tests/test_graft_8b.py:141's recipe at scripts/run_niah_8b_tpu.sh's sink,
+    recent, passkeys and block: TRAIN_STEPS steps at 1,024-2,048 tokens padded
+    to 2,048; one step profiled. Then the trained gates are deployed:
+    finalize, load_attn_pattern, sparsify at 0.5, one NIAH cell at 32k, depth
+    50%, with phase 9's engine settings. Last, TRAIN_TIME_STEPS steps at the
+    TPU recipe's 1,024-4,096 tokens padded to 4,096 for the time a step and
+    the peak memory, one more profiled."""
+    import torch
+
+    from duo_attention_tpu_torch import load_attn_pattern, sparsify_attention_heads
+    from duo_attention_tpu_torch.evals.niah import NIAHConfig, NIAHTester, build_model
+    from duo_attention_tpu_torch.models.constructed import LONG_8B_SPEC, ground_truth_heads
+    from duo_attention_tpu_torch.models.convert import reorder_params
+    from duo_attention_tpu_torch.tokenizer import get_tokenizer
+    from duo_attention_tpu_torch.train.trainer import GateTrainConfig, GateTrainer
+
+    out = {}
+    gc.collect()  # free what earlier phases left in reference cycles, so it is not freed mid-phase
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold: the peaks below count above it
+    t0 = time.perf_counter()
+    params, cfg, needle = build_model("constructed-8b", True, "cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    per_step = TILED_PER_LAYER * cfg.num_layers
+    pattern_dir = _fresh_dir("train_8b", "pattern", phase="phase10")
+    tcfg = GateTrainConfig(lr=TRAIN_LR, reg_weight=TRAIN_REG, num_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+                           sink_size=SINK, recent_size=RECENT, batch_size=1, save_steps=TRAIN_STEPS,
+                           output_dir=pattern_dir, block_k=TRAIN_BLOCK)
+    reset_counts()
+    trainer = GateTrainer(params, cfg, tcfg, device="cuda")
+    it = _train_data(*TRAIN_CTX, TRAIN_PAD)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps = _train_steps(trainer, it, TRAIN_STEPS // 2, per_step)
+    profiled = {}
+
+    def one_step():
+        profiled["steps"] = _train_steps(trainer, it, 1, per_step)
+
+    out["profile_2048"] = train_breakdown(one_step)
+    steps += profiled["steps"] + _train_steps(trainer, it, TRAIN_STEPS - TRAIN_STEPS // 2 - 1, per_step)
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_gib_2048"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["counts"] = read_counts()
+    gates = trainer.gates_numpy()
+    gt = ground_truth_heads(LONG_8B_SPEC)
+    out.update(steps=steps, gates=gates.tolist(), ground_truth=np.argwhere(gt > 0.5).tolist(),
+               above_half=np.argwhere(gates > 0.5).tolist())
+    walls = [s["wall_s"] for s in steps[1:] if s is not profiled["steps"][0]]
+    out["s_per_step_2048"] = float(np.median(walls))
+    for s in steps[:: max(TRAIN_STEPS // 8, 1)] + steps[-1:]:
+        log(f"  step {s['step']}: loss {s['loss']:.6f} distill {s['distill']:.6f} reg {s['reg']:.4f} "
+            f"gates [{s['gates_min']:.3f}, {s['gates_max']:.3f}] tiled {s['tiled']} {s['wall_s']:.3f} s")
+    b = out["profile_2048"]
+    log(f"  {TRAIN_STEPS} steps at {TRAIN_PAD} tokens in {out['train_s']:.1f} s: {out['s_per_step_2048']:.3f} s a "
+        f"step (median), peak {out['peak_gib_2048']:.2f} GiB (weights included); tiled launches {per_step} a step "
+        f"({TILED_PER_LAYER} a layer); profiled step: {json.dumps(b)}")
+    log(f"  gates > 0.5: {out['above_half']} (ground truth {out['ground_truth']}); layer "
+        f"{LONG_8B_SPEC.circuit_layers[1]}: {np.round(gates[LONG_8B_SPEC.circuit_layers[1]], 4).tolist()}; "
+        f"max elsewhere {float(np.max(np.where(gt > 0.5, 0.0, gates))):.4f}")
+    out["breakdown_2048"] = _split_breakdown(
+        b, blockwise_layer_breakdown(cfg, TRAIN_PAD, SINK, RECENT, TRAIN_BLOCK), cfg.num_layers)
+    log(f"  one step at {TRAIN_PAD} tokens, device ms by kind: {json.dumps(out['breakdown_2048'])}")
+    require(b["tiled_kernels"] == per_step, f"the profiled step ran {b['tiled_kernels']} tiled kernels, the "
+            f"counter {per_step}")
+    require(out["counts"]["plain_cuda_calls"] == 0, f"10a called plain versions on the card: {out['counts']}")
+    require(((gates > 0.5) == (gt > 0.5)).all(), f"trained gates > 0.5 at {out['above_half']}, ground truth "
+            f"{out['ground_truth']}")
+
+    # deploy: the artifact, read back, made binary at sparsity 0.5, one NIAH cell
+    trainer.finalize()
+    heads, sink, recent = load_attn_pattern(pattern_dir)
+    require(np.allclose(heads, np.clip(gates, 0, 1), atol=1e-7) and (sink, recent) == (SINK, RECENT),
+            "the written pattern does not read back")
+    binary, _ = sparsify_attention_heads(heads, sparsity=0.5)
+    ref, _, _ = load_attn_pattern(os.path.join(REPO, "artifacts", "niah_8b", "pattern"))
+    ref_binary, _ = sparsify_attention_heads(ref, sparsity=0.5)
+    out["binary_equals_phase9"] = bool(np.array_equal(binary, ref_binary))
+    out["binary_differs_at"] = np.argwhere(binary != ref_binary).tolist()
+    del trainer
+    torch.cuda.empty_cache()
+    reordered, nf = reorder_params(params, cfg, binary)
+    engine, clock = _niah_engine(reordered, cfg, nf, sink, recent, NIAH_MAX_CACHE)
+    tok = get_tokenizer("word")
+    cell = NIAHTester(engine, tok, NIAHConfig(context_lengths=[EVAL_CTX], depth_percents=[50.0], gen_tokens=EVAL_GEN,
+                                              output_dir=_fresh_dir("train_8b", "niah", phase="phase10"), resume=False, **needle)
+                      ).run_cell(EVAL_CTX, 50.0)
+    out["niah_cell"] = dict(word_overlap=cell["word_overlap"], response=cell["response"],
+                            latency_s=cell["latency_s"], full_heads=sum(nf))
+    log(f"  deployed: binary pattern at 0.5 equals phase 9's: {out['binary_equals_phase9']} (differs at "
+        f"{out['binary_differs_at'][:8]}); NIAH ctx {EVAL_CTX} depth 50%: overlap {cell['word_overlap']:.2f} "
+        f"response {cell['response']!r}")
+    require(cell["word_overlap"] == 1.0, f"the deployed trained pattern missed the needle: {cell}")
+    del engine, clock, reordered
+    gc.collect()  # the clock's wrappers and the engine hold each other: free the 131k cache now
+    torch.cuda.empty_cache()
+
+    # the TPU recipe's length: 3 steps at 4,096 for the time a step and the peak memory, a 4th profiled
+    long_trainer = GateTrainer(params, cfg, dataclasses.replace(tcfg, output_dir=_fresh_dir("train_8b", "long", phase="phase10")),
+                               device="cuda")
+    it = _train_data(TRAIN_CTX[0], TRAIN_LONG_PAD, TRAIN_LONG_PAD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    long_steps = _train_steps(long_trainer, it, TRAIN_TIME_STEPS, per_step)
+    out["peak_gib_4096"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["profile_4096"] = train_breakdown(lambda: _train_steps(long_trainer, it, 1, per_step))
+    out["long_steps"] = long_steps
+    out["s_per_step_4096"] = float(np.median([s["wall_s"] for s in long_steps]))
+    out["breakdown_4096"] = _split_breakdown(
+        out["profile_4096"], blockwise_layer_breakdown(cfg, TRAIN_LONG_PAD, SINK, RECENT, TRAIN_BLOCK), cfg.num_layers)
+    log(f"  {TRAIN_TIME_STEPS} steps at {TRAIN_LONG_PAD} tokens: {[round(s['wall_s'], 3) for s in long_steps]} s, "
+        f"peak {out['peak_gib_4096']:.2f} GiB; profiled step: {json.dumps(out['profile_4096'])}; device ms by "
+        f"kind: {json.dumps(out['breakdown_4096'])}")
+    require(out["profile_4096"]["tiled_kernels"] == per_step, "the 4,096-token profiled step's tiled kernels")
+    del long_trainer, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _loop_gates_separate(gates, spec):
+    """tests/test_accuracy_loop.py's 80-step bounds: the circuit's two
+    retrieval heads above 0.6, every other head below 0.35, a gap above 0.4."""
+    from duo_attention_tpu_torch.models.constructed import ground_truth_heads
+
+    gates = np.asarray(gates)
+    gt = ground_truth_heads(spec) > 0.5
+    retrieval, local = gates[gt], gates[~gt]
+    return retrieval.min() > 0.6 and local.max() < 0.35 and retrieval.min() > local.max() + 0.4
+
+
+def phase_accuracy_loop():
+    """10b: evals/accuracy_loop.py::run_loop on the card with LOOP_GATE_STEPS
+    gate steps (tests/test_accuracy_loop.py:99-123's recipe length: the JAX
+    default of 600 took 266 s on an H100, PERF.md) and the JAX loop's other
+    defaults (B = 8, 128-1,024 tokens padded to 1,280, sink 16, recent 64,
+    sparsity 0.5, 16 samples, W8A8KV4 variants), on constructed-d128, the
+    circuit whose head_dim the kernels take; then that test's own 80-step
+    gate training on the 64-wide constructed circuit of the TPU's record,
+    its gates printed beside the record's (600 steps)."""
+    import torch
+
+    from duo_attention_tpu_torch.evals.accuracy_loop import run_loop
+    from duo_attention_tpu_torch.models.constructed import BASE_SPEC, SMALL_D128_SPEC, build_params
+    from duo_attention_tpu_torch.tokenizer import get_tokenizer
+    from duo_attention_tpu_torch.train.data import MultiPasskeyDataset, PasskeyDataConfig, data_iterator
+    from duo_attention_tpu_torch.train.trainer import GateTrainConfig, GateTrainer
+
+    with open(os.path.join(REPO, "artifacts", "accuracy_loop", "report.json")) as f:
+        record = json.load(f)
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    report = run_loop(_fresh_dir("accuracy_loop", "constructed-d128", phase="phase10"), gate_steps=LOOP_GATE_STEPS,
+                      reuse_lm=False, lm="constructed-d128", device="cuda")
+    r = {k: v["word_overlap"] for k, v in report["results"].items()}
+    out["constructed-d128"] = dict(phase_s=time.perf_counter() - t0, gates=report["gates"], results=report["results"],
+                                   teacher_forced_answer_acc=report["teacher_forced_answer_acc"])
+    log(f"  run_loop, constructed-d128, {LOOP_GATE_STEPS} gate steps: {out['constructed-d128']['phase_s']:.1f} s; "
+        f"gates {np.round(report['gates'], 3).tolist()}\n    word overlap: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r.items()) + "; the TPU's record (constructed, 600 steps): "
+        + ", ".join(f"{k} {v['word_overlap']:.3f}" for k, v in record["results"].items()))
+    require(_loop_gates_separate(report["gates"], SMALL_D128_SPEC), f"constructed-d128 gates {report['gates']}")
+    require(min(r["full_attention"], r["trained_pattern"]) >= 0.95, f"full or trained below 0.95: {r}")
+    require(min(r["full_attention_w8a8kv4"], r["trained_pattern_w8a8kv4"]) >= 0.90, f"W8A8KV4 below 0.90: {r}")
+    require(max(r["inverted_pattern"], r["inverted_pattern_w8a8kv4"]) <= 0.25, f"inverted above 0.25: {r}")
+    out["counts"] = read_counts()
+    log(f"  launches during 10b: {out['counts']}")
+    require(out["counts"]["plain_cuda_calls"] == 0, f"10b called plain versions on the card: {out['counts']}")
+
+    # tests/test_accuracy_loop.py:99-123 on the card, the TPU record's circuit
+    t0 = time.perf_counter()
+    tok = get_tokenizer("word")
+    tcfg = GateTrainConfig(lr=0.02, reg_weight=0.05, num_steps=LOOP_GATE_STEPS, warmup_steps=10, sink_size=16,
+                           recent_size=64, batch_size=4, save_steps=LOOP_GATE_STEPS, block_k=128,
+                           output_dir=_fresh_dir("accuracy_loop", "constructed", phase="phase10"))
+    trainer = GateTrainer(build_params(tok, spec=BASE_SPEC, device="cuda"), BASE_SPEC.model_config(), tcfg,
+                          device="cuda")
+    dcfg = PasskeyDataConfig(context_length_min=128, context_length_max=512, num_passkeys=2, passkey_length=3)
+    trainer.train(data_iterator(MultiPasskeyDataset(tok, dcfg, num_samples=100_000), 4, pad_to=768),
+                  log_every=LOOP_GATE_STEPS)
+    gates = trainer.gates_numpy()
+    out["constructed"] = dict(phase_s=time.perf_counter() - t0, gates=gates.tolist())
+    log(f"  GateTrainer, constructed, {LOOP_GATE_STEPS} steps: {out['constructed']['phase_s']:.1f} s; gates "
+        f"{np.round(gates, 3).tolist()}; the TPU's record (600 steps): {np.round(record['gates'], 3).tolist()}")
+    require(_loop_gates_separate(gates, BASE_SPEC), f"constructed gates {gates.tolist()}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train():
+    out = {}
+    for key, label, fn in (("train_8b", "10a: gate training, constructed-8b, W8A8", phase_train_8b),
+                           ("accuracy_loop", "10b: evals/accuracy_loop.py::run_loop", phase_accuracy_loop)):
+        log(f"phase {label}")
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase {label.split(':')[0]}: {out[key]['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1953,6 +2340,11 @@ def main():
         record["eval"] = phase_eval()
         record["eval"]["phase_s"] = time.perf_counter() - t0
         log(f"  phase 9: {record['eval']['phase_s']:.1f} s")
+        log("phase 10: gate training (constructed-8b in W8A8; the accuracy loop)")
+        t0 = time.perf_counter()
+        record["train"] = phase_train()
+        record["train"]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 10: {record['train']['phase_s']:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1960,6 +2352,7 @@ def main():
     runs = {fmt: record["end_to_end_" + fmt]["counts"] for fmt, _, _ in formats}
     runs.update({"serving_" + fmt: record["serving_" + fmt]["counts"] for fmt, _, _ in formats})
     runs.update({"eval_" + key: record["eval"][key]["counts"] for key in ("niah", "longbench", "efficiency")})
+    runs.update({key: record["train"][key]["counts"] for key in ("train_8b", "accuracy_loop")})
     line = []
     for name, cases in rec.results.items():
         if name not in REPLACES:

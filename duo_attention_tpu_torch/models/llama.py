@@ -11,7 +11,9 @@ named ``w`` runs as a W8A8 linear when the layer holds ``w_q8`` and
 ``w_scale`` instead. KV heads are assumed already reordered (retrieval heads
 first), as in the JAX package.
 
-Not ported yet: MoE MLPs, meshes and the two-way training forward.
+Gate training's forward is here too: ``forward_two_way`` (teacher and
+student streams over ``ops/blockwise.py``), ``head_logits`` and
+``all_logits``. Not ported yet: MoE MLPs and meshes.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..cache import DuoCache, DuoCacheQ4, write_full_pair, write_full_q4_pair, write_streaming
 from ..config import DuoConfig, ModelConfig
 from ..ops import flash
 from ..ops.attention_ref import causal_attention_ref
+from ..ops.blockwise import blockwise_attention, causal_mask_fn, lambda_mask_fn
 from ..ops.norm import rms_norm
 from ..ops.quant import w8a8_linear, w8a8_linear_group
 from ..ops.rope import apply_rope, rope_tables
@@ -113,6 +117,16 @@ def _head_logits(params: Params, h: torch.Tensor, plain: bool = False) -> torch.
     if "embed_q8" in params and "lm_head" not in params:
         return w8a8_linear(h, params["embed_q8"], params["embed_scale"], torch.float32, plain)
     return F.linear(h, lm_head_weight(params)).float()
+
+
+def head_logits(params: Params, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The lm head over every position: hidden [..., E] -> logits [...,
+    vocab] float32 (pretraining and the eval oracles)."""
+    return _head_logits(params, h, plain)
+
+
+def all_logits(params: Params, hidden: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    return _head_logits(params, hidden, plain)
 
 
 def _proj(layer: Params, x: torch.Tensor, name: str, plain: bool = False) -> torch.Tensor:
@@ -263,3 +277,76 @@ def forward_full_attention(params: Params, cfg: ModelConfig, input_ids: torch.Te
         x = x + _proj(layer, attn.reshape(B, S, -1), "wo")
         x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps))
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Two-way forward (gate training)
+# ---------------------------------------------------------------------------
+
+
+def clip_gates(gates: torch.Tensor) -> torch.Tensor:
+    """Gates clipped to [0, 1] with JAX's ``jnp.clip`` gradient: full inside,
+    0 outside and one half exactly on a bound, where ``torch.maximum`` and
+    ``torch.minimum`` split the tie as ``lax.max`` and ``lax.min`` do
+    (``torch.clamp`` passes the whole gradient there). The gates sit on a
+    bound at the start (1) and once pruned (0)."""
+    zero = torch.zeros((), dtype=gates.dtype, device=gates.device)
+    return torch.minimum(torch.maximum(gates, zero), zero + 1)
+
+
+def forward_two_way(params: Params, gates: torch.Tensor, cfg: ModelConfig, sink_size: int, recent_size: int,
+                    input_ids: torch.Tensor, seq_axis=None, block_k: int = 512, layer_hook=None,
+                    remat: bool = False, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher and student streams of gate identification (counterpart of
+    duo_attention_tpu/models/llama.py ``forward_two_way``).
+
+    The teacher runs full causal attention under ``torch.no_grad()``: it
+    does not depend on the gates, and each layer's attention output
+    ``full_out`` [B, S, Hq, D] is kept for the student, so the teacher is
+    never recomputed (JAX's ``stop_gradient`` computes the same values). The
+    student runs Λ-masked streaming attention on its own hidden states and
+    mixes each query head as (1 - α)·stream + α·full_out in float32, α the
+    clipped gate of the head's KV head. Only ``gates`` [num_layers,
+    num_kv_heads] float32 gets a gradient. ``remat=True`` puts each student
+    layer under ``torch.utils.checkpoint``: the backward recomputes its
+    forward. Attention is ``ops/blockwise.py`` (its blocks recomputed in the
+    backward too). ``plain`` runs the plain version of every kernel.
+
+    Returns (teacher_hidden, student_hidden), both after the final norm,
+    [B, S, E]; the teacher's is detached."""
+    if seq_axis is not None or layer_hook is not None:
+        raise NotImplementedError("sequence sharding and FSDP layer hooks come with the parallel layouts "
+                                  "(ROADMAP.md §1 item 8)")
+    B, S = input_ids.shape
+    positions = torch.arange(S, dtype=torch.int32, device=input_ids.device)
+    cos, sin = rope_tables(cfg, positions)
+    cos, sin = cos[None], sin[None]
+    lam = lambda_mask_fn(sink_size, recent_size)
+    G = cfg.num_kv_groups
+
+    def attention_in(layer, h):
+        q, k, v = _qkv(layer, rms_norm(h, layer["input_norm"], cfg.rms_norm_eps), cfg, plain)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def block_out(layer, h, attn):
+        h = h + _proj(layer, attn.reshape(B, S, -1), "wo", plain)
+        return h + _mlp(layer, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), plain)
+
+    def student(layer, alpha_raw, hs, full_out):
+        alpha_q = clip_gates(alpha_raw).float().repeat_interleave(G).reshape(1, 1, cfg.num_heads, 1)
+        stream_out = blockwise_attention(*attention_in(layer, hs), lam, block_k=block_k)
+        mixed = (1.0 - alpha_q) * stream_out.float() + alpha_q * full_out.float()
+        return block_out(layer, hs, mixed.to(stream_out.dtype))
+
+    ht = hs = embed_lookup(params, input_ids)
+    for li, layer in enumerate(params["layers"]):
+        with torch.no_grad():
+            full_out = blockwise_attention(*attention_in(layer, ht), causal_mask_fn, block_k=block_k)
+            ht = block_out(layer, ht, full_out)
+        if remat and torch.is_grad_enabled():
+            hs = checkpoint(student, layer, gates[li], hs, full_out, use_reentrant=False)
+        else:
+            hs = student(layer, gates[li], hs, full_out)
+    ht = rms_norm(ht, params["final_norm"], cfg.rms_norm_eps)
+    hs = rms_norm(hs, params["final_norm"], cfg.rms_norm_eps)
+    return ht.detach(), hs

@@ -1,7 +1,6 @@
 """Quantization ops: asymmetric per-token INT4 KV and W8A8 linears.
 
-Counterpart of duo_attention_tpu/ops/quant.py, forward only (the
-straight-through backward of the JAX ``w8a8_linear`` belongs to training).
+Counterpart of duo_attention_tpu/ops/quant.py.
 
 * INT4 KV: asymmetric min/max per (token, head) over the head_dim channels,
   scale = (max - min) / 15 + 1e-8, zero-point = min, all in float32; the
@@ -17,7 +16,10 @@ straight-through backward of the JAX ``w8a8_linear`` belongs to training).
   projections that share an input (wq, wk, wv; gate, up) together: on the
   card at M <= ``gemm.SMALL_M_MAX`` one kernel quantizes x and multiplies it
   by each weight (``gemm.w8a8_small_group``); otherwise x is quantized once
-  in plain torch and each product is ``gemm.w8a8_matmul``.
+  in plain torch and each product is ``gemm.w8a8_matmul``. Where x needs a
+  gradient the linears are differentiable by JAX's straight-through
+  estimator (``_W8A8STE``): the backward is that of ``x @ (wq * w_scale)``,
+  the activation quantization taken as the identity.
 
 Weights here are ``[out_features, in_features]`` (PyTorch's layout); the JAX
 package keeps ``[in, out]``. ``models/from_jax.py`` transposes.
@@ -140,19 +142,7 @@ def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor, w_sca
     return out.reshape(*lead, wq.shape[0])
 
 
-def w8a8_linear_group(x: torch.Tensor, weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                      out_dtype=torch.bfloat16, plain: bool = False) -> Tuple[torch.Tensor, ...]:
-    """Dynamic-activation W8A8 linears of one input, forward only: x [...,
-    in] bfloat16 or float32 (the plain path takes any float dtype; the
-    small-M kernel raises on others), weights 1-3 (wq [out_i, in] int8,
-    w_scale [out_i] float32) -> a tuple of [..., out_i] ``out_dtype``.
-
-    Each output is bitwise ``w8a8_linear(x, wq_i, w_scale_i)``: x is
-    quantized per token once, then multiplied by each weight. A CUDA x of at
-    most ``gemm.SMALL_M_MAX`` tokens takes the small-M kernel, which does
-    both in one launch for the whole group; more tokens are quantized in
-    plain torch, then each product is ``gemm.w8a8_matmul`` (the tiled kernel).
-    ``plain=True`` (or a CPU x) runs the plain versions."""
+def _group_forward(x: torch.Tensor, weights, out_dtype, plain: bool) -> Tuple[torch.Tensor, ...]:
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if x.is_cuda and not plain and x2.shape[0] <= SMALL_M_MAX:
@@ -162,6 +152,52 @@ def w8a8_linear_group(x: torch.Tensor, weights: Sequence[Tuple[torch.Tensor, tor
         fn = w8a8_matmul_plain if plain else w8a8_matmul
         outs = [fn(xq, xs, wq, ws, out_dtype) for wq, ws in weights]
     return tuple(out.reshape(*lead, out.shape[-1]) for out in outs)
+
+
+class _W8A8STE(torch.autograd.Function):
+    """The W8A8 linears of one x with JAX's straight-through backward
+    (duo_attention_tpu/ops/quant.py ``_w8a8_linear_ste_bwd``): for each
+    weight ``dx_i = bf16(float32(g_i) * w_scale_i) @ bf16(wq_i)``, in
+    bfloat16 with float32 accumulation, cast to x's dtype. The group's dx is
+    the sum of those terms in x's dtype, as JAX's autodiff sums the
+    cotangents of separate linears: the last weight's term first, then each
+    earlier one added (``(dv + dk) + dq``). The weights and scales are frozen
+    and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, out_dtype, plain, *flat):
+        ctx.save_for_backward(*flat)
+        ctx.x_dtype = x.dtype
+        return _group_forward(x, list(zip(flat[0::2], flat[1::2])), out_dtype, plain)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        dx = None
+        for g, wq, ws in reversed(list(zip(grads, flat[0::2], flat[1::2]))):
+            term = ((g.float() * ws).to(torch.bfloat16) @ wq.to(torch.bfloat16)).to(ctx.x_dtype)
+            dx = term if dx is None else dx + term
+        return (dx, None, None, *([None] * len(flat)))
+
+
+def w8a8_linear_group(x: torch.Tensor, weights: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      out_dtype=torch.bfloat16, plain: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Dynamic-activation W8A8 linears of one input: x [..., in] bfloat16 or
+    float32 (the plain path takes any float dtype; the small-M kernel raises
+    on others), weights 1-3 (wq [out_i, in] int8, w_scale [out_i] float32)
+    -> a tuple of [..., out_i] ``out_dtype``.
+
+    Each output is bitwise ``w8a8_linear(x, wq_i, w_scale_i)``: x is
+    quantized per token once, then multiplied by each weight. A CUDA x of at
+    most ``gemm.SMALL_M_MAX`` tokens takes the small-M kernel, which does
+    both in one launch for the whole group; more tokens are quantized in
+    plain torch, then each product is ``gemm.w8a8_matmul`` (the tiled kernel).
+    ``plain=True`` (or a CPU x) runs the plain versions. When x requires a
+    gradient (and grad mode is on) the same forward runs inside ``_W8A8STE``,
+    whose backward is the straight-through estimator."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _W8A8STE.apply(x, out_dtype, plain, *(t for pair in weights for t in pair))
+    return _group_forward(x, weights, out_dtype, plain)
 
 
 def w8a8_linear(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,

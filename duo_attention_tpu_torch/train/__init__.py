@@ -1,2 +1,2 @@
-"""Gate-training data (counterpart of duo_attention_tpu/train/). Only the
-passkey dataset is ported so far; the trainer comes with the training slice."""
+"""Gate training (counterpart of duo_attention_tpu/train/): the passkey data,
+the losses, the gate trainer and the tiny-LM pretraining."""

@@ -42,6 +42,11 @@ def test_the_eval_stack_is_covered():
         assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
 
 
+def test_the_training_slice_is_covered():
+    for module in ("ops/blockwise", "train/loss", "train/trainer", "train/pretrain", "evals/accuracy_loop"):
+        assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules((REPO / path).read_text()) if _forbidden(m)]

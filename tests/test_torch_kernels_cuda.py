@@ -954,3 +954,64 @@ def test_streaming_decode_at_the_pool_shapes(dev, B):
     got = flash.streaming_cache_attention(q, *bufs, cs, cs + 1, 64, 256)
     want = flash.streaming_cache_attention_plain(q, *bufs, cs, cs + 1, 64, 256)
     assert_bf16_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Gate training: the W8A8 straight-through linear and the two-way forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [17, 2048])
+def test_w8a8_ste_on_the_tiled_kernel_equals_the_plain_path(dev, M):
+    """With a gradient, w8a8_linear_group runs the tiled kernel (one launch a
+    weight) and equals the plain version bitwise; its straight-through
+    backward (a cuBLAS bf16 product) is the same on both paths."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    K = 4096
+    weights = [quant.quantize_weight_int8(torch.randn((n, K), generator=gen, device=dev) / 64) for n in (4096, 1024)]
+    x = torch.randn((1, M, K), generator=gen, device=dev).to(torch.bfloat16)
+    cts = [torch.randn((1, M, wq.shape[0]), generator=gen, device=dev).to(torch.bfloat16) for wq, _ in weights]
+    grads, outs = [], []
+    for plain in (False, True):
+        xg = x.clone().requires_grad_(True)
+        before = gemm.w8a8_matmul.tiled_launches
+        got = quant.w8a8_linear_group(xg, weights, torch.bfloat16, plain)
+        assert gemm.w8a8_matmul.tiled_launches - before == (0 if plain else len(weights))
+        torch.autograd.backward(got, cts)
+        grads.append(xg.grad)
+        outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert torch.equal(grads[0], grads[1]) and grads[0].abs().max() > 0
+
+
+def test_two_way_gate_gradients_kernel_path_equal_plain_path(dev):
+    """forward_two_way at the 8B width (2 layers, random int8 weights), S =
+    1,024: teacher, student and the gate gradient on the tiled kernel equal
+    the plain path's (rtol 1e-5; the products are bitwise, the rest runs the
+    same torch ops), and the kernel path launches 21 tiled products a layer
+    (teacher 7, student 7, the student's recompute 7) and no plain one."""
+    import dataclasses
+
+    from duo_attention_tpu_torch import PRESETS
+
+    cfg = dataclasses.replace(PRESETS["Llama-3-8B-Instruct-Gradient-1048k"], num_layers=2, vocab_size=1024)
+    params = quant.init_params_w8a8_random(cfg, seed=0, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+    g0 = torch.full((cfg.num_layers, cfg.num_kv_heads), 0.5, device=dev)
+    g0[0, 0], g0[1, 1] = 0.0, 1.0  # on the clip's bounds
+    runs = []
+    for plain in (False, True):
+        gates = g0.clone().requires_grad_(True)
+        tiled, plain_calls = gemm.w8a8_matmul.tiled_launches, gemm.w8a8_matmul_plain.cuda_calls
+        t, s = llama.forward_two_way(params, gates, cfg, 64, 256, ids, block_k=512, remat=True, plain=plain)
+        ((t.float() - s.float()) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            assert gemm.w8a8_matmul.tiled_launches - tiled == 21 * cfg.num_layers
+            assert gemm.w8a8_matmul_plain.cuda_calls == plain_calls
+        runs.append((t, s, gates.grad))
+    for a, b in zip(*runs):
+        assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=0), (a - b).abs().max()
+    assert runs[0][2].abs().max() > 0
