@@ -35,7 +35,11 @@ result):
      buffers (sink rows 72, ring R = 384, B = 4 and 8, [B] lengths and starts
      across the ring's wrap and before the sink is full), and the INT4 decode
      and the INT4 pair write at B = 8 with the bench's ragged lengths near
-     32,500 beside short rows (bucket 32768).
+     32,500 beside short rows (bucket 32768). Then every attention kernel's
+     head_dim-64 instantiation and the three writes at D = 64, at 10b's
+     shapes (the constructed circuit's: 2 full and 2 streaming KV heads of
+     one query head, chunks of 256, a cache of 1,536, sink 16, recent 64)
+     and at the 8B path's shapes with D = 64, recorded as ``<kernel>.d64``.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
@@ -116,14 +120,29 @@ result):
         1,024-4,096 tokens padded to 4,096 (the TPU recipe's length) for the
         time a step and the peak memory, a 4th profiled;
      10b evals/accuracy_loop.py::run_loop with 80 gate steps and the JAX
-        loop's other defaults (B = 8, 16 samples) on constructed-d128 (the
-        kernels take head_dim 128): its gates separated as
-        tests/test_accuracy_loop.py:99-123 requires (retrieval > 0.6, local <
-        0.35, a gap > 0.4), word overlap >= 0.95 full and trained, >= 0.90
-        their W8A8KV4 variants, <= 0.25 inverted; then that test's 80-step
-        gate training on the 64-wide constructed circuit, its gates (same
-        bounds; retrieval heads layer 1, heads 0 and 1) beside the TPU's
-        record.
+        loop's other defaults (B = 8, 16 samples) on the 64-wide constructed
+        circuit of the TPU's record (artifacts/accuracy_loop/report.json),
+        through the head_dim-64 kernels: its gates separated as
+        tests/test_accuracy_loop.py:99-123 requires (retrieval heads layer
+        1, heads 0 and 1, > 0.6, local < 0.35, a gap > 0.4), word overlap
+        >= 0.95 full and trained, >= 0.90 their W8A8KV4 variants, <= 0.25
+        inverted, printed beside the record's; its launches are the
+        ``.d64`` rows' of the kernels line.
+ 11. Mixtral-8x7B's MoE MLP (models/llama.py::_moe_mlp, dense dispatch) at
+     the published width (mistralai/Mixtral-8x7B-v0.1's config.json through
+     config_from_hf_dict), depth cut to 8 of 32 layers, random weights, 4 of
+     8 KV heads full in every layer, sink 64, recent 256, in bf16 and in
+     W8A8KV4 (init_params_w8a8: attention projections and head int8, router
+     float32, experts bf16): phase 4's DuoEngine run (16,000-token prompt,
+     chunk 4096, 64 greedy tokens; launch counts, TTFT, decode ms/token,
+     idle share, peak memory), the captured decode's tokens equal to an
+     eager loop's, phase 5 over 4 layers (the plain path's router handed
+     the kernel path's experts: _PinnedRouting), a ServingEngine run of 3
+     requests held to isolated runs (up to the first logit near-tie or
+     router near-tie, ROUTER_NEAR_TIE), and the device ms a step by kind (expert
+     products, router and combine, attention kernels, W8A8 products, other)
+     beside the bounds of dense dispatch (every expert read a token; every
+     expert multiplied a prompt token).
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -180,6 +199,9 @@ TRAIN_LR, TRAIN_REG, TRAIN_WARMUP, TRAIN_PASSKEYS, TRAIN_BLOCK, TILED_PER_LAYER 
 # 10b: tests/test_accuracy_loop.py:99-123's length; at the JAX default of 600 steps 10b took 266 s on an H100
 LOOP_GATE_STEPS = 80
 NEAR_TIE = 0.25  # top-2 logit gap: about twice phase 7's largest |dlogit| on the H100 (0.1199)
+# A MoE router's near-tie: the gap between its k-th and (k+1)-th expert logits, below which
+# another product's rounding (a pool step at B = 4 against B = 1) may pick the other expert
+ROUTER_NEAR_TIE = 0.02
 # the pallas_call each kernel replaces
 REPLACES = {
     "full_cache_attention.prefill": "duo_attention_tpu/ops/flash.py:467",
@@ -195,6 +217,8 @@ REPLACES = {
     # below M = 256 JAX leaves the quantization and the product to XLA
     "w8a8_matmul.small": "duo_attention_tpu/ops/quant.py:202",
 }
+# the attention kernels' and the writes' head_dim-64 instantiations (phase 3 at D = 64, launched by 10b)
+REPLACES.update({name + ".d64": where for name, where in list(REPLACES.items()) if not name.startswith("w8a8")})
 SOURCES = {"full_cache_attention_q4": "flash_q4.cu", "full_cache_attention": "flash.cu",
            "streaming_cache_attention": "flash.cu", "write_row": "inplace.cu",
            "write_streaming_rows": "inplace.cu", "write_q4_token": "inplace.cu", "w8a8_matmul": "gemm.cu"}
@@ -217,14 +241,29 @@ SMALL_CASES = [*((label, (N,), K) for label, (N, K) in GEMM_SHAPES.items()),
                ("wq+wk+wv", (4096, 1024, 1024), 4096), ("gate+up", (14336, 14336), 4096)]
 # Gate training's shapes (10a): every projection of a layer at M = B*S on the tiled route.
 TRAIN_GEMM_LABELS = ("wq/wo", "wk/wv", "gate/up", "down")
-# 10b's W8A8KV4 eval on constructed-d128 (hidden 512, 8 q and 4 KV heads of 128, intermediate 128;
-# the head stays bf16): prefill chunks of 256 and a ragged tail on the tiled route, and the decode
-# step's groups at M = 1 on the small-M route.
-D128_GEMM_SHAPES = {"d128 wq": (1024, 512), "d128 wk/wv": (512, 512), "d128 wo": (512, 1024),
-                    "d128 gate/up": (128, 512), "d128 down": (512, 128)}
-D128_PREFILL_MS = (256, 136)
-D128_SMALL_CASES = [("d128 wq+wk+wv", (1024, 512, 512), 512), ("d128 wo", (512,), 1024),
-                    ("d128 gate+up", (128, 128), 512), ("d128 down", (512,), 128)]
+# 10b's W8A8KV4 eval on the constructed circuit (hidden 256, 4 heads of 64, intermediate 64; the
+# head stays bf16): prefill chunks of 256 and a ragged tail on the tiled route, and the decode step's
+# groups at M = 1 on the small-M route; its engines' chunk and cache (accuracy_loop.run_loop).
+LOOP_GEMM_SHAPES = {"loop wq/wk/wv/wo": (256, 256), "loop gate/up": (64, 256), "loop down": (256, 64)}
+LOOP_PREFILL_MS = (256, 136)
+LOOP_SMALL_CASES = [("loop wq+wk+wv", (256, 256, 256), 256), ("loop wo", (256,), 256),
+                    ("loop gate+up", (64, 64), 256), ("loop down", (256,), 64)]
+LOOP_CHUNK, LOOP_CACHE = 256, 1024 + 512
+# Phase 11: mistralai/Mixtral-8x7B-v0.1's config.json as published, read by the port's
+# config_from_hf_dict; depth cut to MIXTRAL_LAYERS of 32 (dense dispatch keeps the experts in bf16 in
+# both formats: 2.82 GB a layer, so 32 layers would need about 93 GB). A synthetic pattern: 4 of
+# the 8 KV heads of every layer are retrieval heads (sparsity 0.5).
+MIXTRAL_HF_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "model_type": "mixtral", "num_attention_heads": 32,
+    "num_experts_per_tok": 2, "num_hidden_layers": 32, "num_key_value_heads": 8, "num_local_experts": 8,
+    "output_router_logits": False, "rms_norm_eps": 1e-05, "rope_theta": 1e6, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.36.0.dev0", "use_cache": True, "vocab_size": 32000,
+}
+MIXTRAL_LAYERS, MIXTRAL_FULL_HEADS = 8, 4
+MIXTRAL_SERVE_LENS, MIXTRAL_SERVE_NEW = (6000, 1500, 3000), 24
 
 
 class SmokeFailure(Exception):
@@ -824,14 +863,14 @@ def phase_kernels_w8a8kv4(rec):
         gemm_case(label, N, K, CHUNK, torch.float32 if label == "head" else torch.bfloat16, main=label == "gate/up")
     for label in TRAIN_GEMM_LABELS:  # 10a's M: at N = 1024 one wave of tiles is not filled
         gemm_case(label, *GEMM_SHAPES[label], TRAIN_PAD, torch.bfloat16)
-    for label, (N, K) in D128_GEMM_SHAPES.items():
-        for M in D128_PREFILL_MS:
+    for label, (N, K) in LOOP_GEMM_SHAPES.items():
+        for M in LOOP_PREFILL_MS:
             gemm_case(label, N, K, M, torch.bfloat16)
     torch.cuda.empty_cache()
     for label, ns, K in SMALL_CASES:
         for M in (1, 4, 8):
             _small_case(rec, gen, label, ns, K, M, main=(label, M) == ("gate+up", 1))
-    for label, ns, K in D128_SMALL_CASES:
+    for label, ns, K in LOOP_SMALL_CASES:
         _small_case(rec, gen, label, ns, K, 1)
     torch.cuda.empty_cache()
 
@@ -991,6 +1030,166 @@ def phase_kernels_w8a8kv4(rec):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_d64(rec):
+    """Phase 3 at head_dim 64: every attention kernel's D = 64 instantiation
+    (prefill and decode of the bf16 full heads, the streaming heads and the
+    INT4 full heads) and the three writes, against their plain versions with
+    the tolerances of D = 128. The main cases are 10b's shapes (the
+    constructed circuit: 4 KV heads of 64, 2 full and 2 streaming at
+    sparsity 0.5, one query head each, chunks of LOOP_CHUNK, a cache of
+    LOOP_CACHE, sink 16, recent 64); the others are the 8B path's shapes
+    with D = 64, beside phase 3's D = 128 times. Recorded under
+    ``<kernel>.d64``."""
+    import torch
+    import torch.nn.functional as F
+
+    from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
+    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.ops import flash, inplace, quant
+    from duo_attention_tpu_torch.utils import cuda_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6464)
+    D = 64
+    record = rec.record
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * mul).to(torch.bfloat16)
+
+    def vec(x, B):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
+
+    # (case, B, S, cs, KV heads, query heads per KV head, cache slots, chunk, sink, recent, main)
+    loop = (2, 1, LOOP_CACHE, LOOP_CHUNK, 16, 64)
+    big = (4, GROUP, MAX_CACHE, CHUNK, SINK, RECENT)
+    cases = [("prefill 10b S=256 cs=768", 1, LOOP_CHUNK, 768, *loop, True),
+             ("decode 10b cs=1000", 1, 1, 1000, *loop, True),
+             ("prefill 8B shape cs=12288", 1, CHUNK, 12288, *big, False),
+             ("decode 8B shape cs=16000", 1, 1, 16000, *big, False),
+             ("decode 8B shape cs=[B] B=4", 4, 1, [5, 4096, 12345, 32000], *big, False)]
+    for case, B, S, cs, Hkv, G, T, chunk, sink, recent, main in cases:
+        kind = "decode" if S == 1 else "prefill"
+        Hq = Hkv * G
+        csv = vec(cs, B)
+        cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+        q = randn(B, S, Hq, D, mul=Q_PEAK)
+        bucket = min(_next_bucket(int(csv.max()) + S), T)
+        qpos = csv[:, None] + torch.arange(S, device=dev)
+        mask = full_mask(qpos, bucket)[:, None]  # [B, 1, S, bucket]
+        flops = 4 * D * Hq * int(mask.sum())
+        tokens = int((csv + S).sum())
+        qt = q.transpose(1, 2)
+
+        # bf16 full heads
+        k, v = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
+        call = lambda: flash.full_cache_attention(q, k, v, cs_arg, bucket=bucket)  # noqa: E731
+        plain = lambda: flash.full_cache_attention_plain(q, k, v, cs_arg, bucket=bucket)  # noqa: E731
+        err, ratio, ok = _attn_tol_ok(call(), plain())
+        kc, vc = (t[:, :, :bucket].repeat_interleave(G, dim=1) for t in (k, v))
+        times = timed(call, plain, lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask))
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hkv * D * tokens)
+        record(f"full_cache_attention.{kind}.d64", case, err, ok, times, _bound(flops, nbytes), ratio, main=main)
+        del k, v, kc, vc
+
+        # INT4 full heads; the yardstick is SDPA over a bf16 copy dequantized beforehand
+        kq, ks = quant.quantize_int4_paired(randn(B, Hkv, T, D))
+        vq, vs = quant.quantize_int4_paired(randn(B, Hkv, T, D))
+        bufs = [t.contiguous() for t in (kq, ks, vq, vs)]
+        call = lambda: flash.full_cache_attention_q4(q, *bufs, cs_arg, bucket=bucket)  # noqa: E731
+        plain = lambda: flash.full_cache_attention_q4_plain(q, *bufs, cs_arg, bucket=bucket)  # noqa: E731
+        err, ratio, ok = _attn_tol_ok(call(), plain(), q4=True)
+        rows = bucket // 2
+        dequant = lambda: (quant.dequantize_int4_paired(bufs[0][:, :, :rows], bufs[1][..., :rows]).bfloat16(),  # noqa: E731
+                           quant.dequantize_int4_paired(bufs[2][:, :, :rows], bufs[3][..., :rows]).bfloat16())
+        dequant_ms = cuda_time_ms(dequant, iters=3, warmup=1)
+        kc, vc = (t.repeat_interleave(G, dim=1) for t in dequant())
+        times = timed(call, plain, lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask))
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * Hkv * tokens * (D // 2 + 4)
+        record(f"full_cache_attention_q4.{kind}.d64", case, err, ok, times, _bound(flops, nbytes), ratio,
+               main=main, library_dequant_ms=dequant_ms)
+        del bufs, kq, ks, vq, vs, kc, vc, mask
+
+        # streaming heads over the sink buffer and the ring
+        Ts, R = sink + chunk, -(-(recent + chunk) // 512) * 512
+        sbufs = [randn(B, Hkv, Ts, D), randn(B, Hkv, Ts, D), randn(B, Hkv, R, D), randn(B, Hkv, R, D)]
+        tot_arg = cs_arg + S
+        call = lambda: flash.streaming_cache_attention(q, *sbufs, cs_arg, tot_arg, sink, recent)  # noqa: E731
+        plain = lambda: flash.streaming_cache_attention_plain(q, *sbufs, cs_arg, tot_arg, sink, recent)  # noqa: E731
+        err, ratio, ok = _attn_tol_ok(call(), plain())
+        smask = torch.stack([torch.cat([sink_mask(qpos[b], sink, sink),
+                                        ring_mask(qpos[b], R, csv[b] + S, csv[b], sink, recent)], dim=-1)
+                             for b in range(B)])[:, None]  # [B, 1, S, sink + R]
+        kc = torch.cat([sbufs[0][:, :, :sink], sbufs[2]], dim=2).repeat_interleave(G, dim=1)
+        vc = torch.cat([sbufs[1][:, :, :sink], sbufs[3]], dim=2).repeat_interleave(G, dim=1)
+        times = timed(call, plain, lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=smask))
+        slots = int(smask.any(dim=2).sum())
+        nbytes = 2 * (2 * B * S * Hq * D) + 2 * (2 * Hkv * D * slots)
+        record(f"streaming_cache_attention.{kind}.d64", case, err, ok, times,
+               _bound(4 * D * Hq * int(smask.sum()), nbytes), ratio, main=main)
+        del sbufs, kc, vc, smask
+
+        if S != 1:
+            continue
+        # the decode step's writes: a layer's K and V rows read in place from [B, 1, 2 Hkv, D] projections
+        # (the first Hkv heads full, the rest streaming), one launch each, bitwise the plain versions
+        krow_full, vrow_full = (randn(B, 1, 2 * Hkv, D)[:, :, :Hkv].transpose(1, 2) for _ in range(2))
+        krow_str, vrow_str = (randn(B, 1, 2 * Hkv, D)[:, :, Hkv:].transpose(1, 2) for _ in range(2))
+        kbuf, vbuf = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
+        refs = kbuf.clone(), vbuf.clone()
+        inplace.write_row(kbuf, krow_full, cs_arg, vbuf, vrow_full)
+        inplace.write_row_plain(refs[0], krow_full, cs_arg, refs[1], vrow_full)
+        ok = torch.equal(kbuf, refs[0]) and torch.equal(vbuf, refs[1])
+        p = csv.clamp(0, T - 1)
+        bi = torch.arange(B, device=dev)
+
+        def put_rows(buf, slot, row):  # the library's form: an indexed assignment a buffer
+            buf[bi, :, slot] = row[:, :, 0]
+
+        times = timed(lambda: inplace.write_row(kbuf, krow_full, cs_arg, vbuf, vrow_full),
+                      lambda: inplace.write_row_plain(refs[0], krow_full, cs_arg, refs[1], vrow_full),
+                      lambda: (put_rows(kbuf, p, krow_full), put_rows(vbuf, p, vrow_full)))
+        record("write_row.d64", case, 0.0 if ok else float("inf"), ok, times, _bound(0, 2 * 2 * (2 * B * Hkv * D)),
+               main=main)
+        del kbuf, vbuf, refs
+
+        sbufs = [randn(B, Hkv, Ts, D), randn(B, Hkv, Ts, D), randn(B, Hkv, R, D), randn(B, Hkv, R, D)]
+        srefs = [t.clone() for t in sbufs]
+        inplace.write_streaming_rows(*sbufs, krow_str, vrow_str, cs_arg, sink)
+        inplace.write_streaming_rows_plain(*srefs, krow_str, vrow_str, cs_arg, sink)
+        ok = all(torch.equal(a, b) for a, b in zip(sbufs, srefs))
+        sink_slot, ring_slot = csv.clamp(max=sink), csv % R
+        times = timed(lambda: inplace.write_streaming_rows(*sbufs, krow_str, vrow_str, cs_arg, sink),
+                      lambda: inplace.write_streaming_rows_plain(*srefs, krow_str, vrow_str, cs_arg, sink),
+                      lambda: [put_rows(b_, s_, r_) for b_, r_, s_ in ((sbufs[0], krow_str, sink_slot),
+                                                                       (sbufs[1], vrow_str, sink_slot),
+                                                                       (sbufs[2], krow_str, ring_slot),
+                                                                       (sbufs[3], vrow_str, ring_slot))])
+        record("write_streaming_rows.d64", case, 0.0 if ok else float("inf"), ok, times,
+               _bound(0, 2 * (2 * B * Hkv * D) + 4 * (2 * B * Hkv * D)), main=main)
+        del sbufs, srefs
+
+        T2 = T // 2
+        qbufs = [torch.randint(0, 256, (B, Hkv, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+                 randn(B, Hkv, 4, T2), torch.randint(0, 256, (B, Hkv, T2, D), generator=gen, device=dev,
+                                                     dtype=torch.uint8), randn(B, Hkv, 4, T2)]
+        qrefs = [t.clone() for t in qbufs]
+        inplace.write_q4_token(qbufs[0], qbufs[1], krow_full, cs_arg, qbufs[2], qbufs[3], vrow_full)
+        inplace.write_q4_token_plain(qrefs[0], qrefs[1], krow_full, cs_arg, qrefs[2], qrefs[3], vrow_full)
+        ok = (torch.equal(qbufs[0], qrefs[0]) and torch.equal(qbufs[2], qrefs[2])
+              and torch.equal(qbufs[1].view(torch.int16), qrefs[1].view(torch.int16))
+              and torch.equal(qbufs[3].view(torch.int16), qrefs[3].view(torch.int16)))
+        times = timed(lambda: inplace.write_q4_token(qbufs[0], qbufs[1], krow_full, cs_arg, qbufs[2], qbufs[3],
+                                                     vrow_full),
+                      lambda: inplace.write_q4_token_plain(qrefs[0], qrefs[1], krow_full, cs_arg, qrefs[2],
+                                                           qrefs[3], vrow_full))
+        record("write_q4_token.d64", case, 0.0 if ok else float("inf"), ok, times,
+               _bound(0, 2 * B * Hkv * (2 * D + 2 * D + 4)), main=main)
+        del qbufs, qrefs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def _profiled_window(fn):
     """Run fn under torch.profiler (host and device) and return (the events
     from the start of fn's marked range on, the window's wall ms). The
@@ -1140,10 +1339,11 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
         "write_streaming_rows": NEW_TOKENS * hs_layers,
         "plain_cuda_calls": 0,
     })
-    if q4:  # 7 projections a layer and the head
-        expected["w8a8_matmul.tiled"] = n_chunks * 7 * cfg.num_layers  # M = 4096, one launch a weight
-        # M = 1: one launch for wq+wk+wv, wo, gate+up and down, and the head: 129 a step
-        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * (4 * cfg.num_layers + 1)
+    if q4:  # 7 projections a layer (a MoE layer: the 4 of attention; its experts stay bf16) and the head
+        moe = cfg.num_local_experts > 0
+        expected["w8a8_matmul.tiled"] = n_chunks * (4 if moe else 7) * cfg.num_layers  # M = 4096, a launch a weight
+        # M = 1: one launch for wq+wk+wv, wo (and gate+up, down), and the head: 129 a step for the 8B model
+        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * ((2 if moe else 4) * cfg.num_layers + 1)
     kv_bytes = kv_memory_bytes(cache)
     require(type(cache).__name__ == ("DuoCacheQ4" if q4 else "DuoCache"), f"cache is a {type(cache).__name__}")
     log(f"  launches {counts}")
@@ -1290,11 +1490,11 @@ def _new_blocks(before, segments):
 
 
 def _kernel_kind(name):
-    """The port's kernels by name (prefill_kernel<0> is full heads, <1>
+    """The port's kernels by name (prefill_kernel<0, D> is full heads, <1, D>
     streaming; the bf16 full-head decode is a split kernel and its merge),
     cuBLAS matrix products, and everything else."""
-    ours = {"prefill_kernel<0>": "full_cache_attention.prefill",
-            "prefill_kernel<1>": "streaming_cache_attention.prefill",
+    ours = {"prefill_kernel<0,": "full_cache_attention.prefill",  # <MODE, D>
+            "prefill_kernel<1,": "streaming_cache_attention.prefill",
             "stream_decode_kernel": "streaming_cache_attention.decode",  # before decode_kernel<, a part of its name
             "decode_kernel<": "full_cache_attention.decode",
             "decode_merge_kernel": "full_cache_attention.decode",
@@ -1355,6 +1555,42 @@ def device_breakdown(fn):
                 top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
 
 
+class _PinnedRouting:
+    """While active, models/llama.py's MoE router records the experts each
+    call picks (``replay`` False) or hands each call the experts the same
+    call of the recorded run picked, weighted by the softmax of this run's
+    own logits over them (``replay`` True). Top-k routing is a step function:
+    a last-bit difference between two runs can pick another expert where two
+    router logits tie, and that token's MLP output then differs by the whole
+    expert; pinned, two runs differ only by their arithmetic."""
+
+    def __init__(self):
+        self.chosen, self.replay, self.calls = [], False, 0
+
+    def __enter__(self):
+        import torch
+
+        from duo_attention_tpu_torch.models import llama
+
+        self.llama, self.kept = llama, llama.moe_router
+
+        def router(layer, x, top_k):
+            if not self.replay:
+                combine = self.kept(layer, x, top_k)
+                self.chosen.append(torch.topk(combine, top_k, dim=-1).indices)  # the nonzero weights
+                return combine
+            topi = self.chosen[self.calls]
+            self.calls += 1
+            logits = x.float() @ layer["moe_gate"].float()
+            return torch.zeros_like(logits).scatter_(-1, topi, torch.softmax(logits.gather(-1, topi), dim=-1))
+
+        llama.moe_router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.moe_router = self.kept
+
+
 def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=6000, steps=8):
     import torch
 
@@ -1393,9 +1629,13 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
                 out.append(llama.logits_at(params4, hidden, 0, plain=plain))
         return torch.cat(out), fed
 
-    # the kernel path decodes greedily; the plain path is fed the same tokens
-    kern, feed = run(False)
-    plain, _ = run(True, feed)
+    # the kernel path decodes greedily; the plain path is fed the same tokens (and, in a MoE model,
+    # its router the same experts; _PinnedRouting)
+    with _PinnedRouting() as pinned:
+        kern, feed = run(False)
+        pinned.replay = True
+        plain, _ = run(True, feed)
+        require(pinned.calls == len(pinned.chosen), f"router calls {pinned.calls} of {len(pinned.chosen)}")
     err = float((kern - plain).abs().max())
     scale = float(plain.abs().max())
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
@@ -1430,23 +1670,40 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
 def _top2_margins(engine, params, cfg, duo, prompt, stream):
     """The isolated run's top-2 logit gap before each token of ``stream``:
     a prefill on a new cache, then eager forward_chunk steps fed the stream
-    (teacher-forced). Returns [len(stream)] floats."""
+    (teacher-forced). Returns ([len(stream)] floats, and for a MoE model
+    [len(stream)] router gaps: the smallest gap between the k-th and the
+    (k+1)-th expert logit over the layers of the step that made that token's
+    logits; inf for the first, from the prefill, which serving repeats
+    exactly)."""
     import torch
 
     from duo_attention_tpu_torch.models import llama
 
     cache, logits = engine.prefill(prompt[None])
     bucket = engine.bucket_for(len(prompt) + len(stream))
-    gaps = []
-    with torch.no_grad():
-        for t in range(len(stream)):
-            top = logits.float().topk(2, dim=-1).values[0]
-            gaps.append(float(top[0] - top[1]))
-            if t + 1 < len(stream):
-                tok = torch.tensor([[stream[t]]], device="cuda")
-                hidden, cache = llama.forward_chunk(params, cfg, duo, cache, tok, 1, full_bucket=bucket)
-                logits = llama.logits_at(params, hidden, 0)
-    return gaps
+    gaps, router_gaps, step = [], [float("inf")], []
+    kept = llama.moe_router
+
+    def router(layer, x, top_k):
+        top = torch.topk(x.float() @ layer["moe_gate"].float(), top_k + 1, dim=-1).values
+        step.append(float((top[..., top_k - 1] - top[..., top_k]).min()))
+        return kept(layer, x, top_k)
+
+    llama.moe_router = router
+    try:
+        with torch.no_grad():
+            for t in range(len(stream)):
+                top = logits.float().topk(2, dim=-1).values[0]
+                gaps.append(float(top[0] - top[1]))
+                if t + 1 < len(stream):
+                    step.clear()
+                    tok = torch.tensor([[stream[t]]], device="cuda")
+                    hidden, cache = llama.forward_chunk(params, cfg, duo, cache, tok, 1, full_bucket=bucket)
+                    logits = llama.logits_at(params, hidden, 0)
+                    router_gaps.append(min(step, default=float("inf")))
+    finally:
+        llama.moe_router = kept
+    return gaps, router_gaps
 
 
 def _pool_window(engine, bucket, sample):
@@ -1523,7 +1780,9 @@ def phase_serving(params, cfg, duo, kv_quant, lens, max_new, sampling):
     new engine gives the same tokens, that each greedy request's first token
     is its isolated DuoEngine.generate first token and its stream the
     isolated stream up to the first near-tie (top-2 gap < NEAR_TIE) of the
-    isolated run, and that 8 replays of the pool step launch 8 times the
+    isolated run (in a MoE model, or up to its first router near-tie: a gap
+    below ROUTER_NEAR_TIE between the k-th and (k+1)-th expert logits in any
+    layer), and that 8 replays of the pool step launch 8 times the
     counters' kernels."""
     import torch
 
@@ -1534,11 +1793,11 @@ def phase_serving(params, cfg, duo, kv_quant, lens, max_new, sampling):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
     greedy = [i for i in range(len(lens)) if sampling.get(i) is None or sampling[i].is_greedy]
     single = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant, decode_burst=SERVE_BURST)
-    iso, gaps = {}, {}
+    iso, gaps, router_gaps = {}, {}, {}
     t0 = time.perf_counter()
     for i in greedy:
         iso[i] = single.generate(prompts[i][None], max_new)[0][0].tolist()
-        gaps[i] = _top2_margins(single, params, cfg, duo, prompts[i], iso[i])
+        gaps[i], router_gaps[i] = _top2_margins(single, params, cfg, duo, prompts[i], iso[i])
     iso_s = time.perf_counter() - t0
     _, free, _ = _serve_once(params, cfg, duo, kv_quant, prompts, max_new, sampling, {})
     stop_rid, stop_at = _stop_choice(free, len(lens) - 1)
@@ -1564,20 +1823,26 @@ def phase_serving(params, cfg, duo, kv_quant, lens, max_new, sampling):
     agreement = {}
     for i in greedy:
         tie = next((t for t, g in enumerate(gaps[i]) if g < NEAR_TIE), len(gaps[i]))
+        # a MoE model's router near-tie: from that step on another expert may have been picked
+        rtie = next((t for t, g in enumerate(router_gaps[i]) if g < ROUTER_NEAR_TIE), len(gaps[i]))
         prefix = next((t for t, (a, b) in enumerate(zip(served[i], iso[i])) if a != b), min(len(served[i]), len(iso[i])))
         diverged = prefix < len(served[i])
         agreement[i] = dict(agreeing_prefix=prefix, first_near_tie=tie, served=len(served[i]),
                             gap_at_first_near_tie=gaps[i][tie] if tie < len(gaps[i]) else None,
-                            gap_at_divergence=gaps[i][prefix] if diverged else None)
+                            gap_at_divergence=gaps[i][prefix] if diverged else None,
+                            first_router_near_tie=rtie, smallest_router_gap=min(router_gaps[i]))
         log(f"  request {i} (prompt {lens[i]}): served {len(served[i])} tokens, agrees with its isolated run for "
             f"{prefix}" + (f" (isolated top-2 gap there {gaps[i][prefix]:.4f})" if diverged else "")
             + f"; its first near-tie (top-2 gap < {NEAR_TIE}) at {tie}"
-            + (f" (gap {gaps[i][tie]:.4f})" if tie < len(gaps[i]) else " (none)"))
+            + (f" (gap {gaps[i][tie]:.4f})" if tie < len(gaps[i]) else " (none)")
+            + (f"; first router near-tie (gap < {ROUTER_NEAR_TIE}) at {rtie}, smallest router gap "
+               f"{min(router_gaps[i]):.4f}" if cfg.num_local_experts else ""))
         require(served[i][0] == iso[i][0], f"request {i}: first token {served[i][0]}, isolated {iso[i][0]}")
-        require(prefix >= min(tie, len(served[i])), f"request {i} diverged at {prefix} before its first near-tie {tie}")
+        require(prefix >= min(tie, rtie, len(served[i])),
+                f"request {i} diverged at {prefix} before its first near-tie {min(tie, rtie)}")
         # the same context up to the divergence: the served step flipped a token only where the
-        # isolated run had a near-tie
-        require(not diverged or agreement[i]["gap_at_divergence"] < NEAR_TIE,
+        # isolated run had a near-tie (or after a router near-tie)
+        require(not diverged or agreement[i]["gap_at_divergence"] < NEAR_TIE or rtie <= prefix,
                 f"request {i} diverged at {prefix}, where the isolated top-2 gap is {agreement[i]['gap_at_divergence']}")
     bucket = max(b for b, _ in engine._graphs)
     steps = _pool_steps(engine, bucket, f"B={SERVE_SLOTS}")
@@ -2201,57 +2466,38 @@ def phase_accuracy_loop():
     gate steps (tests/test_accuracy_loop.py:99-123's recipe length: the JAX
     default of 600 took 266 s on an H100, PERF.md) and the JAX loop's other
     defaults (B = 8, 128-1,024 tokens padded to 1,280, sink 16, recent 64,
-    sparsity 0.5, 16 samples, W8A8KV4 variants), on constructed-d128, the
-    circuit whose head_dim the kernels take; then that test's own 80-step
-    gate training on the 64-wide constructed circuit of the TPU's record,
-    its gates printed beside the record's (600 steps)."""
+    sparsity 0.5, 16 samples, W8A8KV4 variants), on the 64-wide constructed
+    circuit of the TPU's record (artifacts/accuracy_loop/report.json), through
+    the kernels' head_dim-64 instantiations; its overlaps printed beside the
+    record's."""
     import torch
 
     from duo_attention_tpu_torch.evals.accuracy_loop import run_loop
-    from duo_attention_tpu_torch.models.constructed import BASE_SPEC, SMALL_D128_SPEC, build_params
-    from duo_attention_tpu_torch.tokenizer import get_tokenizer
-    from duo_attention_tpu_torch.train.data import MultiPasskeyDataset, PasskeyDataConfig, data_iterator
-    from duo_attention_tpu_torch.train.trainer import GateTrainConfig, GateTrainer
+    from duo_attention_tpu_torch.models.constructed import BASE_SPEC
 
     with open(os.path.join(REPO, "artifacts", "accuracy_loop", "report.json")) as f:
         record = json.load(f)
+    require(record["lm"] == "constructed" and record["model"]["head_dim"] == 64, "the record's circuit changed")
     out = {}
     reset_counts()
     t0 = time.perf_counter()
-    report = run_loop(_fresh_dir("accuracy_loop", "constructed-d128", phase="phase10"), gate_steps=LOOP_GATE_STEPS,
-                      reuse_lm=False, lm="constructed-d128", device="cuda")
+    report = run_loop(_fresh_dir("accuracy_loop", "constructed", phase="phase10"), gate_steps=LOOP_GATE_STEPS,
+                      reuse_lm=False, lm="constructed", device="cuda")
     r = {k: v["word_overlap"] for k, v in report["results"].items()}
-    out["constructed-d128"] = dict(phase_s=time.perf_counter() - t0, gates=report["gates"], results=report["results"],
-                                   teacher_forced_answer_acc=report["teacher_forced_answer_acc"])
-    log(f"  run_loop, constructed-d128, {LOOP_GATE_STEPS} gate steps: {out['constructed-d128']['phase_s']:.1f} s; "
-        f"gates {np.round(report['gates'], 3).tolist()}\n    word overlap: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in r.items()) + "; the TPU's record (constructed, 600 steps): "
-        + ", ".join(f"{k} {v['word_overlap']:.3f}" for k, v in record["results"].items()))
-    require(_loop_gates_separate(report["gates"], SMALL_D128_SPEC), f"constructed-d128 gates {report['gates']}")
+    out["constructed"] = dict(phase_s=time.perf_counter() - t0, gates=report["gates"], results=report["results"],
+                              teacher_forced_answer_acc=report["teacher_forced_answer_acc"],
+                              record_results=record["results"], record_gates=record["gates"])
+    log(f"  run_loop, constructed (head_dim 64), {LOOP_GATE_STEPS} gate steps: {out['constructed']['phase_s']:.1f} s; "
+        f"gates {np.round(report['gates'], 3).tolist()} (the TPU's record, 600 steps: "
+        f"{np.round(record['gates'], 3).tolist()})\n    word overlap, the card beside the TPU's record: "
+        + ", ".join(f"{k} {v:.3f} / {record['results'][k]['word_overlap']:.3f}" for k, v in r.items()))
+    require(_loop_gates_separate(report["gates"], BASE_SPEC), f"constructed gates {report['gates']}")
     require(min(r["full_attention"], r["trained_pattern"]) >= 0.95, f"full or trained below 0.95: {r}")
     require(min(r["full_attention_w8a8kv4"], r["trained_pattern_w8a8kv4"]) >= 0.90, f"W8A8KV4 below 0.90: {r}")
     require(max(r["inverted_pattern"], r["inverted_pattern_w8a8kv4"]) <= 0.25, f"inverted above 0.25: {r}")
     out["counts"] = read_counts()
     log(f"  launches during 10b: {out['counts']}")
     require(out["counts"]["plain_cuda_calls"] == 0, f"10b called plain versions on the card: {out['counts']}")
-
-    # tests/test_accuracy_loop.py:99-123 on the card, the TPU record's circuit
-    t0 = time.perf_counter()
-    tok = get_tokenizer("word")
-    tcfg = GateTrainConfig(lr=0.02, reg_weight=0.05, num_steps=LOOP_GATE_STEPS, warmup_steps=10, sink_size=16,
-                           recent_size=64, batch_size=4, save_steps=LOOP_GATE_STEPS, block_k=128,
-                           output_dir=_fresh_dir("accuracy_loop", "constructed", phase="phase10"))
-    trainer = GateTrainer(build_params(tok, spec=BASE_SPEC, device="cuda"), BASE_SPEC.model_config(), tcfg,
-                          device="cuda")
-    dcfg = PasskeyDataConfig(context_length_min=128, context_length_max=512, num_passkeys=2, passkey_length=3)
-    trainer.train(data_iterator(MultiPasskeyDataset(tok, dcfg, num_samples=100_000), 4, pad_to=768),
-                  log_every=LOOP_GATE_STEPS)
-    gates = trainer.gates_numpy()
-    out["constructed"] = dict(phase_s=time.perf_counter() - t0, gates=gates.tolist())
-    log(f"  GateTrainer, constructed, {LOOP_GATE_STEPS} steps: {out['constructed']['phase_s']:.1f} s; gates "
-        f"{np.round(gates, 3).tolist()}; the TPU's record (600 steps): {np.round(record['gates'], 3).tolist()}")
-    require(_loop_gates_separate(gates, BASE_SPEC), f"constructed gates {gates.tolist()}")
-    del trainer
     torch.cuda.empty_cache()
     return out
 
@@ -2265,6 +2511,158 @@ def phase_train():
         out[key] = fn()
         out[key]["phase_s"] = time.perf_counter() - t0
         log(f"  phase {label.split(':')[0]}: {out[key]['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: Mixtral-8x7B's MoE MLP at the published width
+# ---------------------------------------------------------------------------
+
+
+def _graph_vs_eager_tokens(params, cfg, duo, kv_quant):
+    """The engine's decode (its first step eager, then CUDA-graph replays)
+    against a loop of eager forward_chunk steps at the same bucket, each from
+    its own prefill of the 16,000-token prompt: the NEW_TOKENS greedy tokens
+    must be equal."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine
+    from duo_attention_tpu_torch.models import llama
+
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
+    cache, logits = engine.prefill(ids)
+    graph, cache = engine.decode_tokens(cache, torch.argmax(logits, -1), NEW_TOKENS, length=PROMPT_LEN)
+    del cache
+    cache, logits = engine.prefill(ids)
+    token, bucket, eager = torch.argmax(logits, -1), engine.bucket_for(PROMPT_LEN + NEW_TOKENS), []
+    with torch.no_grad():
+        for _ in range(NEW_TOKENS):
+            eager.append(int(token[0]))
+            hidden, cache = llama.forward_chunk(params, cfg, duo, cache, token[:, None], 1, full_bucket=bucket)
+            token = torch.argmax(llama.logits_at(params, hidden, 0), dim=-1)
+    graph = [int(t) for t in graph[0]]
+    first = next((i for i, (a, b) in enumerate(zip(graph, eager)) if a != b), None)
+    log(f"  captured decode against the eager loop: {NEW_TOKENS} tokens, "
+        + ("equal" if first is None else f"first difference at {first}"))
+    require(first is None, f"captured decode tokens {graph} differ from the eager loop's {eager}")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(equal=True, tokens=graph[:16])
+
+
+def _moe_layer_breakdown(layer, cfg):
+    """Device ms of one MoE MLP (llama._moe_mlp) alone at the decode step's
+    shape (one token) and at a prefill chunk's (CHUNK tokens), by kind:
+    the expert products (its cuBLAS products less the router's) and the
+    router, softmax, combine, SwiGLU and weighted sum (the rest)."""
+    import torch
+
+    from duo_attention_tpu_torch.models import llama
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    out = {}
+    for label, S in (("decode", 1), ("prefill_chunk", CHUNK)):
+        x = torch.randn((1, S, cfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+        moe = device_breakdown(lambda: llama._moe_mlp(layer, x, cfg.num_experts_per_tok))
+        router = device_breakdown(lambda: llama.moe_router(layer, x, cfg.num_experts_per_tok))
+        experts = moe["by_kind_ms"].get("matmul", 0.0) - router["by_kind_ms"].get("matmul", 0.0)
+        out[label] = dict(busy_ms=moe["device_busy_ms"], expert_products_ms=experts,
+                          router_and_combine_ms=moe["device_busy_ms"] - experts, router_alone_ms=router["device_busy_ms"])
+        del x
+    return out
+
+
+def _step_by_kind(b, moe, layers, scale):
+    """A profiled window's device ms by kind (``b`` from device_breakdown),
+    divided by ``scale`` (steps, or 1), with the MoE MLP's share taken from
+    ``moe`` (one layer alone at the same shape) times the layers: the expert
+    products, the router and combine, the attention kernels (the port's
+    attention kernels and cache writes), the W8A8 products, and the rest."""
+    by = {k: v / scale for k, v in b["by_kind_ms"].items()}
+    busy = b["device_busy_ms"] / scale
+    attention = sum(v for k, v in by.items() if k in REPLACES and not k.startswith("w8a8"))
+    w8a8 = sum(v for k, v in by.items() if k.startswith("w8a8"))
+    experts, router = layers * moe["expert_products_ms"], layers * moe["router_and_combine_ms"]
+    return dict(device_busy_ms=busy, expert_products_ms=experts, router_and_combine_ms=router,
+                attention_kernels_ms=attention, w8a8_products_ms=w8a8,
+                other_ms=busy - experts - router - attention - w8a8, cublas_products_ms=by.get("matmul", 0.0))
+
+
+def phase_mixtral():
+    """11: the Mixtral MoE MLP (models/llama.py::_moe_mlp, JAX's dense
+    dispatch) at Mixtral-8x7B's published width, depth cut to
+    MIXTRAL_LAYERS, random weights from a seed, a synthetic pattern (4 of 8
+    KV heads full in every layer, sink 64, recent 256), in bf16 and in
+    W8A8KV4 (init_params_w8a8: the 4 attention projections and the head int8,
+    the router float32, the experts bf16 as JAX leaves them): phase 4's
+    DuoEngine run on the 16,000-token prompt (launch counts, TTFT, decode
+    ms/token, idle share, peak memory), the captured decode's tokens against
+    an eager loop's, phase 5's kernel path against the plain path over 4
+    layers, a ServingEngine run held to isolated runs (phase 8c's checks),
+    and the device ms a step by kind beside the bounds of dense dispatch."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoConfig, init_params, init_params_w8a8
+    from duo_attention_tpu_torch.config import config_from_hf_dict
+
+    published = config_from_hf_dict(MIXTRAL_HF_CONFIG)
+    cfg = dataclasses.replace(published, num_layers=MIXTRAL_LAYERS)
+    require((cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.vocab_size, cfg.rope_theta, cfg.rms_norm_eps, cfg.num_local_experts, cfg.num_experts_per_tok)
+            == (4096, 14336, 32, 8, 128, 32000, 1e6, 1e-5, 8, 2), f"Mixtral config {cfg}")
+    duo = DuoConfig(sink_size=SINK, recent_size=RECENT, num_full_kv_heads=(MIXTRAL_FULL_HEADS,) * MIXTRAL_LAYERS,
+                    max_cache_size=MAX_CACHE, prefill_chunk_size=CHUNK)
+    E, I, X = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
+    expert_bytes = 3 * X * E * I * 2  # a layer's experts in bf16, every one read under dense dispatch
+    bounds = dict(decode_ms_per_token=MIXTRAL_LAYERS * expert_bytes / PEAK_BYTES * 1e3,
+                  prefill_s=2 * PROMPT_LEN * MIXTRAL_LAYERS * 3 * X * E * I / PEAK_BF16_FLOPS,
+                  expert_gb_per_token=MIXTRAL_LAYERS * expert_bytes / 1e9,
+                  prefill_expert_tflop=2 * PROMPT_LEN * MIXTRAL_LAYERS * 3 * X * E * I / 1e12)
+    log(f"  Mixtral-8x7B (published config, {published.num_layers} layers) cut to {MIXTRAL_LAYERS}: experts "
+        f"{expert_bytes / 1e9:.2f} GB a layer; bounds: decode reads {bounds['expert_gb_per_token']:.1f} GB of experts "
+        f"a token, {bounds['decode_ms_per_token']:.2f} ms/token at {PEAK_BYTES / 1e12:.2f} TB/s before attention; "
+        f"prefill of {PROMPT_LEN} tokens {bounds['prefill_expert_tflop']:.0f} TFLOP of expert products, "
+        f"{bounds['prefill_s']:.3f} s at the bf16 dense peak")
+    out = dict(config=dataclasses.asdict(cfg), reduced=dict(num_layers=[published.num_layers, MIXTRAL_LAYERS]),
+               bounds=bounds)
+    formats = (("bf16", "none", lambda: init_params(cfg, seed=0, device="cuda")),
+               ("w8a8kv4", "int4", lambda: init_params_w8a8(cfg, seed=0, device="cuda", quantize_embeds=True)))
+    for fmt, kv_quant, make_params in formats:
+        t0 = time.perf_counter()
+        params = make_params()
+        torch.cuda.synchronize()
+        log(f"  {fmt} weights: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B params, "
+            f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.2f} GiB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        r = {}
+        log(f"  11 {fmt}: DuoEngine.generate")
+        r["end_to_end"] = phase_end_to_end(params, cfg, duo, kv_quant)
+        r["graph_vs_eager"] = _graph_vs_eager_tokens(params, cfg, duo, kv_quant)
+        moe = _moe_layer_breakdown(params["layers"][0], cfg)
+        prof = r["end_to_end"]["profile"]
+        n_chunks = -(-PROMPT_LEN // CHUNK)
+        r["by_kind"] = dict(
+            decode_step=_step_by_kind(prof["decode_8_steps"], moe["decode"], MIXTRAL_LAYERS, 8),
+            prefill=_step_by_kind(prof["prefill"], {k: n_chunks * v for k, v in moe["prefill_chunk"].items()},
+                                  MIXTRAL_LAYERS, 1))
+        r["moe_layer"] = moe
+        e2e = r["end_to_end"]
+        for window, b in r["by_kind"].items():
+            log(f"  11 {fmt} {window} device ms by kind: " + ", ".join(f"{k} {v:.3f}" for k, v in b.items()))
+        log(f"  11 {fmt}: TTFT {e2e['ttft_ms']:.1f} ms (bound {bounds['prefill_s'] * 1e3:.1f} ms of expert products); "
+            f"decode graph {e2e['decode']['graph']['ms_per_token']:.2f} ms/token (bound "
+            f"{bounds['decode_ms_per_token']:.2f}), idle {e2e['decode']['graph']['idle_share']:.3f}; peak memory "
+            f"{e2e['peak_memory_gib']:.2f} GiB")
+        log(f"  11 {fmt}: kernel path vs plain path")
+        r["kernel_vs_plain"] = phase_kernel_vs_plain(params, cfg, duo, kv_quant)
+        log(f"  11 {fmt}: ServingEngine, {len(MIXTRAL_SERVE_LENS)} requests")
+        r["serving"] = phase_serving(params, cfg, duo, kv_quant, MIXTRAL_SERVE_LENS, MIXTRAL_SERVE_NEW,
+                                     {1: _serve_sampling()[1]})
+        out[fmt] = r
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2294,9 +2692,13 @@ def main():
         log("phase 2: build")
         record["build_s"] = phase_build()
         log("phase 3: kernels vs plain versions")
+        t0 = time.perf_counter()
         phase_kernels(rec)
         phase_kernels_w8a8kv4(rec)
+        t1 = time.perf_counter()
+        phase_kernels_d64(rec)
         record["kernels"] = rec.results
+        log(f"  phase 3: {time.perf_counter() - t0:.1f} s (head_dim 64: {time.perf_counter() - t1:.1f} s)")
 
         from duo_attention_tpu_torch.models.llama import init_params
         from duo_attention_tpu_torch.ops.quant import init_params_w8a8_random
@@ -2345,6 +2747,11 @@ def main():
         record["train"] = phase_train()
         record["train"]["phase_s"] = time.perf_counter() - t0
         log(f"  phase 10: {record['train']['phase_s']:.1f} s")
+        log("phase 11: Mixtral-8x7B's MoE MLP at the published width (8 of 32 layers), bf16 and W8A8KV4")
+        t0 = time.perf_counter()
+        record["mixtral"] = phase_mixtral()
+        record["mixtral"]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 11: {record['mixtral']['phase_s']:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2352,17 +2759,24 @@ def main():
     runs = {fmt: record["end_to_end_" + fmt]["counts"] for fmt, _, _ in formats}
     runs.update({"serving_" + fmt: record["serving_" + fmt]["counts"] for fmt, _, _ in formats})
     runs.update({"eval_" + key: record["eval"][key]["counts"] for key in ("niah", "longbench", "efficiency")})
-    runs.update({key: record["train"][key]["counts"] for key in ("train_8b", "accuracy_loop")})
+    runs["train_8b"] = record["train"]["train_8b"]["counts"]
+    for fmt, _, _ in formats:
+        runs["mixtral_" + fmt] = record["mixtral"][fmt]["end_to_end"]["counts"]
+        runs["mixtral_serving_" + fmt] = record["mixtral"][fmt]["serving"]["counts"]
+    # 10b is the path at head_dim 64: its launches are the .d64 rows' (every other path is at 128)
+    runs_d64 = {"accuracy_loop": record["train"]["accuracy_loop"]["counts"]}
     line = []
     for name, cases in rec.results.items():
         if name not in REPLACES:
             continue
         head = next(c for c in cases if c["main"])  # the main path's shape
-        launches = {fmt: counts[name] for fmt, counts in runs.items()}
+        d64 = name.endswith(".d64")
+        paths = runs_d64 if d64 else ({**runs, **runs_d64} if name.startswith("w8a8") else runs)  # int8: any D
+        launches = {fmt: counts[name.removesuffix(".d64")] for fmt, counts in paths.items()}
         require(sum(launches.values()) > 0, f"{name}: no launch on either main path")
         line.append(dict(
             name=name, route="cuda",
-            source="duo_attention_tpu_torch/csrc/" + SOURCES[name.split(".")[0]],
+            source="duo_attention_tpu_torch/csrc/" + SOURCES[name.split(".")[0]], head_dim=64 if d64 else 128,
             replaces=REPLACES[name], launches=sum(launches.values()), launches_by_format=launches,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

@@ -31,6 +31,7 @@ W8A8KV4: ``params = init_params_w8a8(cfg, seed=0, quantize_embeds=True)``
 from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4, kv_memory_bytes
 from .config import PRESETS, DuoConfig, ModelConfig, RopeScaling
 from .engine import DuoEngine
+from .models.convert import load_hf_model, reorder_params
 from .models.llama import init_params
 from .ops.sampling import SamplingParams
 from .ops.quant import init_params_w8a8, init_params_w8a8_random
@@ -59,6 +60,8 @@ __all__ = [
     "init_cache_q4",
     "kv_memory_bytes",
     "DuoEngine",
+    "load_hf_model",
+    "reorder_params",
     "init_params",
     "init_params_w8a8",
     "init_params_w8a8_random",

@@ -94,7 +94,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 128;  // head_dim of every preset
+// Every kernel is a template on the head_dim D: 128 (every preset) or 64 (the
+// constructed circuits); the C entries below refuse any other.
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MODE_FULL = 0;
@@ -166,7 +167,7 @@ struct Rows {
   int glo_mod;  // glo mod R, taken once: a walk covers fewer than R ring tokens
 };
 
-template <int MODE>
+template <int MODE, int D>
 __device__ __forceinline__ Rows rows_of(const Args& a, int b, int hk, int glo) {
   const size_t bh = (size_t)b * a.Hkv + hk;
   Rows r = {};
@@ -182,7 +183,7 @@ __device__ __forceinline__ Rows rows_of(const Args& a, int b, int hk, int glo) {
   return r;
 }
 
-template <int MODE>
+template <int MODE, int D>
 __device__ __forceinline__ void kv_row(const Rows& r, int j, const bf16*& kp, const bf16*& vp) {
   if (MODE == MODE_STREAM && j >= r.sink) {
     int slot = r.glo_mod + (j - r.sink);  // below 2R
@@ -209,17 +210,24 @@ constexpr int PF_THREADS = 128 * (NWG + 1);  // and one producer warpgroup that 
 constexpr int NSTAGE = 3;  // K/V stages: two tiles are multiplied while a third is copied
 // A panel is rows of 64 bf16 (128 bytes a row) in the 128-byte swizzle: the
 // 16-byte piece c of row r sits at piece c ^ (r & 7). A warpgroup's Q and a
-// K or V tile are two panels each (D = 128 = two panels side by side), of 64
-// and of BK rows.
+// K or V tile are D / 64 panels each (two side by side at D = 128, one at
+// 64), of 64 and of BK rows.
 constexpr int PANEL = 64 * 128;
-constexpr int Q_BYTES = (BQ / 64) * 2 * PANEL;
 constexpr int KPANEL = BK * 128;  // a K or V panel: BK rows of 128 bytes
-constexpr int STAGE_BYTES = 4 * KPANEL;  // K panels 0, 1, then V panels 0, 1
-// + 2 * NSTAGE barriers of 8 bytes, + room to align to 1024
-constexpr int PREFILL_SMEM = Q_BYTES + NSTAGE * STAGE_BYTES + 16 * NSTAGE + 1024;
+template <int D>
+struct Prefill {
+  static constexpr int PANELS = D / 64;
+  static constexpr int Q_BYTES = (BQ / 64) * PANELS * PANEL;
+  static constexpr int STAGE_BYTES = 2 * PANELS * KPANEL;  // the K panels, then the V panels
+  // + 2 * NSTAGE barriers of 8 bytes, + room to align to 1024
+  static constexpr int SMEM = Q_BYTES + NSTAGE * STAGE_BYTES + 16 * NSTAGE + 1024;
+};
 
-template <int MODE>
+template <int MODE, int D>
 __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
+  constexpr int PANELS = Prefill<D>::PANELS, Q_BYTES = Prefill<D>::Q_BYTES;
+  constexpr int STAGE_BYTES = Prefill<D>::STAGE_BYTES;
+  constexpr int PPR = D / 8;  // 16-byte pieces a row of K, V or Q
   extern __shared__ __align__(128) unsigned char smem[];
   // panels need 1024-byte alignment (the swizzle pattern repeats every 1024 bytes)
   unsigned char* base = smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
@@ -258,10 +266,10 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
   // (2 * 128 * 240 + 128 * 24 of the SM's 65,536).
   if (wg == NWG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    // One K/V tile into a stage, in pieces of 16 bytes: 16 neighbouring threads
-    // copy one 256-byte row of K and of V. Rows at or past kend are zeros.
-    const Rows src_rows = rows_of<MODE>(a, b, hk, keys.glo);
-    const int ptid = tid & 127, c = ptid & 15;
+    // One K/V tile into a stage, in pieces of 16 bytes: D / 8 neighbouring
+    // threads copy one row of K and of V. Rows at or past kend are zeros.
+    const Rows src_rows = rows_of<MODE, D>(a, b, hk, keys.glo);
+    const int ptid = tid & 127, c = ptid % PPR;
     const uint32_t piece = (c >> 3) * KPANEL;
     for (int tile = 0; tile < ntiles; ++tile) {
       const int stage = tile % NSTAGE;
@@ -269,19 +277,19 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
       if (tile >= NSTAGE) mbar_wait(empty_addr + 8 * stage, (tile / NSTAGE - 1) & 1);
       const uint32_t st = stage0_addr + stage * STAGE_BYTES;
 #pragma unroll 4
-      for (int r = ptid >> 4; r < BK; r += 8) {
+      for (int r = ptid / PPR; r < BK; r += 128 / PPR) {
         const int j = tile * BK + r;
         const bf16 *kp = a.k0, *vp = a.v0;
         int nbytes = 0;
         if (j < kend) {
-          kv_row<MODE>(src_rows, j, kp, vp);
+          kv_row<MODE, D>(src_rows, j, kp, vp);
           kp += c * 8;
           vp += c * 8;
           nbytes = 16;
         }
         const uint32_t dst = st + piece + swz(r, c & 7);
         cp_async16(dst, kp, nbytes);
-        cp_async16(dst + 2 * KPANEL, vp, nbytes);
+        cp_async16(dst + PANELS * KPANEL, vp, nbytes);
       }
       cp_async_mbar_arrive(full_addr + 8 * stage);
     }
@@ -291,9 +299,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const float sc = bf16_scale(a.scale);
-  // Q of this warpgroup's 64 rows, scaled in bf16, into its two swizzled panels; rows past S are zero
-  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
-    const int r = i >> 4, c = i & 15;
+  // Q of this warpgroup's 64 rows, scaled in bf16, into its swizzled panels; rows past S are zero
+  for (int i = tid & 127; i < 64 * PPR; i += 128) {
+    const int r = i / PPR, c = i % PPR;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (wg * 64 + r < rows) {
       val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + wg * 64 + r) * a.Hq + h) * D + c * 8);
@@ -301,7 +309,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(__bfloat162float(e[u]) * sc);
     }
-    *reinterpret_cast<uint4*>(sQ + (wg * 2 + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
+    *reinterpret_cast<uint4*>(sQ + (wg * PANELS + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // wgmma may read what was stored
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // the warpgroup's own barrier
@@ -322,18 +330,18 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
                        : (wg_qmax >= keys.glo ? a.sink + (wg_qmax - keys.glo) : a.sink - 1);
   const int n_wg = min(ntiles, (jmax + BK) / BK);
 
-  float o[64];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
   float s[64];
   uint32_t p[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) p[i] = 0u;
 
-  const uint64_t dq0 = make_desc(sQ_addr + wg * 2 * PANEL, 16, 1024);
-  // S = (q * scale) K^T of one tile: 8 steps of 16 over D; a step is 32 bytes
-  // inside a panel's 128-byte rows, and the second panel follows the first
+  const uint64_t dq0 = make_desc(sQ_addr + wg * PANELS * PANEL, 16, 1024);
+  // S = (q * scale) K^T of one tile: D / 16 steps of 16 over D; a step is 32
+  // bytes inside a panel's 128-byte rows, and a second panel follows the first
   auto start_qk = [&](int tile) {
     const uint64_t dk0 = make_desc(stage0_addr + (tile % NSTAGE) * STAGE_BYTES, 16, 1024);
     wgmma_fence();
@@ -348,14 +356,14 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
   // O += P V of one tile: 8 steps of 16 keys; a step is 16 rows of 128 bytes in each V panel
   auto start_pv = [&](int tile) {
     const uint64_t dv0 =
-        make_desc(stage0_addr + (tile % NSTAGE) * STAGE_BYTES + 2 * KPANEL, KPANEL, 1024);
+        make_desc(stage0_addr + (tile % NSTAGE) * STAGE_BYTES + PANELS * KPANEL, KPANEL, 1024);
     fence_regs(p);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                          dv0 + (uint64_t)((kk * 16 * 128) >> 4));
+      wgmma_pv<D>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  dv0 + (uint64_t)((kk * 16 * 128) >> 4));
     }
     wgmma_commit();
   };
@@ -418,7 +426,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
     fence_regs(p);
     fence_regs(o);
 #pragma unroll
-    for (int i = 0; i < 64; i += 4) {
+    for (int i = 0; i < D / 2; i += 4) {
       o[i] *= al0;
       o[i + 1] *= al0;
       o[i + 2] *= al1;
@@ -499,14 +507,20 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
 // heads as rows; then a merge when there is more than one split
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_THREADS = D;  // thread d owns output column d; a K tile is one key a thread
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int LDKD = D + 8;  // K rows padded by 16 bytes: 8 threads' uint4 reads hit 8 bank groups
-constexpr int DEC_SMEM = DEC_THREADS * LDKD * (int)sizeof(bf16);
-constexpr int PART = D + 2;  // per (split, query head): D sums, then the max and the denominator
+template <int D>
+struct Decode {
+  static constexpr int THREADS = D;  // thread d owns output column d; a K tile is one key a thread
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int LDKD = D + 8;  // K rows padded by 16 bytes: 8 threads' uint4 reads hit 8 bank groups
+  static constexpr int SMEM = THREADS * LDKD * (int)sizeof(bf16);
+  static constexpr int PART = D + 2;  // per (split, query head): D sums, then the max and the denominator
+};
 
-template <int G>
-__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
+template <int G, int D>
+__global__ void __launch_bounds__(D) decode_kernel(Args a) {
+  constexpr int DEC_THREADS = Decode<D>::THREADS, DEC_WARPS = Decode<D>::WARPS;
+  constexpr int LDKD = Decode<D>::LDKD, DEC_SMEM = Decode<D>::SMEM, PART = Decode<D>::PART;
+  constexpr int CPL = D / 32;  // P.V: the output columns a lane owns
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);  // [DEC_THREADS][LDKD]
   float* sacc = reinterpret_cast<float*>(smem);  // [DEC_WARPS][G][D], after the key walk
@@ -530,28 +544,28 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
     sm[tid] = NEG_INF;
     sl[tid] = 0.f;
   }
-  // P.V: warp w takes keys [32w, 32w+32) of each tile; lane owns columns 4*lane..4*lane+3.
-  float acc[G][4];
+  // P.V: warp w takes keys [32w, 32w+32) of each tile; lane owns columns CPL*lane..CPL*lane+CPL-1.
+  float acc[G][CPL];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+    for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
   const Keys keys = key_range<MODE_FULL>(a, cs, 0, cs);
   // this block's keys: [lo, hi) of the visible range; every key below keys.end
   // is visible to the one query
   const int lo = split * a.split_keys;
   const int hi = min(keys.end, lo + a.split_keys);
 
-  const Rows src_rows = rows_of<MODE_FULL>(a, b, hk, keys.glo);
-  // A K tile into shared memory: 16 neighbouring threads copy one 256-byte row.
+  const Rows src_rows = rows_of<MODE_FULL, D>(a, b, hk, keys.glo);
+  // A K tile into shared memory: D / 8 neighbouring threads copy one row.
   auto load_k = [&](int k0) {
     const uint32_t dst = smem_addr(sK);
 #pragma unroll 4
     for (int i = tid; i < DEC_THREADS * (D / 8); i += DEC_THREADS) {
-      const int r = i >> 4, c = i & 15;
+      const int r = i / (D / 8), c = i % (D / 8);
       if (k0 + r < hi) {
         const bf16 *kp, *vp;
-        kv_row<MODE_FULL>(src_rows, k0 + r, kp, vp);
+        kv_row<MODE_FULL, D>(src_rows, k0 + r, kp, vp);
         cp_async16(dst + (r * LDKD + c * 8) * (int)sizeof(bf16), kp + c * 8, 16);
       }
     }
@@ -620,19 +634,29 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] *= salpha[g];
+      for (int c = 0; c < CPL; ++c) acc[g][c] *= salpha[g];
     const int jend = min(32 * warp + 32, hi - k0);
 #pragma unroll 8
     for (int jj = 32 * warp; jj < jend; ++jj) {
       const bf16 *kp, *vp;
-      kv_row<MODE_FULL>(src_rows, k0 + jj, kp, vp);
-      const uint2 raw = *reinterpret_cast<const uint2*>(vp + 4 * lane);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      kv_row<MODE_FULL, D>(src_rows, k0 + jj, kp, vp);
+      float e[CPL];  // this lane's CPL columns of the V row, in one load
+      if constexpr (CPL == 4) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(vp + 4 * lane);
+        e[0] = bf16_lo(raw.x);
+        e[1] = bf16_hi(raw.x);
+        e[2] = bf16_lo(raw.y);
+        e[3] = bf16_hi(raw.y);
+      } else {
+        const uint32_t raw = *reinterpret_cast<const uint32_t*>(vp + 2 * lane);
+        e[0] = bf16_lo(raw);
+        e[1] = bf16_hi(raw);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = sp[g][jj];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[g][c] += p * __bfloat162float(e[c]);
+        for (int c = 0; c < CPL; ++c) acc[g][c] += p * e[c];
       }
     }
     __syncthreads();
@@ -643,7 +667,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sacc[(warp * G + g) * D + 4 * lane + c] = acc[g][c];
+    for (int c = 0; c < CPL; ++c) sacc[(warp * G + g) * D + CPL * lane + c] = acc[g][c];
   __syncthreads();
   if (a.nsplit == 1) {
 #pragma unroll
@@ -675,7 +699,9 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(Args a) {
 // out[b, h, :] from the splits' states: out = sum_s e^(m_s - M) acc_s /
 // sum_s e^(m_s - M) l_s with M = max_s m_s. With every split empty M is
 // NEG_INF, the weights are 1, the sums 0, and the row is 0.
-__global__ void __launch_bounds__(DEC_THREADS) decode_merge_kernel(Args a) {
+template <int D>
+__global__ void __launch_bounds__(D) decode_merge_kernel(Args a) {
+  constexpr int PART = Decode<D>::PART;
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int hk = h / a.G, g = h % a.G;
   const float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit) * a.G + g) * PART;
@@ -703,21 +729,24 @@ constexpr int ST_TILE = 16;  // keys a warp takes at a time: one k-step of the m
 constexpr int ST_MAX_WARPS = 8;
 constexpr int ST_MAX_SPLITS = 8;  // blocks a cluster: the portable cluster size
 constexpr int ST_MAX_G = 8;  // the rows of an m16n8k16 tile that hold a head (8-15 are zero)
-// A warp's K rows are 320 bytes apart: the 16-byte fragment loads of a
-// quarter-warp (rows gid and gid + 1, 16t + 64u bytes in) fall in 8 distinct
-// 16-byte bank groups. V rows are 272 bytes apart: the 8 row addresses of an
-// ldmatrix phase do the same.
-constexpr int ST_LDK = D + 32, ST_LDV = D + 8;
-constexpr int ST_WARP_SMEM = ST_TILE * (ST_LDK + ST_LDV) * (int)sizeof(bf16);
-// After its walk a warp's output rows (float) take its K area, 136 floats
-// apart: a half-warp's float2 stores, (row gid, column 8j + 2t), hit 32 banks.
-constexpr int ST_ACC_LD = D + 8;
-static_assert(ST_MAX_G * ST_ACC_LD * 4 <= ST_TILE * ST_LDK * 2, "a warp's rows must fit in its K area");
-// A block's state in the leader's shared memory: acc [G][D], then m [8] and l [8]
-__host__ __device__ constexpr int st_slot_floats(int G) { return G * D + 2 * ST_MAX_G; }
-__host__ __device__ constexpr int st_smem_bytes(int warps, int nsplit, int G) {
-  return warps * ST_WARP_SMEM + nsplit * st_slot_floats(G) * (int)sizeof(float);
-}
+// At D = 128 a warp's K rows are 320 bytes apart: the 16-byte fragment loads
+// of a quarter-warp (rows gid and gid + 1, 16t + 64u bytes in) fall in 8
+// distinct 16-byte bank groups. V rows are 272 bytes apart: the 8 row
+// addresses of an ldmatrix phase do the same.
+template <int D>
+struct Stream {
+  static constexpr int LDK = D + 32, LDV = D + 8;
+  static constexpr int WARP_SMEM = ST_TILE * (LDK + LDV) * (int)sizeof(bf16);
+  // After its walk a warp's output rows (float) take its K area, D + 8 floats
+  // apart: a half-warp's float2 stores, (row gid, column 8j + 2t), hit 32 banks.
+  static constexpr int ACC_LD = D + 8;
+  static_assert(ST_MAX_G * ACC_LD * 4 <= ST_TILE * LDK * 2, "a warp's rows must fit in its K area");
+  // A block's state in the leader's shared memory: acc [G][D], then m [8] and l [8]
+  static __host__ __device__ constexpr int slot_floats(int G) { return G * D + 2 * ST_MAX_G; }
+  static __host__ __device__ constexpr int smem_bytes(int warps, int nsplit, int G) {
+    return warps * WARP_SMEM + nsplit * slot_floats(G) * (int)sizeof(float);
+  }
+};
 
 // B fragments of two n-tiles (8 keys x 16 channels each way) from V rows in
 // their natural [key][channel] layout, transposed by the load.
@@ -779,7 +808,11 @@ __device__ __forceinline__ uint32_t cluster_map(uint32_t smem_addr, int rank) {
 // hold keys, and writes the G rows. One cluster-wide barrier, early and off
 // the critical path, makes the leader's mbarrier known to the others before
 // they arrive on it; the leader outlives every access to its memory.
+template <int D>
 __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a) {
+  constexpr int ST_LDK = Stream<D>::LDK, ST_LDV = Stream<D>::LDV, ST_WARP_SMEM = Stream<D>::WARP_SMEM;
+  constexpr int ST_ACC_LD = Stream<D>::ACC_LD;
+  constexpr int PPR = D / 8, RPI = 32 / PPR;  // 16-byte pieces a K or V row; rows a warp copies at once
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float wm[ST_MAX_WARPS][ST_MAX_G], wl[ST_MAX_WARPS][ST_MAX_G];
   __shared__ __align__(8) uint64_t landed;  // the leader's: one arrival a block of the cluster
@@ -803,19 +836,19 @@ __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a
   const int wlo = lo + warp * wkeys, whi = min(hi, wlo + wkeys);  // this warp's keys
   const int ntiles = whi > wlo ? (whi - wlo + ST_TILE - 1) / ST_TILE : 0;
 
-  // The warp's 16 K and V rows of a tile, 16 lanes to a 256-byte row; rows at or
+  // The warp's 16 K and V rows of a tile, D / 8 lanes to a row; rows at or
   // past whi are zeros (0 * NaN in P.V would be NaN).
   bf16* sK = reinterpret_cast<bf16*>(smem + warp * ST_WARP_SMEM);
   bf16* sV = sK + ST_TILE * ST_LDK;
-  const Rows src = rows_of<MODE_STREAM>(a, b, hk, keys.glo);
+  const Rows src = rows_of<MODE_STREAM, D>(a, b, hk, keys.glo);
   auto issue = [&](int k0) {
 #pragma unroll
-    for (int u = 0; u < ST_TILE / 2; ++u) {
-      const int r = 2 * u + (lane >> 4), c = lane & 15, j = k0 + r;
+    for (int u = 0; u < ST_TILE / RPI; ++u) {
+      const int r = RPI * u + lane / PPR, c = lane % PPR, j = k0 + r;
       const bf16 *kp = a.k0, *vp = a.v0;
       int nbytes = 0;
       if (j < whi) {
-        kv_row<MODE_STREAM>(src, j, kp, vp);
+        kv_row<MODE_STREAM, D>(src, j, kp, vp);
         kp += c * 8;
         vp += c * 8;
         nbytes = 16;
@@ -828,12 +861,12 @@ __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a
   if (ntiles > 0) issue(wlo);  // every warp's first copies go out at once: one round of latency
 
   // q row gid scaled in bf16, as A fragments (rows at or past G are 0)
-  uint32_t qa[8][2];
+  uint32_t qa[D / 16][2];
   {
     const float sc = bf16_scale(a.scale);
     const uint4* qrow = reinterpret_cast<const uint4*>(a.q + ((size_t)b * a.Hq + hk * G + min(gid, G - 1)) * D) + tq;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {  // channels 32u + 8t .. + 7: k-steps 2u and 2u + 1
+    for (int u = 0; u < D / 32; ++u) {  // channels 32u + 8t .. + 7: k-steps 2u and 2u + 1
       const uint4 raw = gid < G ? __ldg(qrow + 4 * u) : make_uint4(0u, 0u, 0u, 0u);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
@@ -859,7 +892,7 @@ __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a
     // S of keys k0 + 8nt + 2t + c: n-tile nt's B fragment is K row 8nt + gid
     float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < D / 32; ++u) {
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const uint4 kw = *reinterpret_cast<const uint4*>(sK + (8 * nt + gid) * ST_LDK + 32 * u + 8 * tq);
@@ -926,7 +959,7 @@ __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a
   // The block's state from its warps' (a thread: four columns of a row), into
   // its slot in the leader's memory
   const int nvw = hi > lo ? min(nwarps, (hi - lo + wkeys - 1) / wkeys) : 0;  // warps that hold keys
-  const int slot_floats = st_slot_floats(G);
+  const int slot_floats = Stream<D>::slot_floats(G);
   float* slot = static_cast<float*>(cooperative_groups::this_cluster().map_shared_rank(slots, 0)) +
                 split * slot_floats;
   for (int i = tid; i < G * (D / 4) && nvw > 0; i += blockDim.x) {
@@ -1009,26 +1042,28 @@ cudaError_t launch_ex(void (*kernel)(KArgs...), dim3 grid, dim3 block, int smem,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+template <int D>
 int launch_stream_decode(const Args& a, int B, cudaStream_t stream) {
   static int configured = -1;  // the device the attribute was set on (a host call a launch saved)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev != configured)
-    err = cudaFuncSetAttribute(stream_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               st_smem_bytes(ST_MAX_WARPS, ST_MAX_SPLITS, ST_MAX_G));
+    err = cudaFuncSetAttribute(stream_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Stream<D>::smem_bytes(ST_MAX_WARPS, ST_MAX_SPLITS, ST_MAX_G));
   if (err != cudaSuccess) return static_cast<int>(err);
   configured = dev;
   const int warps = min(ST_MAX_WARPS, a.split_keys / ST_TILE);
-  return static_cast<int>(launch_ex(stream_decode_kernel, dim3(a.nsplit, a.Hkv, B), dim3(32 * warps),
-                                    st_smem_bytes(warps, a.nsplit, a.G), a.nsplit, stream, a));
+  return static_cast<int>(launch_ex(stream_decode_kernel<D>, dim3(a.nsplit, a.Hkv, B), dim3(32 * warps),
+                                    Stream<D>::smem_bytes(warps, a.nsplit, a.G), a.nsplit, stream, a));
 }
 
+template <int D>
 int launch_full_decode(const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(a.Hkv, B, a.nsplit);
   switch (a.G) {
 #define DUO_DECODE_CASE(NG) \
   case NG:                  \
-    decode_kernel<NG><<<grid, DEC_THREADS, DEC_SMEM, stream>>>(a); \
+    decode_kernel<NG, D><<<grid, Decode<D>::THREADS, Decode<D>::SMEM, stream>>>(a); \
     break;
     DUO_DECODE_CASE(1)
     DUO_DECODE_CASE(2)
@@ -1045,20 +1080,23 @@ int launch_full_decode(const Args& a, int B, cudaStream_t stream) {
   if (a.nsplit > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_merge_kernel<<<dim3(a.Hq, B), DEC_THREADS, 0, stream>>>(a);
+    decode_merge_kernel<D><<<dim3(a.Hq, B), Decode<D>::THREADS, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
+template <int MODE, int D>
 int launch_prefill(const Args& a, int B, cudaStream_t stream) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(prefill_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, PREFILL_SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(prefill_kernel<MODE, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Prefill<D>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
-  prefill_kernel<MODE><<<grid, PF_THREADS, PREFILL_SMEM, stream>>>(a);
+  prefill_kernel<MODE, D><<<grid, PF_THREADS, Prefill<D>::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The head_dims the kernels are built for; any other is refused.
+bool head_dim_ok(int head_dim) { return head_dim == 128 || head_dim == 64; }
 
 }  // namespace
 
@@ -1067,7 +1105,7 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // Floats of decode scratch per (b, KV head, split, query head of the group).
-int decode_partial_floats() { return PART; }
+int decode_partial_floats(int head_dim) { return head_dim + 2; }
 
 // q [B, S, Hq, D]; k/v [B, Hkv, T, D] (already holding the chunk at
 // [cs, cs+S)); cs [B] (or one value, cs_stride 0); out [B, S, Hq, D].
@@ -1079,8 +1117,8 @@ int full_cache_attention(const void* q, const void* k, const void* v, const void
                          int cs_stride, void* out, int B, int S, int Hq, int Hkv, int T,
                          int span, int head_dim, float scale, void* part, int nsplit,
                          int split_keys, void* stream) {
-  if (head_dim != D || Hq % Hkv != 0 || span > T) return static_cast<int>(cudaErrorInvalidValue);
-  if (S == 1 && (nsplit < 1 || (nsplit > 1 && part == nullptr) || split_keys % DEC_THREADS != 0 ||
+  if (!head_dim_ok(head_dim) || Hq % Hkv != 0 || span > T) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 1 && (nsplit < 1 || (nsplit > 1 && part == nullptr) || split_keys % head_dim != 0 ||
                  (long long)nsplit * split_keys < span))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
@@ -1101,7 +1139,8 @@ int full_cache_attention(const void* q, const void* k, const void* v, const void
   a.nsplit = nsplit;
   a.split_keys = split_keys;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_full_decode(a, B, st) : launch_prefill<MODE_FULL>(a, B, st);
+  if (head_dim == 64) return S == 1 ? launch_full_decode<64>(a, B, st) : launch_prefill<MODE_FULL, 64>(a, B, st);
+  return S == 1 ? launch_full_decode<128>(a, B, st) : launch_prefill<MODE_FULL, 128>(a, B, st);
 }
 
 // q [B, S, Hq, D]; k/v_sink [B, Hs, Ts, D]; k/v_ring [B, Hs, R, D] (already
@@ -1115,7 +1154,7 @@ int streaming_cache_attention(const void* q, const void* k_sink, const void* v_s
                               int cs_stride, const void* total, int total_stride, void* out,
                               int B, int S, int Hq, int Hs, int Ts, int R, int head_dim,
                               int sink, int recent, float scale, int nsplit, int split_keys, void* stream) {
-  if (head_dim != D || Hq % Hs != 0 || sink > Ts || R <= 0)
+  if (!head_dim_ok(head_dim) || Hq % Hs != 0 || sink > Ts || R <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 1 && (Hq / Hs > ST_MAX_G || nsplit < 1 || nsplit > ST_MAX_SPLITS || split_keys % ST_TILE != 0 ||
                  (long long)nsplit * split_keys < (long long)sink + recent + 1))
@@ -1143,7 +1182,8 @@ int streaming_cache_attention(const void* q, const void* k_sink, const void* v_s
   a.nsplit = nsplit;
   a.split_keys = split_keys;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return S == 1 ? launch_stream_decode(a, B, st) : launch_prefill<MODE_STREAM>(a, B, st);
+  if (head_dim == 64) return S == 1 ? launch_stream_decode<64>(a, B, st) : launch_prefill<MODE_STREAM, 64>(a, B, st);
+  return S == 1 ? launch_stream_decode<128>(a, B, st) : launch_prefill<MODE_STREAM, 128>(a, B, st);
 }
 
 // One launch of an empty kernel over `blocks` blocks of `threads` threads, in

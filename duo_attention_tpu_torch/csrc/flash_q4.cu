@@ -103,7 +103,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D = 128;  // head_dim of every preset
+// Both kernels are templates on the head_dim D: 128 (every preset) or 64 (the
+// constructed circuits); the C entry below refuses any other.
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -136,20 +137,24 @@ constexpr int NWG = 2;  // consumer warpgroups a block, 64 query rows each
 constexpr int BQ = 64 * NWG, BK = 128;
 constexpr int PF_THREADS = 128 * (NWG + 1);  // and one producer warpgroup that unpacks K/V
 constexpr int PANEL = 64 * 128;  // 64 rows of 64 bf16 in the 128-byte swizzle
-constexpr int Q_BYTES = NWG * 2 * PANEL;
 constexpr int KPANEL = BK * 128;  // BK keys x 64 channels
-constexpr int TILE_BYTES = 2 * KPANEL;  // a K or V tile in bf16: channel panels 0, 1
 constexpr int NBUF = 2;  // bf16 stages of K, and of V
 constexpr int PROWS = BK / 2;  // packed rows a tile
-constexpr int PACK_BYTES = PROWS * D;  // a packed K or V tile
 constexpr int NPACK = 3, LOOKAHEAD = NPACK - 1;  // packed stages; tiles in flight ahead of the unpack
 constexpr int NSCALE = 4;  // scale slots: float4 (scale_even, scale_odd, zp_even, zp_odd) per pair, K then V
 constexpr int SCALE_BYTES = 2 * PROWS * 16;
-constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + NBUF * TILE_BYTES, P_OFF = V_OFF + NBUF * TILE_BYTES;
-constexpr int S_OFF = P_OFF + NPACK * 2 * PACK_BYTES, BAR_OFF = S_OFF + NSCALE * SCALE_BYTES;
-// + 4 * NBUF barriers of 8 bytes, + room to align to 1024
-constexpr int PREFILL_SMEM = BAR_OFF + 4 * NBUF * 8 + 1024;
-static_assert(PREFILL_SMEM <= 232448, "the block's shared memory exceeds the SM's");
+template <int D>
+struct Prefill {
+  static constexpr int PANELS = D / 64;  // channel panels of Q and of a bf16 K or V tile
+  static constexpr int Q_BYTES = NWG * PANELS * PANEL;
+  static constexpr int TILE_BYTES = PANELS * KPANEL;  // a K or V tile in bf16
+  static constexpr int PACK_BYTES = PROWS * D;  // a packed K or V tile
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + NBUF * TILE_BYTES, P_OFF = V_OFF + NBUF * TILE_BYTES;
+  static constexpr int S_OFF = P_OFF + NPACK * 2 * PACK_BYTES, BAR_OFF = S_OFF + NSCALE * SCALE_BYTES;
+  // + 4 * NBUF barriers of 8 bytes, + room to align to 1024
+  static constexpr int SMEM = BAR_OFF + 4 * NBUF * 8 + 1024;
+  static_assert(SMEM <= 232448, "the block's shared memory exceeds the SM's");
+};
 constexpr uint32_t BF16X2_128 = 0x43004300u;  // (128, 128)
 
 // Two nibbles, in bits 0-3 and 16-19 of x (other bits anything), to two bf16
@@ -174,7 +179,13 @@ __device__ __forceinline__ void unpack_word(uint32_t w, uint32_t& e01, uint32_t&
   o23 = nibbles_to_bf16x2(b23 >> 4);
 }
 
+template <int D>
 __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
+  using Cfg = Prefill<D>;
+  constexpr int PANELS = Cfg::PANELS, TILE_BYTES = Cfg::TILE_BYTES, PACK_BYTES = Cfg::PACK_BYTES;
+  constexpr int K_OFF = Cfg::K_OFF, V_OFF = Cfg::V_OFF, P_OFF = Cfg::P_OFF, S_OFF = Cfg::S_OFF, BAR_OFF = Cfg::BAR_OFF;
+  constexpr int PP = D / 16;  // 16-byte pieces a packed row
+  constexpr int PPR = D / 8;  // 16-byte pieces a bf16 row of Q
   extern __shared__ __align__(128) unsigned char smem[];
   // panels need 1024-byte alignment (the swizzle pattern repeats every 1024 bytes)
   unsigned char* base = smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
@@ -218,13 +229,13 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
     const unsigned short* vs = reinterpret_cast<const unsigned short*>(a.vs) + bh * 4 * a.T2;
     const int krows = (kend + 1) / 2;  // packed rows that hold a key below kend
     // packed tile t into its ring slot: 16 neighbouring bytes a thread, a
-    // row of 128 bytes for 8 threads; rows at or past krows are zeros
+    // row of D bytes for D / 16 threads; rows at or past krows are zeros
     auto copy_packed = [&](int t) {
       if (t < ntiles) {
         const uint32_t dst = base_addr + P_OFF + (t % NPACK) * 2 * PACK_BYTES;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = ptid + 128 * u, r = i >> 3, c = i & 7;
+        for (int u = 0; u < PROWS * PP / 128; ++u) {
+          const int i = ptid + 128 * u, r = i / PP, c = i % PP;
           const int pr = t * PROWS + r;
           const bool in = pr < krows;
           const size_t off = in ? (size_t)pr * D + c * 16 : 0;
@@ -251,8 +262,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
     // key 2r + 1, two 16-byte pieces each in channel panel p / 4
     auto unpack_tile = [&](const unsigned char* src, unsigned char* dst) {
 #pragma unroll 4
-      for (int u = 0; u < 4; ++u) {
-        const int i = ptid + 128 * u, r = i >> 3, p = i & 7;
+      for (int u = 0; u < PROWS * PP / 128; ++u) {
+        const int i = ptid + 128 * u, r = i / PP, p = i % PP;
         const uint4 raw = *reinterpret_cast<const uint4*>(src + i * 16);
         uint4 e0, e1, o0, o1;
         unpack_word(raw.x, e0.x, e0.y, o0.x, o0.y);
@@ -307,9 +318,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
   unsigned char* sQ = base;
   const uint32_t sQ_addr = base_addr;
   const float sc = bf16_scale(a.scale);
-  // Q of this warpgroup's 64 rows, scaled in bf16, into its two swizzled panels; rows past S are zero
-  for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
-    const int r = i >> 4, c = i & 15;
+  // Q of this warpgroup's 64 rows, scaled in bf16, into its swizzled panels; rows past S are zero
+  for (int i = tid & 127; i < 64 * PPR; i += 128) {
+    const int r = i / PPR, c = i % PPR;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (wg * 64 + r < rows) {
       val = *reinterpret_cast<const uint4*>(a.q + (((size_t)b * a.S + q0 + wg * 64 + r) * a.Hq + h) * D + c * 8);
@@ -317,7 +328,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(__bfloat162float(e[u]) * sc);
     }
-    *reinterpret_cast<uint4*>(sQ + (wg * 2 + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
+    *reinterpret_cast<uint4*>(sQ + (wg * PANELS + (c >> 3)) * PANEL + swz(r, c & 7)) = val;
   }
   fence_proxy_async();  // wgmma may read what was stored
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the warpgroup's own barrier
@@ -331,12 +342,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
   const int wg_qmin = cs + q0 + wg * 64, wg_qmax = wg_qmin + 63;
   const int cq = 2 * (lane & 3);
   // rowsum of the scaled q of rows r0 and r0 + 8 (the key zero-point's
-  // weight): each lane of the quad sums 32 channels, then the quad
+  // weight): each lane of the quad sums D / 4 channels, then the quad
   float qs0 = 0.f, qs1 = 0.f;
 #pragma unroll
-  for (int pc = 0; pc < 4; ++pc) {
-    const int c = (lane & 3) * 4 + pc;  // 8-channel piece 0..15
-    const unsigned char* panel = sQ + (wg * 2 + (c >> 3)) * PANEL;
+  for (int pc = 0; pc < PPR / 4; ++pc) {
+    const int c = (lane & 3) * (PPR / 4) + pc;  // 8-channel piece 0..PPR-1
+    const unsigned char* panel = sQ + (wg * PANELS + (c >> 3)) * PANEL;
     const uint4 v0 = *reinterpret_cast<const uint4*>(panel + swz(r0, c & 7));
     const uint4 v1 = *reinterpret_cast<const uint4*>(panel + swz(r0 + 8, c & 7));
     const bf16* e0 = reinterpret_cast<const bf16*>(&v0);
@@ -355,9 +366,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
   // sees (the first n_wg); it still waits for the rest and releases them
   const int n_wg = min(ntiles, (wg_qmax + BK) / BK);
 
-  float o[64];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   // l: this thread's share of the row sum; z: of the row's zero-point sum p . vz
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, z0 = 0.f, z1 = 0.f;
   float s[64];
@@ -365,9 +376,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) p[i] = 0u;
 
-  const uint64_t dq0 = make_desc(sQ_addr + wg * 2 * PANEL, 16, 1024);
-  // S = (q * scale) Kq^T of one tile: 8 steps of 16 channels; a step is 32
-  // bytes inside a panel's 128-byte rows, and the second panel follows the first
+  const uint64_t dq0 = make_desc(sQ_addr + wg * PANELS * PANEL, 16, 1024);
+  // S = (q * scale) Kq^T of one tile: D / 16 steps of 16 channels; a step is
+  // 32 bytes inside a panel's 128-byte rows, and a second panel follows the first
   auto start_qk = [&](int tile) {
     const uint64_t dk0 = make_desc(base_addr + K_OFF + (tile % NBUF) * TILE_BYTES, 16, 1024);
     wgmma_fence();
@@ -387,8 +398,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                          dv0 + (uint64_t)((kk * 16 * 128) >> 4));
+      wgmma_pv<D>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  dv0 + (uint64_t)((kk * 16 * 128) >> 4));
     }
     wgmma_commit();
   };
@@ -469,7 +480,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_q4_kernel(Args a) {
     fence_regs(p);
     fence_regs(o);
 #pragma unroll
-    for (int i = 0; i < 64; i += 4) {
+    for (int i = 0; i < D / 2; i += 4) {
       o[i] *= al0;
       o[i + 1] *= al0;
       o[i + 2] *= al1;
@@ -576,21 +587,24 @@ constexpr int DEC_TILE = 32 * DEC_WARPS;  // keys a block steps over: 32 (16 pai
 constexpr int WROWS = 16;  // pair rows a warp takes from each tile
 constexpr int DEC_STAGES = 3;  // slices in a warp's ring: all but one in flight
 constexpr int WSCALE_BYTES = 4 * WROWS * 2;  // [4][WROWS] bf16: scale_e, scale_o, zp_e, zp_o
-constexpr int WSTAGE = 2 * WROWS * D + 2 * WSCALE_BYTES;  // K rows, V rows, K scales, V scales
-constexpr int DEC_SMEM = DEC_WARPS * DEC_STAGES * WSTAGE;
 constexpr int DEC_MAX_SPLITS = 32;  // splits a (b, KV head): the merge gives each partial a lane
 constexpr int MERGE_CHUNK = 16;  // partials' sums a merging thread holds in registers at once
 constexpr int DEC_MAX_G = 8;  // the query rows of an m16n8k16 tile that hold a head (8-15 are zero)
-constexpr int PART = D + 4;  // per (split, query head): D sums, then the max, denominator, zero-point sum
-// The block's merge of its warps reuses the ring: acc [warp][row][ACC_ROW], a
-// row in four segments of 32 channels at ACC_SEG apart, so that the 32 lanes
-// of a warp, (row gid, channel 32t + j), store to 32 banks (gid + 8t + j).
-constexpr int ACC_SEG = 40, ACC_ROW = 4 * ACC_SEG + 1;
-constexpr int WACC_FLOATS = DEC_WARPS * DEC_MAX_G * ACC_ROW;
-static_assert(DEC_THREADS % D == 0, "the block's merge gives each thread one column");
-static_assert(4 * (WACC_FLOATS + 3 * DEC_WARPS * DEC_MAX_G) <= DEC_SMEM, "the warps' merge exceeds the ring");
-static_assert(4 * (2 * DEC_MAX_SPLITS * DEC_MAX_G + 2 * DEC_MAX_G) <= DEC_SMEM, "the splits' merge exceeds the ring");
 static_assert(DEC_MAX_SPLITS <= 32, "the merge gives each partial a lane");
+template <int D>
+struct Decode {
+  static constexpr int WSTAGE = 2 * WROWS * D + 2 * WSCALE_BYTES;  // K rows, V rows, K scales, V scales
+  static constexpr int SMEM = DEC_WARPS * DEC_STAGES * WSTAGE;
+  static constexpr int PART = D + 4;  // per (split, query head): D sums, then the max, denominator, zero-point sum
+  // The block's merge of its warps reuses the ring: acc [warp][row][ACC_ROW], a
+  // row in four segments of D / 4 channels at ACC_SEG apart, so that at D = 128
+  // the 32 lanes of a warp, (row gid, channel 32t + j), store to 32 banks (gid + 8t + j).
+  static constexpr int ACC_SEG = D / 4 + 8, ACC_ROW = 4 * ACC_SEG + 1;
+  static constexpr int WACC_FLOATS = DEC_WARPS * DEC_MAX_G * ACC_ROW;
+  static_assert(DEC_THREADS % D == 0, "the block's merge gives each thread one column");
+  static_assert(4 * (WACC_FLOATS + 3 * DEC_WARPS * DEC_MAX_G) <= SMEM, "the warps' merge exceeds the ring");
+  static_assert(4 * (2 * DEC_MAX_SPLITS * DEC_MAX_G + 2 * DEC_MAX_G) <= SMEM, "the splits' merge exceeds the ring");
+};
 
 // Byte I of word w (w4 = w >> 4) to the bf16 pair (low nibble, high nibble).
 template <int I>
@@ -613,18 +627,21 @@ __device__ __forceinline__ int ticket_acq_rel(int* counter) {
 // (G * PART floats apart), into the G output rows: out = sum_s w_s (acc_s +
 // z_s) / sum_s w_s l_s, with w_s = e^(m_s - M), M = max_s m_s (a row whose sum
 // of l is 0 gives 0).
+template <int D>
 __device__ void merge_partials(const float* p, int n, int G, float* smem, bf16* out) {
+  constexpr int PART = Decode<D>::PART;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* sw = smem;  // [s][row]: w_s
   float* sz = sw + DEC_MAX_SPLITS * DEC_MAX_G;  // [s][row]: z_s
   float* sl = sz + DEC_MAX_SPLITS * DEC_MAX_G;  // [row]: sum_s w_s l_s
   // the first MERGE_CHUNK sums of this thread's row go out with the statistics' loads
   const int c4 = 4 * (tid & 31);
+  const bool cols = c4 < D;  // at D = 64 half the lanes have no column
   float4 x[MERGE_CHUNK];
   auto load_chunk = [&](int g, int s0) {
 #pragma unroll
     for (int u = 0; u < MERGE_CHUNK; ++u)
-      x[u] = g < G && s0 + u < n ? __ldcg(reinterpret_cast<const float4*>(p + ((s0 + u) * G + g) * PART + c4))
+      x[u] = cols && g < G && s0 + u < n ? __ldcg(reinterpret_cast<const float4*>(p + ((s0 + u) * G + g) * PART + c4))
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
   };
   load_chunk(tid >> 5, 0);
@@ -660,7 +677,7 @@ __device__ void merge_partials(const float* p, int n, int G, float* smem, bf16* 
         acc.w += w * (x[u].w + zs);
       }
     }
-    if (g >= G) continue;
+    if (g >= G || !cols) continue;
     const float L = sl[g] == 0.f ? 1.f : sl[g];
     *reinterpret_cast<uint2*>(out + g * D + c4) =
         make_uint2(pack_bf16(acc.x / L, acc.y / L), pack_bf16(acc.z / L, acc.w / L));
@@ -679,16 +696,26 @@ __device__ __forceinline__ float nib_f32(uint32_t n) { return __uint_as_float(0x
 // Per slice, in two groups of 8 pair rows:
 //   S = Q K^T by m16n8k16 with the channels renumbered so that a thread's B
 //     fragment is one 32-bit word of its pair row: k-step ks of thread t is
-//     channels 32t + 4ks + {0,1} (k 2t, 2t + 1) and + {2,3} (k 2t + 8, 2t + 9);
-//     one word gives the even key's fragment (n-tile "even") and the odd
-//     key's (n-tile "odd"), so column n of either is the group's pair row n;
+//     channels (D/4) t + 4ks + {0,1} (k 2t, 2t + 1) and + {2,3} (k 2t + 8,
+//     2t + 9); one word gives the even key's fragment (n-tile "even") and the
+//     odd key's (n-tile "odd"), so column n of either is the group's pair row n;
 //   O += P V by m16n8k16 with the keys renumbered so that k 2t, 2t + 1 are
 //     pair row 2t's two keys and k 2t + 8, 2t + 9 pair row 2t + 1's: the S
 //     fragments are P's A fragment as they stand, and a B register is one
-//     byte (both keys' nibbles) of one channel: channel 16 gid + j of n-tile j,
-//     so a thread's 16 bytes of a pair row feed all 16 n-tiles, and its output
-//     columns are channels 32t + j and 32t + 16 + j.
+//     byte (both keys' nibbles) of one channel: channel NT gid + j of n-tile j
+//     (NT = D / 8 n-tiles), so a thread's NT bytes of a pair row feed all NT
+//     n-tiles, and its output columns are channels 2NT t + j and 2NT t + NT + j.
+// Packed rows in a warp's ring are D bytes in the swizzle of their D / 16
+// pieces: piece c of row r at c ^ (r & (D/16 - 1)) (the 128-byte swizzle at D = 128).
+template <int D>
 __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
+  using Cfg = Decode<D>;
+  constexpr int WSTAGE = Cfg::WSTAGE, PART = Cfg::PART, ACC_SEG = Cfg::ACC_SEG, ACC_ROW = Cfg::ACC_ROW;
+  constexpr int WACC_FLOATS = Cfg::WACC_FLOATS;
+  constexpr int PP = D / 16;  // 16-byte pieces a packed row
+  constexpr int NT = D / 8;  // n-tiles of P.V; the bytes of a pair row a thread reads for them
+  // the byte at `off` (of a 16-byte piece, or an aligned part of one) in packed row r of a stage
+  auto at = [](int r, int off) { return r * D + ((((off >> 4) ^ (r & (PP - 1)))) << 4) + (off & 15); };
   extern __shared__ __align__(128) unsigned char dsmem[];
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, t = lane & 3;
@@ -698,8 +725,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
   const size_t bh = (size_t)b * a.Hkv + hk;
   bf16* out = a.out + ((size_t)b * a.Hq + hk * G) * D;  // the group's G rows
 
-  // The warp's ring: stage = 16 packed K rows, 16 V rows (both in the 128-byte
-  // swizzle: the 16-byte piece c of row r at c ^ (r & 7)), then their scales.
+  // The warp's ring: stage = 16 packed K rows, 16 V rows (both swizzled as
+  // `at` says), then their scales.
   unsigned char* ring = dsmem + warp * DEC_STAGES * WSTAGE;
   const uint32_t ring_addr = smem_addr(ring);
   const uint8_t* kq = a.kq + bh * a.T2 * D;
@@ -715,11 +742,11 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
     const uint32_t st = ring_addr + (i % DEC_STAGES) * WSTAGE;
     const int r0 = row0 + (DEC_TILE / 2) * i;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = lane + 32 * u, r = idx >> 3, c = idx & 7;
+    for (int u = 0; u < WROWS * PP / 32; ++u) {
+      const int idx = lane + 32 * u, r = idx / PP, c = idx % PP;
       const bool in = r0 + r < krows;
       const size_t off = in ? (size_t)(r0 + r) * D + 16 * c : 0;
-      const uint32_t dst = st + r * 128 + ((c ^ (r & 7)) << 4);
+      const uint32_t dst = st + at(r, 16 * c);
       cp_async16(dst, kq + off, in ? 16 : 0);
       cp_async16(dst + WROWS * D, vq + off, in ? 16 : 0);
     }
@@ -755,13 +782,14 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
   const int nt = (hi - lo - 32 * warp + DEC_TILE - 1) / DEC_TILE;  // tiles with a visible key of this warp
 
   // q row gid scaled in bf16: the A fragments and its row sum (rows at or past G are 0)
-  uint32_t qa[8][2];
+  uint32_t qa[D / 16][2];
   float qsum = 0.f;
   {
     const float sc = bf16_scale(a.scale);
-    const uint4* src = reinterpret_cast<const uint4*>(a.q + ((size_t)b * a.Hq + hk * G + min(gid, G - 1)) * D) + 4 * t;
+    const uint4* src =
+        reinterpret_cast<const uint4*>(a.q + ((size_t)b * a.Hq + hk * G + min(gid, G - 1)) * D) + (D / 32) * t;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {  // channels 32t + 8u .. + 7: k-steps 2u and 2u + 1
+    for (int u = 0; u < D / 32; ++u) {  // channels (D/4) t + 8u .. + 7: k-steps 2u and 2u + 1
       const uint4 raw = gid < G ? __ldg(src + u) : make_uint4(0u, 0u, 0u, 0u);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
@@ -779,20 +807,20 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
   __shared__ float sqf[DEC_MAX_G][D];  // q in float32 for every warp, staged by warp 0
   if (warp == 0) {
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      sqf[gid][32 * t + 4 * ks + 0] = bf16_lo(qa[ks][0]);
-      sqf[gid][32 * t + 4 * ks + 1] = bf16_hi(qa[ks][0]);
-      sqf[gid][32 * t + 4 * ks + 2] = bf16_lo(qa[ks][1]);
-      sqf[gid][32 * t + 4 * ks + 3] = bf16_hi(qa[ks][1]);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      sqf[gid][(D / 4) * t + 4 * ks + 0] = bf16_lo(qa[ks][0]);
+      sqf[gid][(D / 4) * t + 4 * ks + 1] = bf16_hi(qa[ks][0]);
+      sqf[gid][(D / 4) * t + 4 * ks + 2] = bf16_lo(qa[ks][1]);
+      sqf[gid][(D / 4) * t + 4 * ks + 3] = bf16_hi(qa[ks][1]);
     }
   }
   __syncthreads();
 #endif
 
   float m = NEG_INF, l = 0.f, z = 0.f;  // l and z: this thread's own keys' share (summed over the quad at the end)
-  float o[16][2];  // row gid, channels 32t + j and 32t + 16 + j
+  float o[NT][2];  // row gid, channels 2NT t + j and 2NT t + NT + j
 #pragma unroll
-  for (int j = 0; j < 16; ++j) o[j][0] = o[j][1] = 0.f;
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = 0.f;
 
 #pragma unroll 1
   for (int i = 0; i < nt; ++i) {
@@ -812,11 +840,17 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
       float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #ifndef DUO_Q4_DECODE_FMA
       const int r = 8 * grp + gid;  // the pair row whose words this thread feeds to B
-      const uint4 k0 = *reinterpret_cast<const uint4*>(st + r * 128 + (((2 * t) ^ (r & 7)) << 4));
-      const uint4 k1 = *reinterpret_cast<const uint4*>(st + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
-      const uint32_t kw[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      uint32_t kw[D / 16];  // its channels (D/4) t .. + D/4 - 1: D / 64 pieces
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
+      for (int h = 0; h < D / 64; ++h) {
+        const uint4 k4 = *reinterpret_cast<const uint4*>(st + at(r, (D / 4) * t + 16 * h));
+        kw[4 * h] = k4.x;
+        kw[4 * h + 1] = k4.y;
+        kw[4 * h + 2] = k4.z;
+        kw[4 * h + 3] = k4.w;
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
         uint32_t e01, e23, o01, o23;
         unpack_word(kw[ks], e01, e23, o01, o23);
         mma_16816(acc[0][0], acc[0][1], qa[ks][0], qa[ks][1], e01, e23);
@@ -827,8 +861,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
       for (int c = 0; c < 2; ++c) {
         const int r = 8 * grp + 2 * t + c;
 #pragma unroll 2
-        for (int p = 0; p < 8; ++p) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(st + r * 128 + ((p ^ (r & 7)) << 4));
+        for (int p = 0; p < PP; ++p) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(st + at(r, 16 * p));
           const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
           for (int e = 0; e < 16; ++e) {
@@ -872,7 +906,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
     l *= alpha;
     z *= alpha;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NT; ++j) {
       o[j][0] *= alpha;
       o[j][1] *= alpha;
     }
@@ -892,11 +926,20 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
       const uint32_t pa2 = pack_bf16(pv[grp][0][1], pv[grp][1][1]);  // pair row 2t + 1
       const int ra = 8 * grp + 2 * t, rb = ra + 1;
       const unsigned char* sv = st + WROWS * D;
-      const uint4 va = *reinterpret_cast<const uint4*>(sv + ra * 128 + ((gid ^ (ra & 7)) << 4));
-      const uint4 vb = *reinterpret_cast<const uint4*>(sv + rb * 128 + ((gid ^ (rb & 7)) << 4));
-      const uint32_t wa[4] = {va.x, va.y, va.z, va.w}, wb[4] = {vb.x, vb.y, vb.z, vb.w};
+      uint32_t wa[NT / 4], wb[NT / 4];  // channels NT gid .. + NT - 1 of pair rows ra and rb
+      if constexpr (NT == 16) {
+        const uint4 va = *reinterpret_cast<const uint4*>(sv + at(ra, NT * gid));
+        const uint4 vb = *reinterpret_cast<const uint4*>(sv + at(rb, NT * gid));
+        wa[0] = va.x, wa[1] = va.y, wa[2] = va.z, wa[3] = va.w;
+        wb[0] = vb.x, wb[1] = vb.y, wb[2] = vb.z, wb[3] = vb.w;
+      } else {
+        const uint2 va = *reinterpret_cast<const uint2*>(sv + at(ra, NT * gid));
+        const uint2 vb = *reinterpret_cast<const uint2*>(sv + at(rb, NT * gid));
+        wa[0] = va.x, wa[1] = va.y;
+        wb[0] = vb.x, wb[1] = vb.y;
+      }
 #pragma unroll
-      for (int wi = 0; wi < 4; ++wi) {
+      for (int wi = 0; wi < NT / 4; ++wi) {
         const uint32_t a4 = wa[wi] >> 4, b4 = wb[wi] >> 4;
         mma_16816(o[4 * wi + 0][0], o[4 * wi + 0][1], pa0, pa2, byte_to_bf16x2<0>(wa[wi], a4), byte_to_bf16x2<0>(wb[wi], b4));
         mma_16816(o[4 * wi + 1][0], o[4 * wi + 1][1], pa0, pa2, byte_to_bf16x2<1>(wa[wi], a4), byte_to_bf16x2<1>(wb[wi], b4));
@@ -912,13 +955,19 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
           const int src = (lane & ~3) | tq, r = 8 * grp + 2 * tq + c;
           const float pe = __shfl_sync(0xffffffffu, pv[grp][0][c], src);
           const float po = __shfl_sync(0xffffffffu, pv[grp][1][c], src);
-          const unsigned char* sv = st + WROWS * D + r * 128;
+          const unsigned char* sv = st + WROWS * D;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {  // channels 32t + 16h .. + 15
-            const uint4 raw = *reinterpret_cast<const uint4*>(sv + (((2 * t + h) ^ (r & 7)) << 4));
-            const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+          for (int h = 0; h < 2; ++h) {  // channels 2NT t + NT h .. + NT - 1
+            uint32_t w[4];
+            if constexpr (NT == 16) {
+              const uint4 raw = *reinterpret_cast<const uint4*>(sv + at(r, 2 * NT * t + NT * h));
+              w[0] = raw.x, w[1] = raw.y, w[2] = raw.z, w[3] = raw.w;
+            } else {
+              const uint2 raw = *reinterpret_cast<const uint2*>(sv + at(r, 2 * NT * t + NT * h));
+              w[0] = raw.x, w[1] = raw.y, w[2] = w[3] = 0u;
+            }
 #pragma unroll
-            for (int e = 0; e < 16; ++e) {
+            for (int e = 0; e < NT; ++e) {
               const uint32_t byte = (w[e >> 2] >> (8 * (e & 3))) & 0xFFu;
               o[e][h] = fmaf(pe, nib_f32(byte & 0xFu), fmaf(po, nib_f32(byte >> 4), o[e][h]));
             }
@@ -941,9 +990,9 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
   if (gid < G) {
     float* row = wacc + (warp * DEC_MAX_G + gid) * ACC_ROW + ACC_SEG * t;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NT; ++j) {
       row[j] = o[j][0];
-      row[16 + j] = o[j][1];
+      row[NT + j] = o[j][1];
     }
     if (t == 0) {
       wstat[(0 * DEC_WARPS + warp) * DEC_MAX_G + gid] = m;
@@ -964,7 +1013,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
 #pragma unroll
     for (int w = 0; w < DEC_WARPS; ++w) {  // a warp with no key has m = NEG_INF: weight 0
       const float f = fast_exp2((wstat[w * DEC_MAX_G + g] - M) * LOG2E);
-      acc += f * wacc[(w * DEC_MAX_G + g) * ACC_ROW + (d >> 5) * ACC_SEG + (d & 31)];
+      acc += f * wacc[(w * DEC_MAX_G + g) * ACC_ROW + (d / (D / 4)) * ACC_SEG + (d % (D / 4))];
       L += f * wstat[(DEC_WARPS + w) * DEC_MAX_G + g];
       Z += f * wstat[(2 * DEC_WARPS + w) * DEC_MAX_G + g];
     }
@@ -984,25 +1033,26 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_q4_kernel(Args a) {
   __syncthreads();
   if (ticket != nvalid - 1) return;
   if (tid == 0) *cnt = 0;  // ready for the next launch (a replayed graph needs no memset)
-  merge_partials(pbase, nvalid, G, reinterpret_cast<float*>(dsmem), out);
+  merge_partials<D>(pbase, nvalid, G, reinterpret_cast<float*>(dsmem), out);
 }
 
+template <int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
   if (a.S == 1) {
     static int configured = -1;  // the device the attribute was set on (a host call a launch saved)
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess && dev != configured)
-      err = cudaFuncSetAttribute(decode_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM);
+      err = cudaFuncSetAttribute(decode_q4_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Decode<D>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = dev;
-    decode_q4_kernel<<<dim3(a.nsplit, a.Hkv, B), DEC_THREADS, DEC_SMEM, stream>>>(a);
+    decode_q4_kernel<D><<<dim3(a.nsplit, a.Hkv, B), DEC_THREADS, Decode<D>::SMEM, stream>>>(a);
   } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        prefill_q4_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PREFILL_SMEM);
+    const cudaError_t err = cudaFuncSetAttribute(prefill_q4_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 Prefill<D>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
-    prefill_q4_kernel<<<grid, PF_THREADS, PREFILL_SMEM, stream>>>(a);
+    prefill_q4_kernel<D><<<grid, PF_THREADS, Prefill<D>::SMEM, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1013,9 +1063,9 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Decode scratch a (b, KV head) needs: floats of partials for nsplit splits
-// and a query group of G.
-int q4_decode_scratch_floats(int nsplit, int G) { return nsplit * G * PART; }
+// Decode scratch a (b, KV head) needs: floats of partials for nsplit splits,
+// a query group of G and a head_dim.
+int q4_decode_scratch_floats(int nsplit, int G, int head_dim) { return nsplit * G * (head_dim + 4); }
 
 // q [B, S, Hq, D] bf16; k/v_packed [B, Hkv, T2, D] u8 and k/v_scales
 // [B, Hkv, 4, T2] bf16 (already holding the chunk at [cs, cs+S)); cs [B] (or
@@ -1030,7 +1080,8 @@ int full_cache_attention_q4(const void* q, const void* k_packed, const void* k_s
                             int cs_stride, void* out, int B, int S, int Hq, int Hkv, int T2,
                             int span, int head_dim, float scale, void* part, void* counters,
                             int nsplit, int split_keys, void* stream) {
-  if (head_dim != D || Hq % Hkv != 0 || span > 2 * T2) return static_cast<int>(cudaErrorInvalidValue);
+  if ((head_dim != 128 && head_dim != 64) || Hq % Hkv != 0 || span > 2 * T2)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (S == 1 && (part == nullptr || counters == nullptr || nsplit < 1 || nsplit > DEC_MAX_SPLITS ||
                  split_keys % 128 != 0 || (long long)nsplit * split_keys < span ||
                  Hq / Hkv > DEC_MAX_G || T2 % 8 != 0))
@@ -1055,7 +1106,8 @@ int full_cache_attention_q4(const void* q, const void* k_packed, const void* k_s
   a.counters = static_cast<int*>(counters);
   a.nsplit = nsplit;
   a.split_keys = split_keys;
-  return launch(a, B, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? launch<64>(a, B, st) : launch<128>(a, B, st);
 }
 
 }  // extern "C"

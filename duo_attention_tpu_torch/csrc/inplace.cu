@@ -109,7 +109,7 @@ __global__ void write_q4_token_kernel(uint8_t* k_bq, __nv_bfloat16* k_bs, const 
   const size_t bh = (size_t)b * H + h;
   const __nv_bfloat16* src = (v ? v_row : k_row) + b * row_sb + h * row_sh;
 
-  float mn = 3.402823466e38f, mx = -3.402823466e38f;
+  float mn = 3.402823466e38f, mx = -3.402823466e38f;  // a lane with no channel (D < 128) keeps these
   for (int d = lane * 4; d < D; d += 128) {
     const uint2 raw = *reinterpret_cast<const uint2*>(src + d);
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
@@ -191,7 +191,7 @@ int write_streaming_rows(void* k_sink, void* v_sink, void* k_ring, void* v_ring,
 int write_q4_token(void* k_bq, void* k_bs, const void* k_row, void* v_bq, void* v_bs, const void* v_row,
                    long long row_sb, long long row_sh, const void* pos, int pos_stride, int B, int H, int T2,
                    int D, void* stream) {
-  if (D % 128 != 0 || T2 <= 0 || row_sb % 4 != 0 || row_sh % 4 != 0 ||
+  if (D % 4 != 0 || T2 <= 0 || row_sb % 4 != 0 || row_sh % 4 != 0 ||
       (v_bq != nullptr && (v_bs == nullptr || v_row == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(H, B);

@@ -19,12 +19,13 @@ quantizes them to W8A8 after the reorder, and builds the ``DuoEngine``;
 ``eval_retrieval`` generates each sample's first answer and scores it by
 word overlap with the expected code. On the card the engines run in bf16
 (the kernels' dtype); on the CPU in float32, as the JAX loop does. The
-kernels take head_dim 128, so on the card the loop needs a circuit of that
-width: ``lm="constructed-d128"`` (the 8B graft's small twin, retrieval heads
-layer 2, heads 0 and 1; a port addition).
+default circuit is the reference's 64-wide ``constructed`` on either device
+(the kernels take head_dim 64 and 128); ``lm="constructed-d128"`` is the 8B
+graft's small twin at head_dim 128 (retrieval heads layer 2, heads 0 and 1;
+a port addition).
 
 Run on the card: ``python -m duo_attention_tpu_torch.evals.accuracy_loop
---lm constructed-d128 --out-dir chiprun_out/accuracy_loop --fresh``.
+--out-dir chiprun_out/accuracy_loop --fresh``.
 """
 
 from __future__ import annotations
@@ -92,32 +93,19 @@ def _cast_floats(params, dtype):
     return out
 
 
-def default_lm(device) -> str:
-    """The circuit run_loop takes when none is named: the reference's 64-wide
-    ``constructed`` on the CPU; on the card, whose kernels take head_dim 128,
-    ``constructed-d128``."""
-    return "constructed-d128" if torch.device(device).type == "cuda" else "constructed"
-
-
 def run_loop(out_dir: str, pretrain_steps: int = 3000, gate_steps: int = 600, eval_samples: int = 16,
              sparsity: float = 0.5, cfg: Optional[ModelConfig] = None, ctx_min: int = 256, ctx_max: int = 1024,
-             sink: int = 16, recent: int = 64, batch_size: int = 8, reuse_lm: bool = True, lm: Optional[str] = None,
+             sink: int = 16, recent: int = 64, batch_size: int = 8, reuse_lm: bool = True, lm: str = "constructed",
              quantized_eval: bool = True, device="cuda") -> dict:
     """The loop on ``device`` (the card unless the caller asks for the
     CPU); writes ``report.json`` (the JAX loop's keys) into ``out_dir`` and
     returns it. With ``reuse_lm`` a pretrained LM or a gate pattern already
-    in ``out_dir`` is reused. ``lm`` defaults to ``default_lm(device)``."""
-    from ..models.constructed import SPECS, build_params, spec_for
-    from ..ops.flash import HEAD_DIM
+    in ``out_dir`` is reused."""
+    from ..models.constructed import build_params, spec_for
     from ..train.pretrain import TINY_LM, PretrainConfig, answer_token_accuracy, load_lm, pretrain, save_lm
     from ..train.trainer import GateTrainConfig, GateTrainer
 
     device = resolve_device(device)
-    lm = lm or default_lm(device)
-    head_dim = (cfg or TINY_LM).head_dim if lm == "pretrain" else SPECS[lm].head_dim
-    if device.type == "cuda" and head_dim != HEAD_DIM:
-        raise ValueError(f"lm={lm!r} has head_dim {head_dim}; the card's kernels take {HEAD_DIM}: run "
-                         "lm='constructed-d128' on the card")
     os.makedirs(out_dir, exist_ok=True)
     # word-level tokens: passkey retrieval becomes the canonical induction copy task
     tokenizer = get_tokenizer("word")
@@ -202,7 +190,7 @@ def main(argv=None):
     p.add_argument("--eval-samples", type=int, default=16)
     p.add_argument("--sparsity", type=float, default=0.5)
     p.add_argument("--lm", choices=["constructed", "constructed-long", "constructed-d128", "pretrain"],
-                   help="default: constructed-d128 on the card, constructed on the CPU")
+                   default="constructed")
     p.add_argument("--fresh", action="store_true", help="retrain even if artifacts exist")
     p.add_argument("--no-quant", action="store_true", help="skip the W8A8 + INT4-KV engine variants")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")

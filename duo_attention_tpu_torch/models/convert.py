@@ -120,6 +120,10 @@ def params_from_state_dict(state: Dict[str, np.ndarray], cfg: ModelConfig, dtype
     HF -> port: model.embed_tokens.weight -> embed;
     model.layers.{i}.self_attn.{q,k,v,o}_proj.weight -> wq/wk/wv/wo;
     model.layers.{i}.mlp.{gate,up,down}_proj.weight -> w_gate/w_up/w_down;
+    (Mixtral) model.layers.{i}.block_sparse_moe.gate.weight -> moe_gate,
+    transposed to JAX's [hidden, X] float32, and
+    block_sparse_moe.experts.{e}.{w1,w3,w2}.weight -> experts_w_gate /
+    experts_w_up / experts_w_down, stacked on a leading expert axis;
     model.layers.{i}.{input,post_attention}_layernorm.weight -> norms;
     model.norm.weight -> final_norm; lm_head.weight -> lm_head (absent when
     tie_word_embeddings). All [out, in] as HF stores them.
@@ -127,10 +131,9 @@ def params_from_state_dict(state: Dict[str, np.ndarray], cfg: ModelConfig, dtype
     layer_perms: optional per-layer KV-head permutations
     (``patterns.head_permutation``), fused into the one read of each
     projection (rows of q/k/v and their biases, columns of o) instead of a
-    later ``reorder_params``. MoE checkpoints raise NotImplementedError.
+    later ``reorder_params``. The MoE leaves are never permuted: the head
+    reorder touches attention only.
     """
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError("MoE checkpoints are not ported yet")
     device = resolve_device(device)
 
     def get(name):
@@ -141,6 +144,14 @@ def params_from_state_dict(state: Dict[str, np.ndarray], cfg: ModelConfig, dtype
     def tensor(x, perm=None, col_perm=None):
         # a copy even where nothing moves: the params never alias the read-only mmap
         return _gathered(x, perm, col_perm).to(device=device, dtype=dtype, copy=True)
+
+    def stacked(names):
+        # one device tensor the experts are copied into, each from its mmap'd view
+        first = _gathered(get(names[0]))
+        out = torch.empty((len(names), *first.shape), dtype=dtype, device=device)
+        for e, name in enumerate(names):
+            out[e].copy_(_gathered(get(name)))
+        return out
 
     layers = []
     for i in range(cfg.num_layers):
@@ -157,10 +168,18 @@ def params_from_state_dict(state: Dict[str, np.ndarray], cfg: ModelConfig, dtype
             "wk": tensor(get(pre + "self_attn.k_proj.weight"), perm=kv_chan),
             "wv": tensor(get(pre + "self_attn.v_proj.weight"), perm=kv_chan),
             "wo": tensor(get(pre + "self_attn.o_proj.weight"), col_perm=q_chan),
-            "w_gate": tensor(get(pre + "mlp.gate_proj.weight")),
-            "w_up": tensor(get(pre + "mlp.up_proj.weight")),
-            "w_down": tensor(get(pre + "mlp.down_proj.weight")),
         }
+        if cfg.num_local_experts > 0:
+            moe = pre + "block_sparse_moe."
+            # [X, hidden] -> JAX's [hidden, X], float32 (the copy is the transpose's)
+            gate = _gathered(get(moe + "gate.weight")).to(device=device, dtype=torch.float32)
+            layer["moe_gate"] = gate.t().contiguous()
+            for ours, hf in (("experts_w_gate", "w1"), ("experts_w_up", "w3"), ("experts_w_down", "w2")):
+                layer[ours] = stacked([f"{moe}experts.{e}.{hf}.weight" for e in range(cfg.num_local_experts)])
+        else:
+            layer["w_gate"] = tensor(get(pre + "mlp.gate_proj.weight"))
+            layer["w_up"] = tensor(get(pre + "mlp.up_proj.weight"))
+            layer["w_down"] = tensor(get(pre + "mlp.down_proj.weight"))
         if cfg.attention_bias:
             for ours, hf, chan in (("bq", "q_proj", q_chan), ("bk", "k_proj", kv_chan), ("bv", "v_proj", kv_chan)):
                 layer[ours] = tensor(get(pre + f"self_attn.{hf}.bias"), perm=chan)
@@ -185,7 +204,9 @@ def reorder_layer(layer: Dict, perm: np.ndarray, cfg: ModelConfig) -> Dict:
     the reference's reorder_linear_weights (duo_attn/patch/utils.py:6-34) in
     the port's [out, in] layout. An already-quantized layer (W8A8) permutes
     the int8 rows of q/k/v with their per-out-channel scales, and the int8
-    columns of o (whose scale is per out-channel, so untouched)."""
+    columns of o (whose scale is per out-channel, so untouched). Every other
+    leaf (norms, the MLP or a MoE layer's router and experts) is carried
+    through as it is."""
     kv_chan = expand_kv_perm(perm, cfg.head_dim)
     q_chan = expand_kv_perm(perm, cfg.num_kv_groups * cfg.head_dim)
     out = dict(layer)

@@ -1,4 +1,4 @@
-"""Llama / Mistral (dense) forward over the duo split cache.
+"""Llama / Mistral / Mixtral forward over the duo split cache.
 
 Counterpart of duo_attention_tpu/models/llama.py for the main path in both
 formats (bf16 over ``DuoCache``; W8A8 weights over the INT4 ``DuoCacheQ4``):
@@ -13,7 +13,11 @@ first), as in the JAX package.
 
 Gate training's forward is here too: ``forward_two_way`` (teacher and
 student streams over ``ops/blockwise.py``), ``head_logits`` and
-``all_logits``. Not ported yet: MoE MLPs and meshes.
+``all_logits``. A Mixtral layer's MLP is ``_moe_mlp``: JAX's dense dispatch
+(every expert computes every token; the router's top-k weights pick the
+sum), its experts stacked on a leading axis in the ``[out, in]`` layout and
+the router ``moe_gate`` kept in JAX's ``[hidden, experts]`` float32. Not
+ported yet: meshes.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ def _dense(gen, dev, dtype, out_f, in_f, scale=None):
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, dev) -> Params:
-    """One decoder layer's random params, drawn from ``gen`` on ``dev``."""
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError("MoE MLPs are not ported yet")
+    """One decoder layer's random params, drawn from ``gen`` on ``dev``. A
+    MoE layer (``cfg.num_local_experts`` X > 0) has the router ``moe_gate``
+    [E, X] float32 and the experts ``experts_w_gate`` / ``experts_w_up``
+    [X, I, E] and ``experts_w_down`` [X, E, I] in place of the dense MLP."""
     E, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     layer = {
@@ -56,10 +61,17 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype, dev) -> Params:
         "wk": _dense(gen, dev, dtype, Hkv * D, E),
         "wv": _dense(gen, dev, dtype, Hkv * D, E),
         "wo": _dense(gen, dev, dtype, E, Hq * D),
-        "w_gate": _dense(gen, dev, dtype, I, E),
-        "w_up": _dense(gen, dev, dtype, I, E),
-        "w_down": _dense(gen, dev, dtype, E, I),
     }
+    X = cfg.num_local_experts
+    if X > 0:
+        layer["moe_gate"] = _dense(gen, dev, torch.float32, E, X, scale=E**-0.5)  # [E, X], as JAX's
+        for name, (out_f, in_f) in (("experts_w_gate", (I, E)), ("experts_w_up", (I, E)),
+                                    ("experts_w_down", (E, I))):
+            layer[name] = torch.stack([_dense(gen, dev, dtype, out_f, in_f) for _ in range(X)])
+    else:
+        layer["w_gate"] = _dense(gen, dev, dtype, I, E)
+        layer["w_up"] = _dense(gen, dev, dtype, I, E)
+        layer["w_down"] = _dense(gen, dev, dtype, E, I)
     if cfg.attention_bias:
         for name, n in (("bq", Hq * D), ("bk", Hkv * D), ("bv", Hkv * D)):
             layer[name] = torch.zeros(n, dtype=dtype, device=dev)
@@ -155,13 +167,43 @@ def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False):
             v.reshape(B, S, cfg.num_kv_heads, D))
 
 
-def _mlp(layer: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False) -> torch.Tensor:
     if "moe_gate" in layer:
-        raise NotImplementedError("MoE MLPs are not ported yet")
+        return _moe_mlp(layer, x, cfg.num_experts_per_tok)
     gate, up = _proj_group(layer, x, ("w_gate", "w_up"), plain)
     hidden = F.silu(gate).mul_(up)  # in place: gate and up are both alive here
     del gate, up  # freed before the down projection's activations are made
     return _proj(layer, hidden, "w_down", plain)
+
+
+def moe_router(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The Mixtral router: float32 logits x @ moe_gate [.., X], their top-k,
+    a softmax over the chosen logits, scattered into ``combine`` [..., X]
+    (zero for the experts a token does not pick)."""
+    logits = x.float() @ layer["moe_gate"].float()
+    topv, topi = torch.topk(logits, top_k, dim=-1)
+    return torch.zeros_like(logits).scatter_(-1, topi, torch.softmax(topv, dim=-1))
+
+
+def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Mixtral sparse-MoE MLP with JAX's dense dispatch: every expert
+    computes every token (SwiGLU on the stacked leading axis, in x's dtype)
+    and the result is the sum over experts of each output times its
+    ``combine`` weight, cast to x's dtype as JAX casts it. The step's shapes
+    do not depend on the routing, so a decode step stays capturable. The
+    expert products are plain torch, as JAX's are plain XLA: gate and up one
+    product each over the experts side by side (the stacked weights read in
+    place as [X * I, E]), down one batched product over the experts."""
+    B, S, E = x.shape
+    dt = x.dtype
+    combine = moe_router(layer, x, top_k).to(dt).reshape(B * S, -1).t()  # [X, B*S]
+    X = combine.shape[0]
+    gate = F.linear(x, layer["experts_w_gate"].to(dt).reshape(-1, E)).view(B * S, X, -1)
+    up = F.linear(x, layer["experts_w_up"].to(dt).reshape(-1, E)).view(B * S, X, -1)
+    act = F.silu(gate).mul_(up)  # [B*S, X, I]
+    del gate, up
+    out = torch.bmm(act.transpose(0, 1), layer["experts_w_down"].to(dt).transpose(1, 2))  # [X, B*S, E]
+    return (out * combine[..., None]).sum(dim=0).view(B, S, E)
 
 
 def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig,
@@ -251,7 +293,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
         k = apply_rope(k, cos, sin)
         attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain)
         x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
-        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), plain)
+        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     cache.length.add_(n_valid)  # in place: a replayed decode step advances it too
     return x, cache
@@ -275,7 +317,7 @@ def forward_full_attention(params: Params, cfg: ModelConfig, input_ids: torch.Te
         k = apply_rope(k, cos[None], sin[None])
         attn = causal_attention_ref(q, k, v)
         x = x + _proj(layer, attn.reshape(B, S, -1), "wo")
-        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps))
+        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
@@ -330,7 +372,7 @@ def forward_two_way(params: Params, gates: torch.Tensor, cfg: ModelConfig, sink_
 
     def block_out(layer, h, attn):
         h = h + _proj(layer, attn.reshape(B, S, -1), "wo", plain)
-        return h + _mlp(layer, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), plain)
+        return h + _mlp(layer, rms_norm(h, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
 
     def student(layer, alpha_raw, hs, full_out):
         alpha_q = clip_gates(alpha_raw).float().repeat_interleave(G).reshape(1, 1, cfg.num_heads, 1)

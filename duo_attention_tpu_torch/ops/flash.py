@@ -41,7 +41,7 @@ from .quant import dequantize_int4_paired
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P],
-    "decode_partial_floats": [],
+    "decode_partial_floats": [_I],
     "streaming_cache_attention": [
         _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
@@ -51,9 +51,11 @@ _SIGNATURES = {
 _Q4_SIGNATURES = {
     "full_cache_attention_q4": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _P, _P, _I, _I, _P],
-    "q4_decode_scratch_floats": [_I, _I],
+    "q4_decode_scratch_floats": [_I, _I, _I],
 }
-HEAD_DIM = 128  # the kernels' head_dim (every preset's)
+# The head_dims the kernels are instantiated for: 128 (every preset) and 64
+# (the constructed circuits); any other raises on the card.
+HEAD_DIMS = (64, 128)
 MAX_GROUP = 8  # the decode kernel's largest query-head group
 # Query rows per plain-version matmul: bounds its [Hq, rows, keys] f32 scores.
 _PLAIN_ROWS = 512
@@ -177,8 +179,8 @@ def _check_kernel_inputs(name: str, q: torch.Tensor, bufs, Hkv: int) -> None:
                 f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
     B, S, Hq, D = q.shape
-    if D != HEAD_DIM or Hq % Hkv != 0:
-        raise ValueError(f"{name}: kernel needs head_dim {HEAD_DIM} and Hq % Hkv == 0, "
+    if D not in HEAD_DIMS or Hq % Hkv != 0:
+        raise ValueError(f"{name}: kernel needs head_dim in {HEAD_DIMS} and Hq % Hkv == 0, "
                          f"got q {tuple(q.shape)} with {Hkv} KV heads")
     if S == 1 and Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{name}: decode kernel takes at most {MAX_GROUP} query heads per KV head")
@@ -266,7 +268,7 @@ def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
     if S == 1:
         nsplit, split_keys = decode_split_plan(span, B * Hkv)
         if nsplit > 1:  # the splits' (acc, m, l); one split writes the output itself
-            part = _scratch("part", B * Hq * nsplit * lib.decode_partial_floats(), torch.float32, q.device)
+            part = _scratch("part", B * Hq * nsplit * lib.decode_partial_floats(D), torch.float32, q.device)
     err = lib.full_cache_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride, out.data_ptr(),
         B, S, Hq, Hkv, T, span, D, D**-0.5,
@@ -360,7 +362,7 @@ def full_cache_attention_q4(q, k_packed, k_scales, v_packed, v_scales, cs, *, bu
     nsplit = split_keys = 0
     if S == 1:
         nsplit, split_keys = q4_decode_split_plan(span, B * Hkv)
-        part = _scratch("q4_part", B * Hkv * lib.q4_decode_scratch_floats(nsplit, Hq // Hkv),
+        part = _scratch("q4_part", B * Hkv * lib.q4_decode_scratch_floats(nsplit, Hq // Hkv, D),
                         torch.float32, q.device)
         counters = _scratch("q4_tickets", B * Hkv, torch.int32, q.device)  # one ticket counter a (b, KV head)
     err = lib.full_cache_attention_q4(

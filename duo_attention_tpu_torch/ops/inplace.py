@@ -256,10 +256,10 @@ def write_q4_token(bq: torch.Tensor, bs: torch.Tensor, row: torch.Tensor, start,
         _check_bf16_cuda("write_q4_token", s_buf)
         if (q_buf.device != bq.device or s_buf.device != bq.device or q_buf.dtype != torch.uint8
                 or not q_buf.is_contiguous() or tuple(q_buf.shape) != (B, H, T2, D)
-                or tuple(s_buf.shape) != (B, H, 4, T2) or D % 128 != 0):
+                or tuple(s_buf.shape) != (B, H, 4, T2) or D % 4 != 0):
             raise ValueError(f"write_q4_token: packed {tuple(q_buf.shape)} {q_buf.dtype}, scales "
                              f"{tuple(s_buf.shape)}: the kernel needs contiguous uint8 [B,H,T2,D] and bf16 "
-                             "[B,H,4,T2] with D a multiple of 128")
+                             "[B,H,4,T2] with D a multiple of 4")
         # the kernel reads 4 channels (8 bytes) at a time
         if (r.device != bq.device or r.dtype != torch.bfloat16 or tuple(r.shape) != (B, H, 1, D)
                 or r.stride() != row.stride() or r.stride(3) != 1 or r.stride(0) % 4 or r.stride(1) % 4

@@ -257,9 +257,9 @@ def init_params_w8a8_random(cfg, seed: int = 0, device="cuda", quantize_embeds: 
     """Random W8A8 params with the int8 tensors drawn DIRECTLY, uniform in
     [-127, 127], and every weight scale fan_in**-0.5 / 127 (activations stay
     O(1)). For benchmarks and smoke runs, whose speed does not depend on the
-    values: no high-precision weight is ever allocated."""
-    if cfg.num_local_experts > 0:
-        raise NotImplementedError("MoE MLPs are not ported yet")
+    values: no high-precision weight is ever allocated. As JAX's, it draws
+    dense layers whatever ``cfg.num_local_experts`` says (a W8A8 MoE model
+    comes from ``init_params_w8a8``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -180,9 +180,13 @@ def test_load_hf_model_defaults_to_the_card(tmp_path, tiny, monkeypatch):
 
 
 def test_moe_checkpoints_raise(tmp_path, tiny):
+    """A Mixtral config over a dense checkpoint (no block_sparse_moe tensors)
+    raises, naming the router it could not find (MoE checkpoints convert:
+    tests/test_torch_moe.py)."""
     cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="MoE"):
-        convert.params_from_state_dict({}, dataclasses.replace(cfg, num_local_experts=4), device="cpu")
+    with pytest.raises(KeyError, match="block_sparse_moe.gate"):
+        convert.params_from_state_dict(hf_state_dict_from_params(params), dataclasses.replace(cfg, num_local_experts=4),
+                                       device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

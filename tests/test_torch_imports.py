@@ -1,6 +1,7 @@
 """The port stands alone: no module of duo_attention_tpu_torch, and not
 chip_smoke.py, imports jax, the JAX package (whose __init__ pulls in jax),
-ml_dtypes or the repo's bench.py.
+ml_dtypes or the repo's bench.py. And it exports every name the JAX package
+exports (its ``__all__``, read with ``ast`` so that nothing of JAX is imported).
 
 The imports are read with ``ast``: a text search would also match the
 port's own name, which starts with the JAX package's.
@@ -51,3 +52,27 @@ def test_the_training_slice_is_covered():
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules((REPO / path).read_text()) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def _jax_all():
+    """The names in duo_attention_tpu/__init__.py's ``__all__``."""
+    tree = ast.parse((REPO / "duo_attention_tpu" / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [ast.literal_eval(elt) for elt in node.value.elts]
+    raise AssertionError("duo_attention_tpu/__init__.py has no __all__")
+
+
+JAX_ALL = _jax_all()
+
+
+def test_the_jax_names_are_read():
+    assert "DuoEngine" in JAX_ALL and "load_hf_model" in JAX_ALL and "reorder_params" in JAX_ALL
+
+
+@pytest.mark.parametrize("name", JAX_ALL)
+def test_the_port_exports_every_name_of_the_jax_package(name):
+    import duo_attention_tpu_torch
+
+    assert hasattr(duo_attention_tpu_torch, name), name
+    assert name in duo_attention_tpu_torch.__all__, name

@@ -721,9 +721,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     k = randn(gen, 1, 2, 256, 128)
     with pytest.raises(ValueError):  # float32
         flash.full_cache_attention(torch.zeros(1, 4, 4, 128, device=dev), k, k, 0)
-    with pytest.raises(ValueError):  # head_dim 64
-        flash.full_cache_attention(randn(gen, 1, 4, 4, 64), randn(gen, 1, 2, 256, 64),
-                                   randn(gen, 1, 2, 256, 64), 0)
+    with pytest.raises(ValueError, match="head_dim"):  # head_dim 96: not an instantiated head_dim
+        flash.full_cache_attention(randn(gen, 1, 4, 4, 96), randn(gen, 1, 2, 256, 96),
+                                   randn(gen, 1, 2, 256, 96), 0)
     with pytest.raises(ValueError):  # not contiguous
         flash.full_cache_attention(randn(gen, 1, 4, 8, 128)[:, :, ::2], k, k, 0)
     with pytest.raises(ValueError):  # 16 query heads per KV head at decode
@@ -1015,3 +1015,292 @@ def test_two_way_gate_gradients_kernel_path_equal_plain_path(dev):
     for a, b in zip(*runs):
         assert torch.allclose(a.float(), b.float(), rtol=1e-5, atol=0), (a - b).abs().max()
     assert runs[0][2].abs().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# head_dim 64: every attention kernel's D = 64 instantiation and the writes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,T,cs,bucket", [
+    (2, 100, 8, 8, 1024, [0, 500], 1024),  # ragged query tile, G = 1
+    (1, 1000, 8, 2, 2048, 517, 2048),  # S not a multiple of the query tile, odd start
+    (1, 65, 4, 4, 512, 0, 512),  # the second warpgroup holds one row
+    (4, 256, 16, 2, 2048, [0, 100, 1024, 1792], 2048),  # B = 4, G = 8
+    (1, 4096, 8, 4, 16384, 12000, 16384),  # a chunk of the constructed circuit's shape
+    (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8, one split
+    (3, 1, 8, 4, 768, [0, 766, 5], 768),  # decode, per-sequence lengths
+    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, every split full
+    (1, 1, 16, 4, 16384, 16001, 16384),  # decode, an odd tail
+    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, mixed lengths: empty splits
+    (1, 1, 12, 4, 1536, 0, 1536),  # decode, G = 3, one key in all
+])
+def test_full_cache_attention_kernel_at_head_dim_64(dev, B, S, Hq, Hkv, T, cs, bucket):
+    gen = torch.Generator(device=dev).manual_seed(40)
+    q = randn(gen, B, S, Hq, 64, mul=Q_PEAK)
+    k, v = randn(gen, B, Hkv, T, 64), randn(gen, B, Hkv, T, 64)
+    cs = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    before = flash.full_cache_attention.prefill_launches + flash.full_cache_attention.decode_launches
+    got = flash.full_cache_attention(q, k, v, cs, bucket=bucket)
+    assert flash.full_cache_attention.prefill_launches + flash.full_cache_attention.decode_launches == before + 1
+    want = flash.full_cache_attention_plain(q, k, v, cs, bucket=bucket)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hs,sink,recent,chunk,R,cs", [
+    (2, 64, 8, 4, 4, 8, 64, 128, [64, 300]),  # wrapped ring
+    (1, 130, 2, 2, 0, 16, 130, 512, 1000),  # no sink, ragged tile, G = 1
+    (1, 256, 8, 2, 64, 256, 256, 512, 1900),  # tokens cross the wrap
+    (1, 100, 8, 2, 64, 256, 128, 512, 10),  # cs < sink
+    (2, 1, 16, 2, 64, 256, 4096, 4608, [3, 9000]),  # decode, G = 8
+    (1, 1, 16, 4, 64, 256, 4096, 4608, 4700),  # decode across slot R
+    (4, 1, 16, 4, 64, 256, 4096, 4608, [5, 64, 4700, 32000]),  # decode, B = 4, empty splits
+    (2, 1, 8, 2, 0, 256, 4096, 4608, [300, 16000]),  # decode, no sink
+    (1, 1, 4, 1, 128, 2048, 4096, 4608, 16000),  # decode, a window past one tile a warp
+])
+def test_streaming_cache_attention_kernel_at_head_dim_64(dev, B, S, Hq, Hs, sink, recent, chunk, R, cs):
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q = randn(gen, B, S, Hq, 64, mul=Q_PEAK)
+    bufs = [randn(gen, B, Hs, sink + chunk, 64), randn(gen, B, Hs, sink + chunk, 64),
+            randn(gen, B, Hs, R, 64), randn(gen, B, Hs, R, 64)]
+    cs = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    got = flash.streaming_cache_attention(q, *bufs, cs, cs + S, sink, recent)
+    want = flash.streaming_cache_attention_plain(q, *bufs, cs, cs + S, sink, recent)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,T,cs,bucket", [
+    (2, 100, 8, 8, 1024, [0, 500], 1024),  # ragged query tile, G = 1
+    (1, 70, 4, 2, 512, 101, 512),  # odd start: the last key shares a byte row with an unseen one
+    (1, 300, 8, 4, 2048, 517, 2048),  # odd start, the diagonal tile splits a pair
+    (4, 256, 16, 4, 2048, [0, 301, 1024, 1700], 2048),  # B = 4, mixed lengths and parities
+    (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8, one split
+    (1, 1, 8, 4, 512, 301, 0),  # decode, odd position
+    (3, 1, 8, 4, 4096, [0, 4095, 1500], 4096),  # decode, some splits empty
+    (2, 1, 4, 4, 32768, [20000, 32767], 32768),  # decode, 32 splits
+    (1, 1, 12, 4, 1536, 1400, 0),  # decode, G = 3
+    (1, 1, 16, 4, 128, 57, 100),  # a span below one tile
+])
+def test_full_cache_attention_q4_kernel_at_head_dim_64(dev, B, S, Hq, Hkv, T, cs, bucket):
+    gen = torch.Generator(device=dev).manual_seed(42)
+    q = randn(gen, B, S, Hq, 64, mul=Q_PEAK)
+    kq, ks = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 64))
+    vq, vs = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 64))
+    kq, ks, vq, vs = (t.contiguous() for t in (kq, ks, vq, vs))
+    cs = torch.as_tensor(cs, dtype=torch.int32, device=dev)
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs, bucket=bucket)
+    want = flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, cs, bucket=bucket)
+    torch.cuda.synchronize()
+    assert_q4_close(got, want)
+
+
+@pytest.mark.parametrize("S,cs", [(1, 1501), (1, [700, 2047]), (301, 500)])
+def test_full_cache_attention_q4_at_head_dim_64_never_reads_past_the_frontier(dev, S, cs):
+    """NaN scales and 0xF nibbles at every slot past the last query (an odd
+    frontier's pair row holds a visible key and a poisoned one): the kernel on
+    the poisoned cache equals the plain version on a clean one."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    cs_t = torch.as_tensor(cs, dtype=torch.int32, device=dev).reshape(-1)
+    B, Hq, Hkv, T = cs_t.numel(), 16, 4, 2048
+    q = randn(gen, B, S, Hq, 64, mul=Q_PEAK)
+    kq, ks = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 64))
+    vq, vs = quant.quantize_int4_paired(randn(gen, B, Hkv, T, 64))
+    kq, ks, vq, vs = (t.contiguous() for t in (kq, ks, vq, vs))
+    past = torch.arange(T, device=dev)[None] >= cs_t[:, None] + S  # [B, T]
+    clean = [t.clone() for t in (kq, ks, vq, vs)]
+    for b in range(B):
+        for packed, kept in ((kq, clean[0]), (vq, clean[2])):
+            kept[b, :, past[b, 0::2]] = 0
+            packed[b, :, past[b, 0::2]] = 0xFF
+            packed[b, :, past[b, 1::2] & ~past[b, 0::2]] |= 0xF0
+        for scales in (ks, vs):
+            scales[b, :, 0::2][..., past[b, 0::2]] = float("nan")
+            scales[b, :, 1::2][..., past[b, 1::2]] = float("nan")
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs_t, bucket=T)
+    want = flash.full_cache_attention_q4_plain(q, *clean, cs_t, bucket=T)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert_q4_close(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 192])
+def test_attention_kernels_at_head_dim_64_capture_into_a_cuda_graph(dev, S):
+    """The D = 64 launches read nothing back either: captured twice each and
+    replayed, the three wrappers give their eager results bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(44)
+    B, Hq, Hkv, T, sink, recent, R = 2, 8, 2, 4096, 64, 256, 512
+    q = randn(gen, B, S, Hq, 64, mul=Q_PEAK)
+    k, v = randn(gen, B, Hkv, T, 64), randn(gen, B, Hkv, T, 64)
+    bufs = [randn(gen, B, Hkv, sink + 256, 64), randn(gen, B, Hkv, sink + 256, 64),
+            randn(gen, B, Hkv, R, 64), randn(gen, B, Hkv, R, 64)]
+    cache = [t.contiguous() for t in (*quant.quantize_int4_paired(k), *quant.quantize_int4_paired(v))]
+    cs = torch.tensor([3000, 3800], dtype=torch.int32, device=dev)
+    tot = cs + S
+    calls = lambda: (flash.full_cache_attention(q, k, v, cs, bucket=T),  # noqa: E731
+                     flash.streaming_cache_attention(q, *bufs, cs, tot, sink, recent),
+                     flash.full_cache_attention_q4(q, *cache, cs, bucket=T))
+    want = calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(2):
+            got = calls()
+    for g in got:
+        g.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("pos", [0, 511, [3, 0, 511], [-4, 1000, 17]])
+def test_writes_at_head_dim_64(dev, pos):
+    """write_row (the pair from strided rows), write_streaming_rows and
+    write_q4_token (the pair) at D = 64: one launch each, bitwise the plain
+    versions."""
+    gen = torch.Generator(device=dev).manual_seed(45)
+    B, D = 3, 64
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    kbuf, vbuf = randn(gen, B, 2, 512, D), randn(gen, B, 2, 512, D)
+    kproj, vproj = randn(gen, B, 1, 4, D), randn(gen, B, 1, 4, D)
+    krow, vrow = kproj[:, :, :2].transpose(1, 2), vproj[:, :, :2].transpose(1, 2)
+    refs = kbuf.clone(), vbuf.clone()
+    inplace.write_row(kbuf, krow, pos, vbuf, vrow)
+    inplace.write_row_plain(refs[0], krow, pos, refs[1], vrow)
+    assert torch.equal(kbuf, refs[0]) and torch.equal(vbuf, refs[1])
+
+    sbufs = [randn(gen, B, 2, 64 + 16, D), randn(gen, B, 2, 64 + 16, D),
+             randn(gen, B, 2, 128, D), randn(gen, B, 2, 128, D)]
+    srefs = [b.clone() for b in sbufs]
+    st = pos.clamp_min(0)
+    inplace.write_streaming_rows(*sbufs, krow, vrow, st, 64)
+    inplace.write_streaming_rows_plain(*srefs, krow, vrow, st, 64)
+    assert all(torch.equal(a, b) for a, b in zip(sbufs, srefs))
+
+    T2 = 512
+    qbufs = [torch.randint(0, 256, (B, 2, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+             randn(gen, B, 2, 4, T2)]
+    qbufs += [torch.randint(0, 256, (B, 2, T2, D), generator=gen, device=dev, dtype=torch.uint8),
+              randn(gen, B, 2, 4, T2)]
+    qrefs = [b.clone() for b in qbufs]
+    before = inplace.write_q4_token.launches
+    inplace.write_q4_token(qbufs[0], qbufs[1], krow, pos, qbufs[2], qbufs[3], vrow)
+    assert inplace.write_q4_token.launches == before + 1
+    inplace.write_q4_token_plain(qrefs[0], qrefs[1], krow, pos, qrefs[2], qrefs[3], vrow)
+    torch.cuda.synchronize()
+    assert torch.equal(qbufs[0], qrefs[0]) and torch.equal(qbufs[2], qrefs[2])
+    assert torch.equal(qbufs[1].view(torch.int16), qrefs[1].view(torch.int16))
+    assert torch.equal(qbufs[3].view(torch.int16), qrefs[3].view(torch.int16))
+
+
+# A Mixtral at head_dim 64 (TINY_MIXTRAL's family, widened to the kernels' shapes): its MoE MLP
+# runs beside the D = 64 attention kernels and the W8A8 products
+MIXTRAL_D64 = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=384, num_layers=2, num_heads=8,
+                          num_kv_heads=4, head_dim=64, rope_theta=1e6, model_type="mixtral", num_local_experts=4,
+                          num_experts_per_tok=2)
+MIXTRAL_D64_DUO = DuoConfig(sink_size=16, recent_size=64, num_full_kv_heads=(2, 1), max_cache_size=2048,
+                            prefill_chunk_size=256)
+
+
+def _mixtral_d64_params(kv_quant):
+    if kv_quant == "int4":
+        return quant.init_params_w8a8(MIXTRAL_D64, seed=0, device="cuda", quantize_embeds=True)
+    return llama.init_params(MIXTRAL_D64, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_mixtral_head_dim_64_decode_graph_equals_the_eager_loop(dev, kv_quant):
+    """The MoE model's captured decode step (bursts of 8) gives the eager
+    forward_chunk loop's greedy tokens, cache length and launch counts, in
+    both formats, through the D = 64 kernels."""
+    cfg, duo = MIXTRAL_D64, MIXTRAL_D64_DUO
+    params = _mixtral_d64_params(kv_quant)
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant, decode_burst=8)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 700))
+    steps = 20
+    cache, logits = engine.prefill(ids)
+    before = launches.snapshot()
+    tokens, cache = engine.decode_tokens(cache, torch.argmax(logits, -1), steps, length=700)
+    graph_counts = [a - b for a, b in zip(launches.snapshot(), before)]
+
+    eager_cache, logits = engine.prefill(ids)
+    token = torch.argmax(logits, -1)
+    bucket = engine.bucket_for(700 + steps)
+    eager = []
+    before = launches.snapshot()
+    with torch.no_grad():
+        for _ in range(steps):
+            eager.append(int(token[0]))
+            hidden, eager_cache = llama.forward_chunk(params, cfg, duo, eager_cache, token[:, None], 1,
+                                                      full_bucket=bucket)
+            token = torch.argmax(llama.logits_at(params, hidden, 0), dim=-1)
+    eager_counts = [a - b for a, b in zip(launches.snapshot(), before)]
+    assert tokens[0].tolist() == eager
+    assert int(cache.length) == int(eager_cache.length) == 700 + steps
+    assert graph_counts == eager_counts and sum(graph_counts) > 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_mixtral_head_dim_64_kernel_route_equals_the_plain_route(dev, kv_quant, monkeypatch):
+    """Prefill (two chunks and a ragged tail) and 6 teacher-forced decode
+    steps of the MoE model through the kernels and through the plain
+    versions: the logits within chip_smoke.py's phase 5 bound (5% of the
+    largest plain logit + 0.05; twice that in W8A8KV4), and the plain route
+    makes no kernel launch. The plain route's router is handed the experts
+    the kernel route's picked, call for call (weighted by its own logits):
+    top-k routing is a step function, and where two router logits tie a
+    last-bit difference picks another expert and moves that token by a
+    whole expert's output (as chip_smoke.py's ``_PinnedRouting``)."""
+    from duo_attention_tpu_torch.cache import init_cache, init_cache_q4
+
+    chosen, state = [], {"replay": False, "calls": 0}
+    kept = llama.moe_router
+
+    def pinned(layer, x, top_k):
+        if not state["replay"]:
+            combine = kept(layer, x, top_k)
+            chosen.append(torch.topk(combine, top_k, dim=-1).indices)  # the nonzero weights
+            return combine
+        topi = chosen[state["calls"]]
+        state["calls"] += 1
+        logits = x.float() @ layer["moe_gate"].float()
+        return torch.zeros_like(logits).scatter_(-1, topi, torch.softmax(logits.gather(-1, topi), dim=-1))
+
+    monkeypatch.setattr(llama, "moe_router", pinned)
+    cfg, duo = MIXTRAL_D64, MIXTRAL_D64_DUO
+    params = _mixtral_d64_params(kv_quant)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 600))
+    new_cache = init_cache_q4 if kv_quant == "int4" else init_cache
+    feed = np.random.default_rng(2).integers(0, cfg.vocab_size, 6)
+
+    def run(plain):
+        cache = new_cache(cfg, duo, 1, torch.bfloat16, dev)
+        out = []
+        with torch.no_grad():
+            for off in range(0, 600, 256):
+                chunk = ids[:, off : off + 256]
+                n = chunk.shape[1]
+                hidden, cache = llama.forward_chunk(
+                    params, cfg, duo, cache, torch.as_tensor(np.pad(chunk, ((0, 0), (0, 256 - n))), device=dev),
+                    n, full_bucket=1024, plain=plain)
+            out.append(llama.logits_at(params, hidden, n - 1, plain=plain))
+            for t in feed:
+                hidden, cache = llama.forward_chunk(params, cfg, duo, cache, torch.tensor([[int(t)]], device=dev), 1,
+                                                    full_bucket=1024, plain=plain)
+                out.append(llama.logits_at(params, hidden, 0, plain=plain))
+        return torch.cat(out).float()
+
+    def counts(kind):  # the kernels' launches, or the plain versions' calls on CUDA tensors
+        return [getattr(fn, a) for fn, a in launches.counters().values() if (a == "cuda_calls") == (kind == "plain")]
+
+    before = counts("kernel"), counts("plain")
+    kern = run(False)
+    assert counts("plain") == before[1] and sum(counts("kernel")) > sum(before[0])
+    before = counts("kernel"), counts("plain")
+    state["replay"] = True
+    plain = run(True)
+    assert state["calls"] == len(chosen) and counts("kernel") == before[0] and sum(counts("plain")) > sum(before[1])
+    bound = (0.1 if kv_quant == "int4" else 0.05) * float(plain.abs().max()) + 0.05
+    assert bool(torch.isfinite(kern).all())
+    assert float((kern - plain).abs().max()) <= bound

@@ -205,19 +205,9 @@ def test_gate_training_discovers_graft_heads(tmp_path, four_threads):
 
 
 def test_run_loop_on_the_card_needs_the_kernels_head_dim(monkeypatch):
-    """The card's kernels take head_dim 128: run_loop refuses the 64-wide
-    circuit there before any work (constructed-d128 is the card's circuit)."""
-    monkeypatch.setattr(accuracy_loop, "resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(ValueError, match="constructed-d128"):
-        accuracy_loop.run_loop("unused", lm="constructed")
-
-
-def test_run_loop_default_circuit_follows_the_device(monkeypatch):
-    """With no --lm, the CLI runs on the card's default device: the circuit
-    defaults to constructed-d128 there (past the head_dim check) and to the
-    reference's 64-wide constructed on the CPU."""
-    assert accuracy_loop.default_lm("cuda") == "constructed-d128"
-    assert accuracy_loop.default_lm("cpu") == "constructed"
+    """The card's kernels take head_dim 64 as well as 128: run_loop no
+    longer refuses the reference's 64-wide circuit there, and reaches its
+    work (stopped at its first step here)."""
 
     class PastTheCheck(Exception):
         pass
@@ -228,4 +218,22 @@ def test_run_loop_default_circuit_follows_the_device(monkeypatch):
     monkeypatch.setattr(accuracy_loop, "resolve_device", lambda device: torch.device("cuda"))
     monkeypatch.setattr(accuracy_loop.os, "makedirs", stop)
     with pytest.raises(PastTheCheck):
-        accuracy_loop.main(["--out-dir", "unused"])
+        accuracy_loop.run_loop("unused", lm="constructed")
+
+
+def test_run_loop_default_circuit_follows_the_device(monkeypatch):
+    """With no --lm, the CLI runs the reference's 64-wide constructed circuit
+    on either device, as JAX's loop does."""
+    import inspect
+
+    assert inspect.signature(accuracy_loop.run_loop).parameters["lm"].default == "constructed"
+    seen = {}
+
+    def record(out_dir, **kw):
+        seen.update(kw)
+        return {"results": {}}
+
+    monkeypatch.setattr(accuracy_loop, "run_loop", record)
+    for device in ("cuda", "cpu"):
+        accuracy_loop.main(["--out-dir", "unused", "--device", device])
+        assert seen["lm"] == "constructed" and seen["device"] == device

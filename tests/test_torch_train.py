@@ -285,7 +285,7 @@ def test_two_way_gates_zero_is_pure_streaming():
         q, k, v = tllama._qkv(layer, rms_norm(x, layer["input_norm"], tcfg.rms_norm_eps), tcfg)
         attn = masked_attention(apply_rope(q, cos[None], sin[None]), apply_rope(k, cos[None], sin[None]), v, lam)
         x = x + tllama._proj(layer, attn.reshape(B, S, -1), "wo")
-        x = x + tllama._mlp(layer, rms_norm(x, layer["post_norm"], tcfg.rms_norm_eps))
+        x = x + tllama._mlp(layer, rms_norm(x, layer["post_norm"], tcfg.rms_norm_eps), tcfg)
     want = rms_norm(x, tp["final_norm"], tcfg.rms_norm_eps)
     np.testing.assert_allclose(ts.numpy(), want.numpy(), rtol=RTOL, atol=HIDDEN_ATOL)
 
