@@ -40,6 +40,11 @@ result):
      shapes (the constructed circuit's: 2 full and 2 streaming KV heads of
      one query head, chunks of 256, a cache of 1,536, sink 16, recent 64)
      and at the 8B path's shapes with D = 64, recorded as ``<kernel>.d64``.
+     And the shapes tensor parallelism gives them (phase 12, TP = 2): every
+     attention kernel, prefill and decode, over 2 KV heads of a rank (query
+     heads 8); the small-M product's int8-input mode with a given (cross-
+     rank) x scale at wo's and w_down's local depths (K = 2,048 and 7,168),
+     M = 1 and 8, and the tiled product at K = 2,048, M = 4,096, float32 out.
   4. end to end, bf16: Llama-3-8B geometry (32 layers, random bf16 weights from
      a seed), the repo's NIAH pattern at sparsity 0.5, a 16,000-token prompt and
      64 greedy tokens through DuoEngine.generate; checks the cache length, the
@@ -143,6 +148,42 @@ result):
      products, router and combine, attention kernels, W8A8 products, other)
      beside the bounds of dense dispatch (every expert read a token; every
      expert multiplied a prompt token).
+ 12. tensor parallelism (duo_attention_tpu_torch/parallel/, torch.distributed),
+     each sub-phase's ranks spawned processes that build their slices of the
+     weights from seed 0 layer by layer (no rank holds the whole model), after
+     the one-process reference has freed its weights. One card runs both ranks
+     of TP = 2, through gloo (NCCL refuses two ranks on one GPU): none of their
+     times is a TP speed figure.
+     12a TP = 2 over gloo, the 8B width and pattern cut to the first TP_LAYERS
+        layers (3 of them head-sharded), bf16 then W8A8KV4, an 8,000-token
+        prompt (two chunks) and 32 eager greedy tokens: fed the one-process
+        engine's greedy tokens (teacher-forced), the logits before every one
+        of them (the prefill's last, then every decode step's) within phase
+        5's bound of the one-process engine's, and the ranks' own tokens
+        equal up to its first top-2 gap below NEAR_TIE; per rank TTFT, ms/token,
+        peak memory, KV bytes equal to their reckoning from the rank's heads,
+        the collectives of a step equal to parallel.mesh.collectives_per_step,
+        the kernel launches of a step (counters) equal to the profiler's over 2
+        steps;
+     12b TP = 1 over NCCL (one process), phase 4's workload in both formats
+        through the mesh path with graph capture: its 128 tokens bitwise equal
+        to the no-mesh engine's, and the collectives a replayed token (captured
+        with the step) equal to the reckoning; graph ms/token of both; then
+        ServingEngine(mesh=) over the same one-rank NCCL mesh, its pool steps
+        captured with their collectives: 12c's requests served bit for bit
+        as the no-mesh pool serves them, and each captured pool step's
+        collectives equal to the reckoning;
+     12c ServingEngine(mesh=) at TP = 2, W8A8KV4, on 12a's ranks: 3 requests
+        (6,000 / 1,500 / 3,000 tokens, 24 new each, one sampled): every token
+        of a greedy stream within NEAR_TIE of the top logit of the isolated TP
+        engine fed that stream (teacher-forced), and the streams equal to
+        that engine's own up to its first near-tie;
+     12d expert parallelism: Mixtral-8x7B's width cut to 2 layers at TP = 2
+        (4 experts a rank), bf16: the prefill logits of a 2,000-token prompt
+        within phase 5's bound of the one-process run's, the router pinned to
+        its experts (_PinnedRouting);
+     and parallel/mesh.py's dry runs (dryrun_step) on 2 ranks of the card.
+     A rank that fails or hangs fails the run.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -264,6 +305,17 @@ MIXTRAL_HF_CONFIG = {
 }
 MIXTRAL_LAYERS, MIXTRAL_FULL_HEADS = 8, 4
 MIXTRAL_SERVE_LENS, MIXTRAL_SERVE_NEW = (6000, 1500, 3000), 24
+# Phase 12 (tensor parallelism) at TP = 2 on the 8B geometry: a rank's KV heads of one group in a
+# head-sharded layer (4 of them over 2 ranks), and the input depths of its row shards: wo (32 heads
+# / 2 x 128) and w_down (14,336 / 2)
+TP, TP_LOCAL_KV, TP_WO_K, TP_DOWN_K = 2, 2, 2048, 7168
+# 12a: an 8,000-token prompt (two chunks) and 32 greedy tokens; 12c: three requests, one sampled.
+# Both run the first TP_LAYERS layers of the 8B model and its pattern (3 of them head-sharded): at
+# 32 layers their gloo all_reduces through the host took 191 s on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §4).
+TP_PROMPT, TP_NEW, TP_SERVE_LENS, TP_SERVE_NEW, TP_LAYERS = 8000, 32, (6000, 1500, 3000), 24, 8
+# 12d: Mixtral-8x7B's width cut to 2 layers, a 2,000-token prompt; a spawned sub-phase's time limit
+TP_MOE_LAYERS, TP_MOE_PROMPT, TP_TIMEOUT_S = 2, 2000, 600
 
 
 class SmokeFailure(Exception):
@@ -1030,6 +1082,106 @@ def phase_kernels_w8a8kv4(rec):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_tp(rec):
+    """Phase 3 at the shapes tensor parallelism (phase 12) gives the
+    kernels: attention over TP_LOCAL_KV KV heads a rank (query group 4: the
+    8B model's 8 KV heads over 2 ranks) in both formats, prefill and decode;
+    the small-M product's int8-input mode with the x scale given (a row
+    shard's cross-rank scale) at wo's and w_down's local depths, M = 1 and 8,
+    and the tiled product at wo's, M = 4096, both with float32 output, as
+    ops/quant.py::w8a8_linear_row_split runs them. Attention is held to its
+    tolerance, the products bitwise; recorded as ``<kernel>`` cases named
+    "tp ...". Library: SDPA on expanded K/V (INT4: dequantized first);
+    torch._int_mm (x padded to 17 rows below M = 17)."""
+    import torch
+    import torch.nn.functional as F
+
+    from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
+    from duo_attention_tpu_torch.ops import flash, gemm, quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    D, G, H = HEAD_DIM, GROUP, TP_LOCAL_KV
+    Hq = H * G
+    Ts, R = SINK + CHUNK, ((RECENT + CHUNK + 511) // 512) * 512
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * mul).to(torch.bfloat16)
+
+    def attention_case(name, case, call, plain, mask, k_cat, v_cat, q, q4=False, kv_bytes=0):
+        err, ratio, ok = _attn_tol_ok(call(), plain(), q4=q4)
+        B, S = q.shape[:2]
+        times = timed(call, plain, lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_cat, v_cat,
+                                                                          attn_mask=mask))
+        nbytes = 2 * (2 * B * S * Hq * D) + kv_bytes
+        rec.record(name, f"tp {case} Hkv={H} Hq={Hq}", err, ok, times, _bound(4 * D * Hq * int(mask.sum()), nbytes),
+                   ratio)
+
+    k, v = randn(1, H, MAX_CACHE, D), randn(1, H, MAX_CACHE, D)
+    kq, ks = quant.quantize_int4_paired(k)
+    vq, vs = quant.quantize_int4_paired(v)
+    for S, cs in ((CHUNK, 12288), (1, 16000)):
+        kind = "decode" if S == 1 else "prefill"
+        q = randn(1, S, Hq, D, mul=Q_PEAK)
+        cs_arg = torch.tensor(cs, dtype=torch.int32, device=dev)
+        bucket = min(1 << (cs + S - 1).bit_length(), MAX_CACHE)
+        mask = full_mask(cs + torch.arange(S, device=dev), bucket)[None, None]
+        kc, vc = k[:, :, :bucket].repeat_interleave(G, dim=1), v[:, :, :bucket].repeat_interleave(G, dim=1)
+        attention_case(f"full_cache_attention.{kind}", f"{kind} cs={cs}",
+                       lambda: flash.full_cache_attention(q, k, v, cs_arg, bucket=bucket),
+                       lambda: flash.full_cache_attention_plain(q, k, v, cs_arg, bucket=bucket),
+                       mask, kc, vc, q, kv_bytes=2 * 2 * H * D * (cs + S))
+        rows = bucket // 2
+        kd = quant.dequantize_int4_paired(kq[:, :, :rows], ks[..., :rows]).bfloat16().repeat_interleave(G, dim=1)
+        vd = quant.dequantize_int4_paired(vq[:, :, :rows], vs[..., :rows]).bfloat16().repeat_interleave(G, dim=1)
+        attention_case(f"full_cache_attention_q4.{kind}", f"{kind} cs={cs}",
+                       lambda: flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs_arg, bucket=bucket),
+                       lambda: flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, cs_arg, bucket=bucket),
+                       mask, kd, vd, q, q4=True, kv_bytes=2 * H * (cs + S) * (D // 2 + 4))
+        del kc, vc, kd, vd
+        sk, sv, rk, rv = randn(1, H, Ts, D), randn(1, H, Ts, D), randn(1, H, R, D), randn(1, H, R, D)
+        qpos = cs + torch.arange(S, device=dev)
+        smask = torch.cat([sink_mask(qpos, SINK, SINK), ring_mask(qpos, R, cs + S, cs, SINK, RECENT)], dim=-1)[None, None]
+        kc = torch.cat([sk[:, :, :SINK], rk], dim=2).repeat_interleave(G, dim=1)
+        vc = torch.cat([sv[:, :, :SINK], rv], dim=2).repeat_interleave(G, dim=1)
+        tot = cs_arg + S
+        attention_case(f"streaming_cache_attention.{kind}", f"{kind} cs={cs}",
+                       lambda: flash.streaming_cache_attention(q, sk, sv, rk, rv, cs_arg, tot, SINK, RECENT),
+                       lambda: flash.streaming_cache_attention_plain(q, sk, sv, rk, rv, cs_arg, tot, SINK, RECENT),
+                       smask, kc, vc, q, kv_bytes=2 * 2 * H * D * int(smask.any(dim=2).sum()))
+        del kc, vc, sk, sv, rk, rv
+    del k, v, kq, ks, vq, vs
+
+    # the row shards' products: x quantized with the whole row's scale (given), float32 out
+    E = GEMM_SHAPES["wq/wo"][0]
+    for label, K, Ms, route in (("wo", TP_WO_K, (1, 8), "small"), ("w_down", TP_DOWN_K, (1, 8), "small"),
+                                ("wo", TP_WO_K, (CHUNK,), "tiled")):
+        wq = torch.randint(-127, 128, (E, K), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((E,), generator=gen, device=dev) * 1e-3 + 1e-4
+        for M in Ms:
+            x = randn(M, K, mul=2.0)
+            # a scale from a wider row (the other rank's half), as the all_reduce MAX gives it
+            xf = x.float()
+            xq, xs = quant._quantize_rows(xf, xf.abs().amax(-1, keepdim=True) * 1.5)
+            got = gemm.w8a8_matmul(xq, xs, wq, ws, torch.float32, route=route)
+            want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, torch.float32)
+            ok = torch.equal(got, want)
+            err = float((got - want).abs().max())
+            pad = max(17 - M, 0)
+            xp = torch.cat([xq, xq.new_zeros(pad, K)])
+            wt = wq.t()
+            library = lambda: (torch._int_mm(xp, wt)[:M].float() * xs) * ws  # noqa: E731
+            require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label} M={M})")
+            times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, torch.float32, route=route),
+                          lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, torch.float32), library)
+            nbytes = M * K + E * K + 4 * (M + E) + 4 * M * E
+            rec.record(f"w8a8_matmul.{route}", f"tp {label} row shard {E}x{K} M={M} int8 x f32", err, ok, times,
+                       _bound(2 * M * E * K, nbytes, PEAK_INT8_OPS))
+        del wq
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_d64(rec):
     """Phase 3 at head_dim 64: every attention kernel's D = 64 instantiation
     (prefill and decode of the bf16 full heads, the streaming heads and the
@@ -1261,7 +1413,16 @@ def _counters():
     """The kernels' launch counters by name (ops/launches.py)."""
     from duo_attention_tpu_torch.ops import launches
 
-    return {name: c for name, c in launches.counters().items() if c[1] != "cuda_calls"}
+    return {name: c for name, c in launches.counters().items()
+            if c[1] != "cuda_calls" and not name.startswith(launches.COLLECTIVE)}
+
+
+def _collective_counters():
+    """The collectives' counters (parallel/mesh.py), by name without the prefix."""
+    from duo_attention_tpu_torch.ops import launches
+
+    return {name.removeprefix(launches.COLLECTIVE): c for name, c in launches.counters().items()
+            if name.startswith(launches.COLLECTIVE)}
 
 
 def _plain_functions():
@@ -1271,7 +1432,7 @@ def _plain_functions():
 
 
 def reset_counts():
-    for fn, attr in _counters().values():
+    for fn, attr in (*_counters().values(), *_collective_counters().values()):
         setattr(fn, attr, 0)
     for fn in _plain_functions():
         fn.cuda_calls = 0
@@ -2094,19 +2255,22 @@ def phase_eval_longbench(base, cfg, heads, sink, recent):
     return dict(scores=scores, counts=counts)
 
 
-def _kv_bytes_reckoned(cfg, duo, batch, decode_only=False):
-    """The INT4 cache's bytes from its shapes: a full head holds a byte a
+def _kv_bytes_reckoned(cfg, duo, batch, decode_only=False, heads=None, q4=True):
+    """The cache's bytes from its shapes: an INT4 full head holds a byte a
     channel per token pair and four bf16 scale rows per pair (scale and zero
-    point of both tokens), K and V; a streaming head its bf16 sink rows and
-    ring rows (chunked prefill: sink + chunk and round_up(recent + chunk,
-    512); decode-only: round_up(sink + 8, 8) and round_up(recent + 8, 128))."""
+    point of both tokens), a bf16 one two bytes a channel per token, K and V;
+    a streaming head its bf16 sink rows and ring rows (chunked prefill:
+    sink + chunk and round_up(recent + chunk, 512); decode-only:
+    round_up(sink + 8, 8) and round_up(recent + 8, 128)). ``heads``: per-layer
+    (full, streaming) counts (a TP rank's), else the pattern's."""
     T, D = duo.max_cache_size, cfg.head_dim
     if decode_only:
         sink, ring = -(-(duo.sink_size + 8) // 8) * 8, -(-(duo.recent_size + 8) // 128) * 128
     else:
         sink, ring = duo.sink_size + duo.prefill_chunk_size, -(-(duo.recent_size + duo.prefill_chunk_size) // 512) * 512
-    return sum(2 * batch * (hf * (T // 2) * (D + 4 * 2) + (cfg.num_kv_heads - hf) * (sink + ring) * D * 2)
-               for hf in duo.num_full_kv_heads)
+    heads = heads or [(hf, cfg.num_kv_heads - hf) for hf in duo.num_full_kv_heads]
+    full = (T // 2) * (D + 4 * 2) if q4 else T * D * 2
+    return sum(2 * batch * (hf * full + hs * (sink + ring) * D * 2) for hf, hs in heads)
 
 
 def phase_eval_efficiency():
@@ -2667,6 +2831,443 @@ def phase_mixtral():
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: tensor parallelism (parallel/, torch.distributed)
+# ---------------------------------------------------------------------------
+# The ranks are new processes (start method spawn) that import this script as a module and run
+# the _tp_* functions below. One card runs both ranks of TP = 2 through gloo (NCCL refuses two
+# ranks on one GPU): its times are not TP speed figures.
+
+
+def _tp_formats():
+    """format -> (kv_quant, the builder of phases 4 and 6; both take a ``shard`` hook)."""
+    from duo_attention_tpu_torch.models.llama import init_params
+    from duo_attention_tpu_torch.ops.quant import init_params_w8a8_random
+
+    return {"bf16": ("none", init_params), "w8a8kv4": ("int4", init_params_w8a8_random)}
+
+
+def _tp_setup():
+    """12a's and 12c's model: the 8B geometry and pattern, cut to TP_LAYERS layers."""
+    cfg, duo, _ = _model_setup()
+    return (dataclasses.replace(cfg, num_layers=TP_LAYERS),
+            dataclasses.replace(duo, num_full_kv_heads=duo.num_full_kv_heads[:TP_LAYERS]))
+
+
+def _weights_gib(params):
+    return sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30
+
+
+def _spawn(fn, tensor, args):
+    """parallel.mesh.run_ranks of a phase-12 worker on the card; a rank that
+    fails or hangs fails the phase."""
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    try:
+        return pmesh.run_ranks(fn, tensor, args=args, device="cuda", timeout_s=TP_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure(f"phase 12, {fn.__name__}: {e}") from e
+
+
+def _tp_reference(cfg, duo, fmt, ids):
+    """The one-process engine on the card (phase 12's yardstick): TP_NEW
+    greedy tokens from eager steps, the top-2 logit gap before each, and the
+    logits before each [TP_NEW, vocab] (the prefill's last, then each
+    step's; ``stream_logits``, as the ranks take theirs). Its weights are
+    freed after."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    kv_quant, make = _tp_formats()[fmt]
+    params = make(cfg, seed=0, device="cuda")
+    engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
+    tokens, gaps = pmesh._greedy_gaps(engine, ids, TP_NEW)
+    out = dict(logits=pmesh.stream_logits(engine, ids, tokens)[:, 0], tokens=tokens[0].tolist(), gaps=gaps)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(mesh, fmt, ids, ref_tokens, serve):
+    """12a on one rank of TP = 2 (and 12c after it, ``serve``): the rank's
+    slices of the 8B weights built layer by layer from seed 0, then prefill
+    and TP_NEW eager greedy tokens, and the logits before each of the
+    one-process run's ``ref_tokens`` [1, TP_NEW] fed after the prompt
+    (teacher-forced); TTFT, ms/token, peak memory, KV bytes
+    against their reckoning from the rank's heads, the collectives and the
+    kernel launches of one decode step (counters), and the kernels the
+    profiler saw in 2 more steps against the counters."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
+    from duo_attention_tpu_torch.ops import launches
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    cfg, duo = _tp_setup()
+    kv_quant, make = _tp_formats()[fmt]
+    t0 = time.perf_counter()
+    params = make(cfg, seed=0, device=mesh.device, shard=pmesh.sharder(mesh, cfg, duo))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = DuoEngine(params, cfg, duo, device=mesh.device, kv_quant=kv_quant, mesh=mesh)
+    require(not engine.captures, f"a {mesh.backend} mesh must decode eagerly")
+    engine.generate(ids[:, :300], max_new_tokens=2)  # warm up cuBLAS, the kernels and the communicator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cache, logits = engine.prefill(ids)
+    first = engine._agree(torch.argmax(logits, dim=-1))
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tokens, cache = engine.decode_tokens(cache, first, TP_NEW, length=ids.shape[1])
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / TP_NEW
+    counts = read_counts()
+    require(counts["plain_cuda_calls"] == 0, f"rank {mesh.rank}: the TP path called plain versions: {counts}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    kv = kv_memory_bytes(cache)
+    kv_want = _kv_bytes_reckoned(cfg, duo, 1, heads=engine.shards.heads, q4=kv_quant == "int4")
+    require(kv == kv_want, f"rank {mesh.rank}: KV bytes {kv}, reckoned {kv_want}")
+
+    # one more decode step, counted; then two under the profiler against the counters
+    names = list(launches.counters())
+    state = {"token": torch.as_tensor(tokens[:, -1], device=mesh.device).long()}
+    bucket = engine.bucket_for(ids.shape[1] + TP_NEW + 3)
+
+    def steps(n):
+        for _ in range(n):
+            state["token"] = engine._next_token(cache, state["token"], bucket)
+
+    before = launches.snapshot()
+    steps(1)
+    step = {n: a - b for n, a, b in zip(names, launches.snapshot(), before) if a != b}
+    collectives = {n.removeprefix(launches.COLLECTIVE): step.get(n, 0) for n in names
+                   if n.startswith(launches.COLLECTIVE)}
+    expected = pmesh.collectives_per_step(mesh, cfg, duo, w8a8=kv_quant == "int4")
+    require(collectives == expected, f"rank {mesh.rank}: collectives a step {collectives}, expected {expected}")
+    kernels = {n: c for n, c in step.items() if n in _counters()}
+    before = launches.snapshot()
+    b = device_breakdown(lambda: steps(2))
+    counted = {n: a - c for n, a, c in zip(names, launches.snapshot(), before) if a != c and n in _counters()}
+    require(b["kernels_ran"] == counted == {n: 2 * c for n, c in kernels.items()},
+            f"rank {mesh.rank}: 2 profiled steps ran {b['kernels_ran']}, the counters {counted}, one step {kernels}")
+    out = dict(rank=mesh.rank, backend=mesh.backend, tokens=tokens[0].tolist(), ttft_ms=ttft_ms,
+               decode_ms_per_token=decode_ms, peak_memory_gib=peak_gib, kv_bytes=kv, kv_bytes_reckoned=kv_want,
+               weights_gib=_weights_gib(params), build_s=build_s, counts=counts, collectives_per_step=collectives,
+               kernel_launches_per_step=kernels, device_ms_per_step=b["device_busy_ms"] / 2,
+               idle_share=b["idle_share"], sharded_layers=sum(s.sharded for s in pmesh.plan_for(mesh, cfg, duo).layers))
+    del cache
+    stream = pmesh.stream_logits(engine, ids, np.asarray(ref_tokens))[:, 0]
+    if mesh.rank == 0:
+        out["logits"] = stream
+    if serve:
+        out["serving"] = _tp_serve(mesh, engine, params, cfg, duo, kv_quant)
+    return out
+
+
+def _tp_serve(mesh, single, params, cfg, duo, kv_quant):
+    """12c: ServingEngine(mesh=) over a SERVE_SLOTS-slot pool at TP = 2,
+    TP_SERVE_LENS prompts, TP_SERVE_NEW new tokens each, one sampled. Each
+    greedy request's stream is fed to the isolated TP engine (teacher-forced)
+    and every served token must lie within NEAR_TIE of that engine's top
+    logit there; and the stream must equal the engine's own greedy one up to
+    its first top-2 gap below NEAR_TIE."""
+    import torch
+
+    from duo_attention_tpu_torch import Request, ServingEngine, kv_memory_bytes
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in TP_SERVE_LENS]
+    sampling = {1: _serve_sampling()[1]}
+    reset_counts()
+    engine = ServingEngine(params, cfg, duo, max_batch_size=SERVE_SLOTS, kv_quant=kv_quant, decode_burst=SERVE_BURST,
+                           device=mesh.device, mesh=mesh)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt_ids=prompt, max_new_tokens=TP_SERVE_NEW, sampling=sampling.get(rid)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = {r.rid: list(r.generated) for r in engine.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    require(counts["plain_cuda_calls"] == 0 and len(served) == len(prompts), f"12c: {counts}, {sorted(served)}")
+    agreement = {}
+    for i, prompt in enumerate(prompts):
+        if i in sampling:
+            require(len(served[i]) == TP_SERVE_NEW, f"12c: sampled request {i} served {len(served[i])} tokens")
+            continue
+        stream = np.asarray(served[i])
+        forced = pmesh.stream_logits(single, prompt[None], stream[None])[:, 0]  # [n, vocab]
+        below = forced.max(axis=-1) - forced[np.arange(len(stream)), stream]  # each served token below the top
+        iso, gaps = pmesh._greedy_gaps(single, prompt[None], TP_SERVE_NEW)
+        iso = iso[0].tolist()
+        tie = next((t for t, g in enumerate(gaps) if g < NEAR_TIE), len(gaps))
+        prefix = next((t for t, (a, b) in enumerate(zip(served[i], iso)) if a != b), len(iso))
+        agreement[i] = dict(agreeing_prefix=prefix, first_near_tie=tie, served=len(served[i]),
+                            gap_at_divergence=gaps[prefix] if prefix < len(iso) else None,
+                            largest_below_top=float(below.max()), steps_not_argmax=int((below > 0).sum()))
+        require(float(below.max()) <= NEAR_TIE, f"12c: request {i}: a served token {below.max():.4f} below the top "
+                f"logit of the isolated TP engine fed the same stream (NEAR_TIE {NEAR_TIE}): {below.tolist()}")
+        require(prefix >= min(tie, len(iso)), f"12c: request {i} diverged at {prefix} before its first near-tie {tie}")
+    out = dict(counts=counts, agreement=agreement, wall_s=wall, pool_kv_bytes=kv_memory_bytes(engine.cache),
+               tokens={i: t[:8] for i, t in served.items()})
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp1_rank(mesh, fmts):
+    """12b, each format in turn: one rank over NCCL, the mesh path with
+    graph capture against the no-mesh engine, phase 4's workload: the tokens
+    must be bitwise equal; TTFT, the steady graph decode's ms/token and the
+    counters a token; then the ServingEngine's (``_tp1_serve``)."""
+    return {fmt: _tp1_format(mesh, fmt) for fmt in fmts}
+
+
+def _tp1_format(mesh, fmt):
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine
+    from duo_attention_tpu_torch.ops import launches
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    cfg, duo, _ = _model_setup()
+    kv_quant, make = _tp_formats()[fmt]
+    params = make(cfg, seed=0, device=mesh.device)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))  # phase 4's prompt
+    names = list(launches.counters())
+    out = {}
+    for label, m in (("no_mesh", None), ("mesh", mesh)):
+        local = params if m is None else pmesh.shard_params(mesh, cfg, duo, params)
+        engine = DuoEngine(local, cfg, duo, device=mesh.device, kv_quant=kv_quant, mesh=m)
+        require(engine.captures, f"12b {label}: the decode is not captured ({mesh.backend})")
+        engine.generate(ids[:, :300], max_new_tokens=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = engine.prefill(ids)
+        first = engine._agree(torch.argmax(logits, dim=-1))
+        torch.cuda.synchronize()
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        tokens, cache = engine.decode_tokens(cache, first, NEW_TOKENS, length=PROMPT_LEN)  # captures its graph
+        token = torch.as_tensor(tokens[:, -1], device=mesh.device).long()
+        torch.cuda.synchronize()
+        before = launches.snapshot()
+        t0 = time.perf_counter()
+        more, cache = engine.decode_tokens(cache, token, NEW_TOKENS, length=PROMPT_LEN + NEW_TOKENS)  # replays
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+        per_token = {n: (a - b) / NEW_TOKENS for n, a, b in zip(names, launches.snapshot(), before) if a != b}
+        out[label] = dict(tokens=tokens[0].tolist() + more[0].tolist(), ttft_ms=ttft_ms, graph_ms_per_token=graph_ms,
+                          per_token=per_token)
+        del engine, cache, local
+        torch.cuda.empty_cache()
+    require(out["mesh"]["tokens"] == out["no_mesh"]["tokens"],
+            f"12b {fmt}: mesh tokens {out['mesh']['tokens']} != no-mesh {out['no_mesh']['tokens']}")
+    collectives = {n.removeprefix(launches.COLLECTIVE): out["mesh"]["per_token"].get(n, 0) for n in names
+                   if n.startswith(launches.COLLECTIVE)}
+    expected = pmesh.collectives_per_step(mesh, cfg, duo, w8a8=kv_quant == "int4")
+    require(collectives == expected, f"12b {fmt}: collectives a replayed token {collectives}, expected {expected}")
+    out["collectives_per_token"] = collectives
+    out["serving"] = _tp1_serve(mesh, params, cfg, duo, kv_quant, fmt)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp1_serve(mesh, params, cfg, duo, kv_quant, fmt):
+    """12b's ServingEngine: 12c's requests through the no-mesh pool, then
+    through ServingEngine(mesh=) on the one-rank NCCL mesh, both capturing
+    their pool steps; the served streams must be bitwise equal, and each pool
+    step the mesh captured (greedy and sampled) must hold the reckoned
+    collectives (replaying it adds them to the counters)."""
+    import torch
+
+    from duo_attention_tpu_torch import Request, ServingEngine
+    from duo_attention_tpu_torch.ops import launches
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in TP_SERVE_LENS]
+    sampling = {1: _serve_sampling()[1]}
+    names = list(launches.counters())
+    out = {}
+    for label, m in (("no_mesh", None), ("mesh", mesh)):
+        local = params if m is None else pmesh.shard_params(mesh, cfg, duo, params)
+        engine = ServingEngine(local, cfg, duo, max_batch_size=SERVE_SLOTS, kv_quant=kv_quant,
+                               decode_burst=SERVE_BURST, device=mesh.device, mesh=m)
+        require(engine.captures, f"12b serving {label}: the pool step is not captured ({mesh.backend})")
+        for rid, prompt in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt_ids=prompt, max_new_tokens=TP_SERVE_NEW, sampling=sampling.get(rid)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = {r.rid: list(r.generated) for r in engine.run()}
+        torch.cuda.synchronize()
+        graphs = {f"bucket {bucket}, {'sampled' if sampled else 'greedy'}":
+                  {n.removeprefix(launches.COLLECTIVE): d for n, d in zip(names, g.delta)
+                   if n.startswith(launches.COLLECTIVE)} for (bucket, sampled), g in engine._graphs.items()}
+        out[label] = dict(served=served, wall_s=time.perf_counter() - t0, graphs=graphs)
+        del engine, local
+        torch.cuda.empty_cache()
+    require(out["mesh"]["served"] == out["no_mesh"]["served"],
+            f"12b serving {fmt}: mesh streams {out['mesh']['served']} != no-mesh {out['no_mesh']['served']}")
+    expected = pmesh.collectives_per_step(mesh, cfg, duo, w8a8=kv_quant == "int4")
+    graphs = out["mesh"]["graphs"]
+    require(any("greedy" in k for k in graphs) and any("sampled" in k for k in graphs),
+            f"12b serving {fmt}: captured pool steps {sorted(graphs)}")
+    require(all(c == expected for c in graphs.values()),
+            f"12b serving {fmt}: collectives of the captured pool steps {graphs}, expected {expected}")
+    return dict(served_tokens=sum(len(t) for t in out["mesh"]["served"].values()), captured_steps=sorted(graphs),
+                collectives_per_step=expected, wall_s={k: v["wall_s"] for k, v in out.items()})
+
+
+def _tp_moe_setup():
+    from duo_attention_tpu_torch import DuoConfig
+    from duo_attention_tpu_torch.config import config_from_hf_dict
+
+    cfg = dataclasses.replace(config_from_hf_dict(MIXTRAL_HF_CONFIG), num_layers=TP_MOE_LAYERS)
+    duo = DuoConfig(sink_size=SINK, recent_size=RECENT, num_full_kv_heads=(MIXTRAL_FULL_HEADS,) * TP_MOE_LAYERS,
+                    max_cache_size=MAX_CACHE, prefill_chunk_size=CHUNK)
+    return cfg, duo
+
+
+def _tp_moe_rank(mesh, ids, chosen):
+    """12d on one rank: the rank's experts of the Mixtral width (cut to
+    TP_MOE_LAYERS layers) built from seed 0, and the prefill logits of
+    ``ids`` with the router pinned to the one-process run's experts."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine, init_params
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    cfg, duo = _tp_moe_setup()
+    params = init_params(cfg, seed=0, device=mesh.device, shard=pmesh.sharder(mesh, cfg, duo))
+    engine = DuoEngine(params, cfg, duo, device=mesh.device, mesh=mesh)
+    reset_counts()
+    with _PinnedRouting() as pinned:
+        pinned.chosen, pinned.replay = [torch.as_tensor(c, device=mesh.device) for c in chosen], True
+        _, logits = engine.prefill(ids)
+        require(pinned.calls == len(chosen), f"12d: {pinned.calls} router calls of {len(chosen)}")
+    counts = read_counts()
+    return dict(local_experts=params["layers"][0]["experts_w_gate"].shape[0], counts=counts,
+                logits=logits[0].float().cpu().numpy() if mesh.rank == 0 else None, weights_gib=_weights_gib(params))
+
+
+def _hold_logits(label, got, want, kv_quant):
+    """Phase 5's bound for the format at every row of got and want ([vocab],
+    or [n, vocab]: a teacher-forced stream, [0] the prefill's last logits,
+    then each decode step's): |dlogit| <= 5% (W8A8KV4: 10%) of the row's
+    largest reference logit + 0.05."""
+    got, want = np.atleast_2d(got), np.atleast_2d(want)
+    errs = np.abs(got - want).max(axis=-1)
+    bounds = (0.1 if kv_quant == "int4" else 0.05) * np.abs(want).max(axis=-1) + 0.05
+    worst = int(np.argmax(errs / bounds))
+    steps = (f"; over the {len(errs) - 1} teacher-forced decode steps at most {errs[1:].max():.4f}, nearest its "
+             f"bound at step {worst} ({errs[worst]:.4f} of {bounds[worst]:.4f})" if len(errs) > 1 else "")
+    log(f"  {label}: max |dlogit| {errs[0]:.4f} against the one-process run at the prefill (bound {bounds[0]:.4f})"
+        f"{steps}; argmax equal at {int((got.argmax(-1) == want.argmax(-1)).sum())} of {len(errs)}")
+    require(bool(np.isfinite(got).all()) and bool((errs <= bounds).all()),
+            f"{label}: logits beyond the bound at steps {np.nonzero(errs > bounds)[0].tolist()}: {errs.tolist()}")
+    out = dict(max_abs_logit_err=float(errs.max()), bound=float(bounds[0]))
+    if len(errs) > 1:
+        out.update(prefill_err=float(errs[0]), decode_max_err=float(errs[1:].max()), worst_step=worst,
+                   worst_bound=float(bounds[worst]))
+    return out
+
+
+def phase_tp():
+    """12: tensor parallelism on torch.distributed (parallel/), through both
+    engines; see the module docstring. Each sub-phase's ranks are spawned
+    processes that build their own slices of the weights from the seed."""
+    import torch
+
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    cfg, duo = _tp_setup()
+    out = {"note": "one H100 runs both ranks of TP = 2 (gloo): its times are not TP speed figures"}
+    ids = np.random.default_rng(12).integers(0, cfg.vocab_size, (1, TP_PROMPT))
+    for fmt in ("bf16", "w8a8kv4"):
+        t0 = time.perf_counter()
+        kv_quant = _tp_formats()[fmt][0]
+        ref = _tp_reference(cfg, duo, fmt, ids)
+        ranks = _spawn(_tp_rank, TP, (fmt, ids, [ref["tokens"]], fmt == "w8a8kv4"))
+        r = dict(ref_tokens=ref["tokens"], ranks=[{k: v for k, v in x.items() if k != "logits"} for x in ranks])
+        r["logits"] = _hold_logits(f"12a {fmt}, prefill of {TP_PROMPT} and {TP_NEW - 1} steps fed the one-process "
+                                   f"tokens", ranks[0]["logits"], ref["logits"], kv_quant)
+        require(ranks[0]["tokens"] == ranks[1]["tokens"], f"12a {fmt}: the ranks' tokens differ")
+        got = ranks[0]["tokens"]
+        tie = next((t for t, g in enumerate(ref["gaps"]) if g < NEAR_TIE), TP_NEW)
+        prefix = next((t for t, (a, b) in enumerate(zip(got, ref["tokens"])) if a != b), TP_NEW)
+        r.update(agreeing_prefix=prefix, first_near_tie=tie)
+        log(f"  12a {fmt}: TP = 2 tokens agree with the one-process run for {prefix} of {TP_NEW}; its first "
+            f"near-tie (top-2 gap < {NEAR_TIE}) at {tie}")
+        require(prefix >= min(tie, TP_NEW), f"12a {fmt}: diverged at {prefix} before the first near-tie {tie}")
+        for x in ranks:
+            log(f"  12a {fmt} rank {x['rank']} ({x['backend']}; one card runs both ranks: not a TP speed figure): "
+                f"TTFT {x['ttft_ms']:.1f} ms, decode {x['decode_ms_per_token']:.2f} ms/token (eager), "
+                f"{x['device_ms_per_step']:.3f} device ms a step, peak {x['peak_memory_gib']:.2f} GiB "
+                f"(weights {x['weights_gib']:.2f} GiB, built in {x['build_s']:.1f} s), KV {x['kv_bytes']} bytes = "
+                f"reckoned {x['kv_bytes_reckoned']}; {x['sharded_layers']} head-sharded layers; collectives a step "
+                f"{x['collectives_per_step']}; kernel launches a step {x['kernel_launches_per_step']} "
+                f"(= the profiler's over 2 steps / 2)")
+        if fmt == "w8a8kv4":
+            c = ranks[0]["serving"]
+            log(f"  12c ServingEngine(mesh=) TP = 2, W8A8KV4, {len(TP_SERVE_LENS)} requests: wall {c['wall_s']:.2f} s "
+                f"(not a TP speed figure); pool KV {c['pool_kv_bytes']} bytes a rank; agreement with the isolated "
+                f"TP engine {json.dumps(c['agreement'])}")
+        r["phase_s"] = time.perf_counter() - t0
+        out["tp2_" + fmt] = r
+        log(f"  12a{'/12c' if fmt == 'w8a8kv4' else ''} {fmt}: {r['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    (tp1,) = _spawn(_tp1_rank, 1, (("bf16", "w8a8kv4"),))
+    out["tp1_phase_s"] = time.perf_counter() - t0
+    for fmt, b in tp1.items():
+        out["tp1_" + fmt] = b
+        log(f"  12b {fmt}, TP = 1 over NCCL, graph decode: {PROMPT_LEN} + {2 * NEW_TOKENS} tokens bitwise equal to "
+            f"the no-mesh engine's; TTFT {b['mesh']['ttft_ms']:.1f} / {b['no_mesh']['ttft_ms']:.1f} ms, graph "
+            f"{b['mesh']['graph_ms_per_token']:.2f} / {b['no_mesh']['graph_ms_per_token']:.2f} ms/token (mesh / "
+            f"no mesh); collectives a replayed token {b['collectives_per_token']}")
+        c = b["serving"]
+        log(f"  12b {fmt} ServingEngine(mesh=), TP = 1 over NCCL: {c['served_tokens']} served tokens bitwise equal to "
+            f"the no-mesh pool's; captured pool steps {c['captured_steps']}, collectives each "
+            f"{c['collectives_per_step']}; wall {c['wall_s']['mesh']:.2f} / {c['wall_s']['no_mesh']:.2f} s "
+            f"(mesh / no mesh)")
+    log(f"  12b: {out['tp1_phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    mcfg, mduo = _tp_moe_setup()
+    mids = np.random.default_rng(13).integers(0, mcfg.vocab_size, (1, TP_MOE_PROMPT))
+    from duo_attention_tpu_torch import DuoEngine, init_params
+
+    params = init_params(mcfg, seed=0, device="cuda")
+    with _PinnedRouting() as pinned:
+        _, logits = DuoEngine(params, mcfg, mduo, device="cuda").prefill(mids)
+    chosen, want = [c.cpu().numpy() for c in pinned.chosen], logits[0].float().cpu().numpy()
+    del params, logits, pinned
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn(_tp_moe_rank, TP, (mids, chosen))
+    require([x["local_experts"] for x in ranks] == [mcfg.num_local_experts // TP] * TP, "12d: experts a rank")
+    d = dict(logits=_hold_logits(f"12d Mixtral width, {TP_MOE_LAYERS} layers, prefill of {TP_MOE_PROMPT}, "
+                                 f"{mcfg.num_local_experts // TP} experts a rank", ranks[0]["logits"], want, "none"),
+             counts=[x["counts"] for x in ranks], weights_gib=[x["weights_gib"] for x in ranks],
+             phase_s=time.perf_counter() - t0)
+    out["tp2_mixtral"] = d
+    log(f"  12d: {d['phase_s']:.1f} s")
+    t0 = time.perf_counter()
+    try:
+        out["dryrun"] = pmesh.dryrun_step(TP, device="cuda", timeout_s=TP_TIMEOUT_S)
+    except (RuntimeError, TimeoutError, AssertionError) as e:
+        raise SmokeFailure(f"phase 12 dry runs: {e}") from e
+    out["dryrun"]["phase_s"] = time.perf_counter() - t0
+    log(f"  12 dry runs (parallel/mesh.py dryrun_step({TP}) on the card): {out['dryrun']['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -2695,6 +3296,7 @@ def main():
         t0 = time.perf_counter()
         phase_kernels(rec)
         phase_kernels_w8a8kv4(rec)
+        phase_kernels_tp(rec)
         t1 = time.perf_counter()
         phase_kernels_d64(rec)
         record["kernels"] = rec.results
@@ -2752,6 +3354,11 @@ def main():
         record["mixtral"] = phase_mixtral()
         record["mixtral"]["phase_s"] = time.perf_counter() - t0
         log(f"  phase 11: {record['mixtral']['phase_s']:.1f} s")
+        log("phase 12: tensor parallelism (parallel/; TP = 2 over gloo on the one card, TP = 1 over NCCL)")
+        t0 = time.perf_counter()
+        record["tp"] = phase_tp()
+        record["tp"]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 12: {record['tp']['phase_s']:.1f} s")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2763,6 +3370,13 @@ def main():
     for fmt, _, _ in formats:
         runs["mixtral_" + fmt] = record["mixtral"][fmt]["end_to_end"]["counts"]
         runs["mixtral_serving_" + fmt] = record["mixtral"][fmt]["serving"]["counts"]
+    for fmt in ("bf16", "w8a8kv4"):  # phase 12: each rank's run, and 12b's
+        for x in record["tp"]["tp2_" + fmt]["ranks"]:
+            runs[f"tp2_{fmt}_rank{x['rank']}"] = x["counts"]
+            if "serving" in x:
+                runs[f"tp2_serving_rank{x['rank']}"] = x["serving"]["counts"]
+    for i, counts in enumerate(record["tp"]["tp2_mixtral"]["counts"]):
+        runs[f"tp2_mixtral_rank{i}"] = counts
     # 10b is the path at head_dim 64: its launches are the .d64 rows' (every other path is at 128)
     runs_d64 = {"accuracy_loop": record["train"]["accuracy_loop"]["counts"]}
     line = []

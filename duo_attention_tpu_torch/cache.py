@@ -85,10 +85,12 @@ def sink_rows(duo: DuoConfig, decode_only: bool = False) -> int:
 
 
 def _allocate(cfg: ModelConfig, duo: DuoConfig, batch_size: int, full_specs, dtype, dev,
-              decode_only: bool) -> dict:
+              decode_only: bool, heads=None) -> dict:
     """{buffer name: [one zero tensor per layer]}: the full-head buffers named
     in full_specs as (name, shape after [B, Hf], dtype), and the four
-    streaming buffers in ``dtype``."""
+    streaming buffers in ``dtype``. ``heads``: per-layer (full, streaming)
+    KV head counts, when not the pattern's (a tensor-parallel rank's,
+    ``parallel.mesh.cache_shardings``)."""
     if len(duo.num_full_kv_heads) != cfg.num_layers:
         raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has {cfg.num_layers}")
     if duo.max_cache_size % 128 != 0:
@@ -97,22 +99,28 @@ def _allocate(cfg: ModelConfig, duo: DuoConfig, batch_size: int, full_specs, dty
     R, Ts = ring_capacity(duo, decode_only), sink_rows(duo, decode_only)
     stream_specs = [("k_sink", (Ts, D), dtype), ("v_sink", (Ts, D), dtype),
                     ("k_ring", (R, D), dtype), ("v_ring", (R, D), dtype)]
+    if heads is None:
+        heads = [(hf, cfg.num_kv_heads - hf) for hf in duo.num_full_kv_heads]
+    if len(heads) != cfg.num_layers:
+        raise ValueError(f"{len(heads)} layers of head counts for a model of {cfg.num_layers}")
     bufs = {name: [] for name, _, _ in (*full_specs, *stream_specs)}
-    for hf in duo.num_full_kv_heads:
-        for specs, heads in ((full_specs, hf), (stream_specs, cfg.num_kv_heads - hf)):
+    for hf, hs in heads:
+        for specs, n in ((full_specs, hf), (stream_specs, hs)):
             for name, tail, dt in specs:
-                bufs[name].append(torch.zeros((batch_size, heads, *tail), dtype=dt, device=dev))
+                bufs[name].append(torch.zeros((batch_size, n, *tail), dtype=dt, device=dev))
     return bufs
 
 
 def init_cache(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
-               dtype=torch.bfloat16, device="cuda", decode_only: bool = False) -> DuoCache:
+               dtype=torch.bfloat16, device="cuda", decode_only: bool = False, heads=None) -> DuoCache:
     """Preallocate every layer's buffers (zeros) on ``device``. Raises when
-    device is "cuda" and no GPU is present."""
+    device is "cuda" and no GPU is present. ``heads``: per-layer (full,
+    streaming) KV head counts of a tensor-parallel rank (default: the
+    pattern's)."""
     dev = resolve_device(device)
     T, D = duo.max_cache_size, cfg.head_dim
     bufs = _allocate(cfg, duo, batch_size, [("k_full", (T, D), dtype), ("v_full", (T, D), dtype)],
-                     dtype, dev, decode_only)
+                     dtype, dev, decode_only, heads)
     return DuoCache(**bufs, length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -142,17 +150,18 @@ class DuoCacheQ4:
 
 
 def init_cache_q4(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
-                  dtype=torch.bfloat16, device="cuda", decode_only: bool = False) -> DuoCacheQ4:
+                  dtype=torch.bfloat16, device="cuda", decode_only: bool = False, heads=None) -> DuoCacheQ4:
     """Preallocate the INT4 full-head buffers and the streaming buffers, all
     zeros (a never-written slot's scale must be finite: the masks hide the
-    slot, not its arithmetic). The bf16 full cache is never allocated."""
+    slot, not its arithmetic). The bf16 full cache is never allocated.
+    ``heads`` as in ``init_cache``."""
     if cfg.head_dim % 2:
         raise ValueError(f"the INT4 cache needs an even head_dim (got {cfg.head_dim})")
     dev = resolve_device(device)
     T2, D = duo.max_cache_size // 2, cfg.head_dim
     full_specs = [("k_full_q", (T2, D), torch.uint8), ("v_full_q", (T2, D), torch.uint8),
                   ("k_full_s", (4, T2), torch.bfloat16), ("v_full_s", (4, T2), torch.bfloat16)]
-    bufs = _allocate(cfg, duo, batch_size, full_specs, dtype, dev, decode_only)
+    bufs = _allocate(cfg, duo, batch_size, full_specs, dtype, dev, decode_only, heads)
     return DuoCacheQ4(**bufs, length=torch.zeros((), dtype=torch.int32, device=dev))
 
 

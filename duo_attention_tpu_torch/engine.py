@@ -32,7 +32,15 @@ step. The sampled step reads its key, temperature, top-p and top-k from the
 graph's buffers and writes the advanced key back in place, so each replay
 draws anew.
 
-Not ported yet: meshes.
+Tensor parallelism (``mesh=``, ``parallel/mesh.py``): every rank of the mesh
+builds the engine on its own slices of the params (``shard_params``) and
+calls it with the same arguments; the cache holds the rank's KV heads and,
+when the batch divides the data axis, its data group's rows. The whole
+logits reach every tensor rank, and each step's token is broadcast from
+tensor-rank 0 all the same, so the host loops never drift apart;
+``generate`` returns the whole batch on every rank. The decode step is
+captured only where the mesh's collectives can be (NCCL, not gloo:
+``Mesh.capturable``); under gloo it runs eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from .config import DuoConfig, ModelConfig
 from .models import llama
 from .ops import launches
 from .ops.sampling import prng_key, sample_tokens, split
+from .parallel import mesh as pmesh
 from .utils import resolve_device
 
 
@@ -117,11 +126,12 @@ def capture_step(step: Callable[[], None], stream: torch.cuda.Stream, owner, buf
 
 
 class DuoEngine:
-    """Stateful-cache inference engine on one device (the card by default)."""
+    """Stateful-cache inference engine on one device (the card by default),
+    or on one rank of a tensor-parallel mesh (``mesh``)."""
 
     def __init__(self, params, cfg: ModelConfig, duo: DuoConfig, batch_size: int = 1,
                  dtype=torch.bfloat16, device="cuda", decode_burst: int = 64,
-                 kv_quant: str = "none", single_bucket: bool = False):
+                 kv_quant: str = "none", single_bucket: bool = False, mesh=None):
         if len(duo.num_full_kv_heads) != cfg.num_layers:
             raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has "
                              f"{cfg.num_layers} — wrong attn_patterns dir for this model?")
@@ -144,10 +154,37 @@ class DuoEngine:
         self.decode_burst = max(int(decode_burst), 0)
         self.single_bucket = single_bucket
         self._graphs = {}  # (kv_quant, B, bucket, sampled) -> StepGraph, on the card
+        self.mesh = mesh
+        # the rank's cache layout: its KV heads and its slice of the batch
+        self.shards = None
+        if mesh is not None:
+            pmesh.check_sharded(mesh, cfg, duo, params)
+            self.shards = pmesh.cache_shardings(mesh, cfg, duo, batch_size)
+        # decode from captured graphs: on the card, where the collectives (if any) can be captured
+        self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
 
     def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
         init = init_cache_q4 if self.kv_quant == "int4" else init_cache
-        return init(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
+        if self.mesh is None:
+            return init(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
+        return init(self.cfg, self.duo, self.shards.batch, self.dtype, self.device, heads=self.shards.heads)
+
+    def local_rows(self, ids: np.ndarray) -> np.ndarray:
+        """The rows of a [batch_size, ...] host batch this rank's data group
+        runs (all of them without a mesh, or when the batch does not split)."""
+        if self.mesh is None:
+            return ids
+        return ids[self.shards.batch_start : self.shards.batch_start + self.shards.batch]
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole batch from the data groups' rows (a no-op unless the
+        batch is split over the data axis)."""
+        return local if self.mesh is None else pmesh.gather_rows(self.mesh, local, self.batch_size)
+
+    def _agree(self, token: torch.Tensor) -> torch.Tensor:
+        """The tensor group's token: tensor-rank 0's, broadcast (every rank
+        computed the same one from the same logits)."""
+        return token if self.mesh is None else pmesh.broadcast(self.mesh, token)
 
     def bucket_for(self, length: int) -> int:
         if self.single_bucket:
@@ -160,9 +197,9 @@ class DuoEngine:
     @torch.no_grad()
     def prefill(self, input_ids: np.ndarray, cache: Optional[DuoCache] = None,
                 start: int = 0) -> Tuple[DuoCache, torch.Tensor]:
-        """Chunked prefill of host ids [B, S]. ``start`` is the host-known
-        length already in ``cache``. Returns (cache, last-token logits
-        [B, vocab] float32)."""
+        """Chunked prefill of host ids [B, S] (under a mesh: the rank's rows,
+        ``local_rows``). ``start`` is the host-known length already in
+        ``cache``. Returns (cache, last-token logits [B, vocab] float32)."""
         if cache is None:
             cache = self.new_cache()
         input_ids = np.asarray(input_ids)
@@ -177,9 +214,9 @@ class DuoEngine:
                 chunk = np.pad(chunk, ((0, 0), (0, C - n_valid)))
             hidden, cache = llama.forward_chunk(
                 self.params, self.cfg, self.duo, cache, self._ids(chunk), n_valid,
-                full_bucket=self.bucket_for(pos + C),
+                full_bucket=self.bucket_for(pos + C), mesh=self.mesh,
             )
-            logits = llama.logits_at(self.params, hidden, n_valid - 1)
+            logits = llama.logits_at(self.params, hidden, n_valid - 1, mesh=self.mesh, cfg=self.cfg)
             pos += n_valid
         return cache, logits
 
@@ -193,7 +230,8 @@ class DuoEngine:
         temperature 0 decodes greedily, anything else samples with
         temperature / top-p / top-k from ``PRNGKey(sampling.seed)``, as the
         JAX engine does. Returns (generated ids [B, max_new_tokens] int32
-        host array, cache).
+        host array, cache). Under a mesh every rank passes the whole batch and
+        gets the whole batch back; the cache is the rank's.
         """
         input_ids = np.asarray(input_ids)
         if cache is None:
@@ -201,7 +239,7 @@ class DuoEngine:
             if total > self.duo.max_cache_size:
                 raise ValueError(f"prompt+generation = {total} tokens exceeds max_cache_size "
                                  f"= {self.duo.max_cache_size}")
-        cache, logits = self.prefill(input_ids, cache)
+        cache, logits = self.prefill(self.local_rows(input_ids), cache)
         sample_args = None
         if sampling is not None and not sampling.is_greedy:
             B = input_ids.shape[0]
@@ -209,15 +247,28 @@ class DuoEngine:
             temp, top_p = vec(sampling.temperature, torch.float32), vec(sampling.top_p, torch.float32)
             top_k = vec(sampling.top_k, torch.int32)
             key, sub = split(prng_key(sampling.seed, self.device))
-            first_token = sample_tokens(logits.float(), sub, temp, top_p, top_k)
+            first_token = self._sample(logits, sub, temp, top_p, top_k)
             sample_args = (key, temp, top_p, top_k)
         else:
-            first_token = torch.argmax(logits, dim=-1)
+            first_token = self._agree(torch.argmax(logits, dim=-1))
         tokens, cache = self.decode_tokens(cache, first_token, max_new_tokens, length=input_ids.shape[1],
                                            sample_args=sample_args, stop_token_ids=stop_token_ids)
+        if self.mesh is not None:
+            tokens = self._gather(torch.as_tensor(tokens, device=self.device).long()).cpu().numpy().astype(np.int32)
         if stop_token_ids:
             tokens = _truncate_at_stop(tokens, stop_token_ids)
         return tokens, cache
+
+    def _sample(self, logits: torch.Tensor, key, temp, top_p, top_k) -> torch.Tensor:
+        """Draw the rank's rows as the whole batch draws them from ``key``:
+        under a batch split over the data axis the logits are gathered
+        first, and the rank keeps its rows of the draw. temp/top_p/top_k are
+        the whole batch's."""
+        full = self._gather(logits.float())
+        nxt = sample_tokens(full, key, temp, top_p, top_k)
+        if self.mesh is not None:
+            nxt = self._agree(self.local_rows(nxt))
+        return nxt
 
     def decode_tokens(self, cache: DuoCache, first_token: torch.Tensor, max_new_tokens: int,
                       length: int, sample_args=None, stop_token_ids: Optional[list] = None
@@ -229,8 +280,9 @@ class DuoEngine:
         [2], temperature [B], top_p [B], top_k [B]) device tensors; each
         burst splits ``key`` and hands the subkey to its steps. With
         ``stop_token_ids``, decoding stops after the first burst in which
-        every row has emitted a stop token and the output is padded with the
-        first stop id. Returns (tokens [B, max_new_tokens] host array, cache)."""
+        every row (under a mesh, of every data group) has emitted a stop
+        token and the output is padded with the first stop id. Returns
+        (tokens [B, max_new_tokens] host array, cache)."""
         plan = _burst_plan(self.decode_burst, max_new_tokens)
         bucket = self.bucket_for(length + sum(plan))
         out = []
@@ -245,7 +297,10 @@ class DuoEngine:
             out.append(tokens)
             if stop_token_ids:
                 acc = np.concatenate(out, axis=1)
-                if all(np.isin(row, stop_token_ids).any() for row in acc):
+                done = all(np.isin(row, stop_token_ids).any() for row in acc)
+                if self.mesh is not None:  # the rows are the data group's: every group stops together
+                    done = pmesh.every_group(self.mesh, done)
+                if done:
                     break
         tokens = np.concatenate(out, axis=1)
         if tokens.shape[1] < max_new_tokens:  # early stop: pad with the stop id
@@ -265,13 +320,13 @@ class DuoEngine:
         argmax, or with ``samp`` = (key [2], temperature, top_p, top_k) a draw
         on a split of ``key``, which advances in place."""
         hidden, _ = llama.forward_chunk(self.params, self.cfg, self.duo, cache, token[:, None], 1,
-                                        full_bucket=bucket)
-        logits = llama.logits_at(self.params, hidden, 0)
+                                        full_bucket=bucket, mesh=self.mesh)
+        logits = llama.logits_at(self.params, hidden, 0, mesh=self.mesh, cfg=self.cfg)
         if samp is None:
-            return torch.argmax(logits, dim=-1)
+            return self._agree(torch.argmax(logits, dim=-1))
         key, temp, top_p, top_k = samp
         both = split(key)
-        nxt = sample_tokens(logits.float(), both[1], temp, top_p, top_k)
+        nxt = self._sample(logits, both[1], temp, top_p, top_k)
         key.copy_(both[0])
         return nxt
 
@@ -282,7 +337,7 @@ class DuoEngine:
         one emitted, so bursts chain. ``samp``: None (greedy) or (key [2],
         temperature, top_p, top_k), the burst's own key. Decoding past max_cache_size clamps the full-cache writes, so the
         results are garbage: the whole output is then poisoned with -1."""
-        if self.device.type == "cuda":
+        if self.captures:
             tokens, token = self._graph_burst(cache, token, steps, bucket, samp)
         else:
             emitted = []

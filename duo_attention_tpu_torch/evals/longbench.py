@@ -20,7 +20,9 @@ circuit in W8A8KV4 with the trained pattern:
         --simulation-tokens 16 --attn-pattern artifacts/niah_8b/pattern \
         --out-dir chiprun_out/longbench/trained
 
-Meshes (``--tp``, ``--pp``) are not ported (ROADMAP item 8).
+``--tp N`` runs N tensor-parallel ranks as ``evals/niah.py`` does; rank 0
+writes the predictions and the scores. ``--pp`` is not ported yet (ROADMAP
+item 8).
 """
 
 from __future__ import annotations
@@ -252,11 +254,6 @@ def score_file_e(task: str, pred_path: str) -> Dict[str, float]:
 
 
 def main(argv=None):
-    from ..config import DuoConfig
-    from ..models.constructed import SPECS
-    from ..patterns import load_attn_pattern, sparsify_attention_heads
-    from .niah import build_model, eval_dtype
-
     p = argparse.ArgumentParser(description="LongBench pred + eval")
     p.add_argument("--tasks", nargs="+", default=["hotpotqa"])
     p.add_argument("--model", default="tiny-gqa")
@@ -276,7 +273,8 @@ def main(argv=None):
     p.add_argument("--invert", action="store_true",
                    help="keep the COMPLEMENT of the pattern's heads full "
                    "(same budget, wrong heads — the ablation control)")
-    p.add_argument("--tp", type=int, default=0, help="not ported (ROADMAP item 8)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel ranks, one process each (NCCL when each has a card, else gloo)")
     p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP item 8)")
     p.add_argument("--simulation-tokens", type=int, default=50,
                    help="feed the last N prompt tokens through the "
@@ -293,16 +291,38 @@ def main(argv=None):
                    help="INT4 KV cache (W8A8KV4 with --w8a8)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.tp or args.pp:
-        raise SystemExit("--tp/--pp: tensor and pipeline parallel layouts are not "
-                         "ported yet (ROADMAP.md §1 item 8, parallel layouts)")
-
+    if args.pp:
+        raise SystemExit("--pp: pipeline parallelism is not ported yet (ROADMAP.md §1 item 8, "
+                         "parallel layouts)")
     os.makedirs(args.out_dir, exist_ok=True)
+    if args.tp and not args.score_only:
+        from ..parallel.mesh import run_ranks
+
+        # rank 0 writes the predictions and the scores; every rank returns the scores
+        return run_ranks(_main_rank, args.tp, args=(args,), device=args.device, timeout_s=24 * 3600)[0]
+    return _run(args)
+
+
+def _main_rank(mesh, args):
+    from ..parallel.mesh import rank_output_dir
+
+    with rank_output_dir(mesh, args.out_dir) as out_dir:
+        return _run(args, mesh, out_dir)
+
+
+def _run(args, mesh=None, out_dir=None):
+    from ..config import DuoConfig
+    from ..models.constructed import SPECS
+    from ..patterns import load_attn_pattern, sparsify_attention_heads
+    from .niah import build_model, eval_dtype
+
+    out_dir = out_dir or args.out_dir
     results = {}
     if not args.score_only:
+        device = args.device if mesh is None else mesh.device
         # a constructed circuit answers in its passkey grammar, which the
         # few-shot templates that end at {input} (trec, lsht, ...) keep
-        params, cfg, _ = build_model(args.model, args.w8a8, args.device)
+        params, cfg, _ = build_model(args.model, args.w8a8, device)
         if args.model in SPECS:
             args.tokenizer = "word"
         sink, recent = args.sink, args.recent
@@ -323,26 +343,31 @@ def main(argv=None):
             params = quantize_params_w8a8(params)
         duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=tuple(nf),
                         max_cache_size=args.max_cache, prefill_chunk_size=args.prefill_chunk)
-        engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=args.device,
-                           kv_quant=args.kv_quant, single_bucket=args.single_bucket)
+        if mesh is not None:
+            from ..parallel.mesh import shard_params
+
+            params = shard_params(mesh, cfg, duo, params)
+        engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=device,
+                           kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
         tokenizer = get_tokenizer(args.tokenizer)
         stop_ids = ()
         if args.stop_text:
             stop_ids = tuple(encode_ids(tokenizer, args.stop_text)[-1:])
         for task in args.tasks:
             data = load_task_data(task, args.data_dir, args.e_split)
-            out_path = os.path.join(args.out_dir, f"{task}.jsonl")
+            out_path = os.path.join(out_dir, f"{task}.jsonl")
             predict_task(engine, tokenizer, task, data, args.max_prompt_len, out_path,
                          simulation_tokens=args.simulation_tokens, max_samples=args.max_samples,
                          stop_ids=stop_ids)
     for task in args.tasks:
-        out_path = os.path.join(args.out_dir, f"{task}.jsonl")
+        out_path = os.path.join(out_dir, f"{task}.jsonl")
         if os.path.exists(out_path):
             results[task] = (score_file_e(task, out_path) if args.e_split
                              else score_file(task, out_path))
-    with open(os.path.join(args.out_dir, "result.json"), "w") as f:
-        json.dump(results, f, indent=2, ensure_ascii=False)
-    print(json.dumps(results, indent=2, ensure_ascii=False))
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(out_dir, "result.json"), "w") as f:
+            json.dump(results, f, indent=2, ensure_ascii=False)
+        print(json.dumps(results, indent=2, ensure_ascii=False))
     return results
 
 

@@ -17,7 +17,10 @@ pattern at sparsity 0.5):
         --ctx 32768 --depths 9 --prefill-chunk 4096 --max-cache 131200 \
         --output-dir chiprun_out/niah_8b
 
-Meshes (``--tp``, ``--pp``) are not ported (ROADMAP item 8).
+``--tp N`` runs N tensor-parallel ranks (``parallel/mesh.py``), one process
+each: NCCL when each has a card of its own, gloo when they share one or with
+``--device cpu``; rank 0 writes the results. ``--pp`` (pipeline parallelism)
+is not ported yet (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -294,9 +297,6 @@ def eval_dtype(model: str):
 def main(argv=None):
     import argparse
 
-    from ..config import DuoConfig
-    from ..patterns import load_attn_pattern, sparsify_attention_heads
-
     p = argparse.ArgumentParser(description="NIAH evaluation")
     p.add_argument("--model", default="tiny-gqa",
                    help="preset name, or a constructed circuit ('constructed', "
@@ -325,15 +325,35 @@ def main(argv=None):
     p.add_argument("--single-bucket", action="store_true",
                    help="pin every step to bucket=max_cache (the kernels "
                    "stop at the live length)")
-    p.add_argument("--tp", type=int, default=0, help="not ported (ROADMAP item 8)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel ranks, one process each (NCCL when each has a card, else gloo)")
     p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP item 8)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.tp or args.pp:
-        raise SystemExit("--tp/--pp: tensor and pipeline parallel layouts are not "
-                         "ported yet (ROADMAP.md §1 item 8, parallel layouts)")
+    if args.pp:
+        raise SystemExit("--pp: pipeline parallelism is not ported yet (ROADMAP.md §1 item 8, "
+                         "parallel layouts)")
+    if args.tp:
+        from ..parallel.mesh import run_ranks
 
-    params, cfg, needle = build_model(args.model, args.w8a8, args.device)
+        # rank 0 writes the results; every rank returns them
+        return run_ranks(_main_rank, args.tp, args=(args,), device=args.device, timeout_s=24 * 3600)[0]
+    return _run(args)
+
+
+def _main_rank(mesh, args):
+    from ..parallel.mesh import rank_output_dir
+
+    with rank_output_dir(mesh, args.output_dir) as output_dir:
+        return _run(args, mesh, output_dir)
+
+
+def _run(args, mesh=None, output_dir=None):
+    from ..config import DuoConfig
+    from ..patterns import load_attn_pattern, sparsify_attention_heads
+
+    device = args.device if mesh is None else mesh.device
+    params, cfg, needle = build_model(args.model, args.w8a8, device)
     if needle:
         args.tokenizer = "word"
     sink, recent = args.sink, args.recent
@@ -356,8 +376,12 @@ def main(argv=None):
         params = quantize_params_w8a8(params)
     duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=tuple(nf),
                     max_cache_size=args.max_cache, prefill_chunk_size=args.prefill_chunk)
-    engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=args.device,
-                       kv_quant=args.kv_quant, single_bucket=args.single_bucket)
+    if mesh is not None:
+        from ..parallel.mesh import shard_params
+
+        params = shard_params(mesh, cfg, duo, params)
+    engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=device,
+                       kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
     tokenizer = get_tokenizer(args.tokenizer)
     kw = {}
     if needle:
@@ -367,13 +391,13 @@ def main(argv=None):
     config = NIAHConfig(
         context_lengths=args.ctx,
         depth_percents=list(np.linspace(0, 100, args.depths)),
-        output_dir=args.output_dir,
+        output_dir=output_dir or args.output_dir,
         haystack_dir=args.haystack_dir,
         simulation_tokens=args.simulation_tokens,
         **kw,
     )
     results = NIAHTester(engine, tokenizer, config).run()
-    if args.visualize:
+    if args.visualize and (mesh is None or mesh.rank == 0):
         print("heatmap:", visualize(args.output_dir))
     return results
 

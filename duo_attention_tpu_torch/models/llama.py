@@ -16,8 +16,14 @@ student streams over ``ops/blockwise.py``), ``head_logits`` and
 ``all_logits``. A Mixtral layer's MLP is ``_moe_mlp``: JAX's dense dispatch
 (every expert computes every token; the router's top-k weights pick the
 sum), its experts stacked on a leading axis in the ``[out, in]`` layout and
-the router ``moe_gate`` kept in JAX's ``[hidden, experts]`` float32. Not
-ported yet: meshes.
+the router ``moe_gate`` kept in JAX's ``[hidden, experts]`` float32.
+
+Tensor parallelism (``mesh=``, ``parallel/mesh.py``): each rank holds its
+slices of the params (``shard_params``) and of the cache (its KV heads of
+every layer), attends with its query heads, and the step calls the
+collectives itself: an all_reduce after wo in a head-sharded layer and after
+the MLP's w_down (or a MoE layer's expert sum), vocab-parallel embedding and
+head. With ``mesh=None`` the code path is the one-device one.
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ from ..ops import flash
 from ..ops.attention_ref import causal_attention_ref
 from ..ops.blockwise import blockwise_attention, causal_mask_fn, lambda_mask_fn
 from ..ops.norm import rms_norm
-from ..ops.quant import w8a8_linear, w8a8_linear_group
+from ..ops.quant import w8a8_linear, w8a8_linear_group, w8a8_linear_row_split
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel import spmd
+from ..parallel.mesh import all_reduce, plan_for, sum_across, vocab_shard
 from ..utils import resolve_device
 
 Params = Dict[str, Any]
@@ -90,16 +98,24 @@ def init_top(cfg: ModelConfig, gen: torch.Generator, dtype, dev) -> Params:
     return top
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> Params:
+def _keep(li, part):
+    return part
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device="cuda", shard=None) -> Params:
     """Random params with the model's shapes, drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed`` (normal, scaled 1/sqrt(fan_in);
     embeddings 0.02; norms 1). Raises when device is "cuda" and no GPU is
-    present."""
+    present. ``shard(layer index or None, part) -> part`` is applied to each
+    layer, and to the top (None), as soon as it is drawn
+    (``parallel.mesh.sharder``: a rank keeps its slices and never holds the
+    whole model); the draws are the same with or without it."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    layers = [init_layer(cfg, gen, dtype, dev) for _ in range(cfg.num_layers)]
-    params = init_top(cfg, gen, dtype, dev)
+    shard = shard or _keep
+    layers = [shard(li, init_layer(cfg, gen, dtype, dev)) for li in range(cfg.num_layers)]
+    params = shard(None, init_top(cfg, gen, dtype, dev))
     params["layers"] = layers
     return params
 
@@ -109,9 +125,19 @@ def lm_head_weight(params: Params) -> torch.Tensor:
     return params["lm_head"] if "lm_head" in params else params["embed"]
 
 
-def embed_lookup(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup(params: Params, input_ids: torch.Tensor, mesh=None, cfg: Optional[ModelConfig] = None
+                 ) -> torch.Tensor:
     """Embedding gather; int8 rows are dequantized per row, into the dtype of
-    the first layer's input norm."""
+    the first layer's input norm. Under a mesh whose tensor axis splits the
+    vocab (``cfg`` given), the rank looks up its rows, zeroes the ids outside
+    them, and the ranks' lookups are summed (exact)."""
+    if mesh is not None:
+        split, start, rows = vocab_shard(mesh, cfg)
+        if split:
+            local = input_ids - start
+            inside = (local >= 0) & (local < rows)
+            x = embed_lookup(params, torch.where(inside, local, 0))
+            return sum_across(mesh, x.masked_fill(~inside[..., None], 0))
     if "embed_q8" in params:
         rows = F.embedding(input_ids, params["embed_q8"]).float()
         scale = params["embed_scale"][input_ids][..., None]
@@ -119,11 +145,22 @@ def embed_lookup(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(input_ids, params["embed"])
 
 
-def _head_logits(params: Params, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def _head_logits(params: Params, h: torch.Tensor, plain: bool = False, mesh=None,
+                 cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """h [..., E] -> logits [..., vocab] float32. An int8 head (or, with tied
     embeddings, the int8 table, whose per-row scale is then the head's
     per-out-channel scale) runs as a W8A8 linear with float32 output; a
-    high-precision head is computed in h's dtype."""
+    high-precision head is computed in h's dtype. Under a mesh whose tensor
+    axis splits the vocab (``cfg`` given), the rank computes its vocab slice,
+    placed in a zero [..., vocab] float32 tensor, and the ranks' tensors are
+    summed (exact): every rank gets the whole logits."""
+    if mesh is not None:
+        split, start, rows = vocab_shard(mesh, cfg)
+        if split:
+            local = _head_logits(params, h, plain)
+            full = local.new_zeros((*local.shape[:-1], rows * mesh.tensor))
+            full[..., start : start + rows] = local
+            return all_reduce(mesh, full)
     if "lm_head_q8" in params:
         return w8a8_linear(h, params["lm_head_q8"], params["lm_head_scale"], torch.float32, plain)
     if "embed_q8" in params and "lm_head" not in params:
@@ -157,23 +194,37 @@ def _proj_group(layer: Params, x: torch.Tensor, names, plain: bool = False):
     return tuple(_proj(layer, x, name, plain) for name in names)
 
 
+def _row_proj(layer: Params, x: torch.Tensor, name: str, plain: bool = False, mesh=None) -> torch.Tensor:
+    """``_proj`` of a projection whose input dimension is split over the
+    mesh's tensor ranks (wo, w_down): the partial products are summed over
+    the ranks (W8A8: ``w8a8_linear_row_split``). ``_proj`` when mesh is None."""
+    if mesh is None:
+        return _proj(layer, x, name, plain)
+    if name + "_q8" in layer:
+        return w8a8_linear_row_split(x, layer[name + "_q8"], layer[name + "_scale"], mesh, x.dtype, plain)
+    return sum_across(mesh, F.linear(x, layer[name]))
+
+
 def _qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False):
+    """q, k, v [B, S, heads, D] of the heads whose projections ``layer``
+    holds (a rank's heads under tensor parallelism)."""
     B, S, _ = x.shape
     D = cfg.head_dim
     q, k, v = _proj_group(layer, x, ("wq", "wk", "wv"), plain)
     if "bq" in layer:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    return (q.reshape(B, S, cfg.num_heads, D), k.reshape(B, S, cfg.num_kv_heads, D),
-            v.reshape(B, S, cfg.num_kv_heads, D))
+    return q.reshape(B, S, -1, D), k.reshape(B, S, -1, D), v.reshape(B, S, -1, D)
 
 
-def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False) -> torch.Tensor:
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig, plain: bool = False, mesh=None) -> torch.Tensor:
+    """The MLP; with ``mesh`` the rank's split of it (megatron rows and
+    columns, or its experts), summed over the tensor ranks."""
     if "moe_gate" in layer:
-        return _moe_mlp(layer, x, cfg.num_experts_per_tok)
+        return _moe_mlp(layer, x, cfg.num_experts_per_tok, mesh)
     gate, up = _proj_group(layer, x, ("w_gate", "w_up"), plain)
     hidden = F.silu(gate).mul_(up)  # in place: gate and up are both alive here
     del gate, up  # freed before the down projection's activations are made
-    return _proj(layer, hidden, "w_down", plain)
+    return _row_proj(layer, hidden, "w_down", plain, mesh)
 
 
 def moe_router(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -185,7 +236,7 @@ def moe_router(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
     return torch.zeros_like(logits).scatter_(-1, topi, torch.softmax(topv, dim=-1))
 
 
-def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
+def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int, mesh=None) -> torch.Tensor:
     """Mixtral sparse-MoE MLP with JAX's dense dispatch: every expert
     computes every token (SwiGLU on the stacked leading axis, in x's dtype)
     and the result is the sum over experts of each output times its
@@ -193,21 +244,31 @@ def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int) -> torch.Tensor:
     do not depend on the routing, so a decode step stays capturable. The
     expert products are plain torch, as JAX's are plain XLA: gate and up one
     product each over the experts side by side (the stacked weights read in
-    place as [X * I, E]), down one batched product over the experts."""
+    place as [X * I, E]), down one batched product over the experts.
+
+    With ``mesh`` (expert parallelism) the layer holds the rank's experts,
+    the router (replicated) still routes over all of them, and the rank's
+    partial sum, taken in float32, is summed over the tensor ranks."""
     B, S, E = x.shape
     dt = x.dtype
     combine = moe_router(layer, x, top_k).to(dt).reshape(B * S, -1).t()  # [X, B*S]
+    if mesh is not None:
+        X = layer["experts_w_gate"].shape[0]
+        combine = combine[mesh.tensor_rank * X : (mesh.tensor_rank + 1) * X]
     X = combine.shape[0]
     gate = F.linear(x, layer["experts_w_gate"].to(dt).reshape(-1, E)).view(B * S, X, -1)
     up = F.linear(x, layer["experts_w_up"].to(dt).reshape(-1, E)).view(B * S, X, -1)
     act = F.silu(gate).mul_(up)  # [B*S, X, I]
     del gate, up
     out = torch.bmm(act.transpose(0, 1), layer["experts_w_down"].to(dt).transpose(1, 2))  # [X, B*S, E]
+    if mesh is not None:
+        part = (out * combine[..., None]).sum(dim=0, dtype=torch.float32)
+        return all_reduce(mesh, part).to(dt).view(B, S, E)
     return (out * combine[..., None]).sum(dim=0).view(B, S, E)
 
 
 def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig,
-                         duo: DuoConfig, write_start, full_bucket: int, plain: bool):
+                         duo: DuoConfig, write_start, full_bucket: int, plain: bool, shard=None, mesh=None):
     """Split-head attention of one layer; writes this chunk's K/V into the
     layer's cache buffers first (in place).
 
@@ -217,10 +278,16 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
     tensor for decode). ``plain`` runs every op's plain PyTorch version
     whatever the device — the reference path the kernels are held against.
     With a ``DuoCacheQ4`` the full heads are quantized to INT4 on the way in
-    and attended through ``full_cache_attention_q4``.
+    and attended through ``full_cache_attention_q4``. Under tensor
+    parallelism ``shard`` (a ``parallel.mesh.LayerShard``) gives the rank's
+    KV heads, which q/k/v and the cache hold; a head-sharded layer attends
+    through ``parallel/spmd.py`` (``mesh`` given), a replicated one as here.
     """
-    hf = duo.num_full_kv_heads[layer_idx]
-    hs = cfg.num_kv_heads - hf
+    if shard is None:
+        hf = duo.num_full_kv_heads[layer_idx]
+        hs = cfg.num_kv_heads - hf
+    else:
+        hf, hs = shard.hf, shard.hs
     G = cfg.num_kv_groups
     S = q.shape[1]
     cs = cache.length
@@ -233,14 +300,21 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
             kq, ks, vq, vs = write_full_q4_pair(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx],
                                                 cache.v_full_q[layer_idx], cache.v_full_s[layer_idx],
                                                 k_in, v_in, write_start, plain)
-            attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
-            outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
+            if mesh is not None:
+                outs.append(spmd.sharded_full_attention_q4(mesh, q_f, kq, ks, vq, vs, cs, bucket=full_bucket,
+                                                           plain=plain))
+            else:
+                attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
+                outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
         else:
             # one launch for both rows at decode, read in place from the views
             kf, vf = write_full_pair(cache.k_full[layer_idx], cache.v_full[layer_idx], k_in, v_in,
                                      write_start, plain)
-            attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
-            outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket))
+            if mesh is not None:
+                outs.append(spmd.sharded_full_attention(mesh, q_f, kf, vf, cs, bucket=full_bucket, plain=plain))
+            else:
+                attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
+                outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket))
     if hs > 0:
         bufs = write_streaming(
             cache.k_sink[layer_idx], cache.v_sink[layer_idx],
@@ -248,16 +322,20 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
             k[:, :, hf:].transpose(1, 2), v[:, :, hf:].transpose(1, 2),  # views, read in place
             write_start, duo.sink_size, plain,
         )
-        attn = flash.streaming_cache_attention_plain if plain else flash.streaming_cache_attention
         # total_after counts the chunk's padding too; the masks hide it
-        outs.append(attn(q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S,
-                         duo.sink_size, duo.recent_size))
+        if mesh is not None:
+            outs.append(spmd.sharded_streaming_attention(mesh, q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S,
+                                                         duo.sink_size, duo.recent_size, plain=plain))
+        else:
+            attn = flash.streaming_cache_attention_plain if plain else flash.streaming_cache_attention
+            outs.append(attn(q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S,
+                             duo.sink_size, duo.recent_size))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache,
                   input_ids: torch.Tensor, n_valid: Optional[int] = None,
-                  full_bucket: int = 0, plain: bool = False) -> Tuple[torch.Tensor, Cache]:
+                  full_bucket: int = 0, plain: bool = False, mesh=None) -> Tuple[torch.Tensor, Cache]:
     """One forward step over a chunk of tokens, updating the cache in place.
 
     input_ids [B, S] on the cache's device (the tail past n_valid is
@@ -267,6 +345,11 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     norm, cache) with ``cache.length`` advanced by n_valid (default S) in
     place. A decode step (S == 1) reads nothing back to the host, so it can
     be captured into a CUDA graph and replayed (``engine.DuoEngine``).
+
+    ``mesh``: a ``parallel.mesh.Mesh``; params and cache are then the
+    rank's (``shard_params``, ``cache_shardings``) and every rank of the
+    tensor group must make the same call. The hidden states come back whole
+    on every rank.
     """
     B, S = input_ids.shape
     if n_valid is None:
@@ -285,23 +368,33 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
         raise ValueError("ragged prefill is unsupported: a chunk needs one scalar cache length")
     write_start = int(cache.length) if S > 1 else cache.length
 
-    x = embed_lookup(params, input_ids)
+    plan = None if mesh is None else plan_for(mesh, cfg, duo)
+    x = embed_lookup(params, input_ids, mesh, cfg)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, h, cfg, plain)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain)
-        x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
-        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
+        if plan is None:
+            attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain)
+            x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
+            x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
+            continue
+        s = plan.layers[li]
+        sharded = mesh if s.sharded else None  # a replicated layer's attention needs no collective
+        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, sharded)
+        x = x + _row_proj(layer, attn.reshape(B, S, -1), "wo", plain, sharded)
+        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain, mesh if s.mlp else None)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     cache.length.add_(n_valid)  # in place: a replayed decode step advances it too
     return x, cache
 
 
-def logits_at(params: Params, hidden: torch.Tensor, index: int, plain: bool = False) -> torch.Tensor:
-    """lm head on one position: hidden [B, S, E] -> [B, vocab] float32."""
-    return _head_logits(params, hidden[:, index], plain)
+def logits_at(params: Params, hidden: torch.Tensor, index: int, plain: bool = False, mesh=None,
+              cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """lm head on one position: hidden [B, S, E] -> [B, vocab] float32.
+    Under a mesh (``cfg`` given) the whole logits on every rank."""
+    return _head_logits(params, hidden[:, index], plain, mesh, cfg)
 
 
 def forward_full_attention(params: Params, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:

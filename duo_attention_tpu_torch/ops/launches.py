@@ -5,7 +5,9 @@ plain version its calls on CUDA tensors), which moves while Python runs the
 wrapper. A decode step captured into a CUDA graph runs Python once, at the
 capture, and launches nothing then; ``engine.DuoEngine`` takes the counters'
 movement during the capture back out with ``add`` and adds it again on every
-replay, so the counts stay the kernels' true launches.
+replay, so the counts stay the kernels' true launches. The collectives of
+``parallel/mesh.py`` are counted the same way (``collective.*``), so a
+replayed tensor-parallel step counts its all_reduces and broadcast too.
 """
 
 from __future__ import annotations
@@ -13,9 +15,14 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 
+COLLECTIVE = "collective."
+
+
 def counters() -> Dict[str, Tuple[object, str]]:
     """name -> (function, attribute) of every counter: each kernel's launches
-    (by wrapper and route), then each plain version's calls on CUDA tensors."""
+    (by wrapper and route), each plain version's calls on CUDA tensors, then
+    the collectives' calls (names starting with ``COLLECTIVE``)."""
+    from ..parallel import mesh
     from . import flash, gemm, inplace
 
     kernels = {
@@ -34,7 +41,10 @@ def counters() -> Dict[str, Tuple[object, str]]:
     plain = (flash.full_cache_attention_plain, flash.streaming_cache_attention_plain,
              flash.full_cache_attention_q4_plain, inplace.write_row_plain, inplace.write_streaming_rows_plain,
              inplace.write_q4_token_plain, gemm.w8a8_matmul_plain)
-    return {**kernels, **{fn.__name__: (fn, "cuda_calls") for fn in plain}}
+    collectives = {COLLECTIVE + "all_reduce.sum": (mesh.all_reduce, "sum_calls"),
+                   COLLECTIVE + "all_reduce.max": (mesh.all_reduce, "max_calls"),
+                   COLLECTIVE + "broadcast": (mesh.broadcast, "calls")}
+    return {**kernels, **{fn.__name__: (fn, "cuda_calls") for fn in plain}, **collectives}
 
 
 def snapshot() -> List[int]:

@@ -128,7 +128,12 @@ def quantize_act_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     """Dynamic per-token symmetric int8. x [..., E] -> (xq int8, scale
     [..., 1] float32)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) / _const(127.0, xf.device) + 1e-12
+    return _quantize_rows(xf, xf.abs().amax(dim=-1, keepdim=True))
+
+
+def _quantize_rows(xf: torch.Tensor, absmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 rows [..., E] with their absmax [..., 1] -> (xq int8, scale)."""
+    scale = absmax / _const(127.0, xf.device) + 1e-12
     xq = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return xq, scale
 
@@ -206,6 +211,32 @@ def w8a8_linear(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     return w8a8_linear_group(x, [(wq, w_scale)], out_dtype, plain)[0]
 
 
+def w8a8_linear_row_split(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, mesh,
+                          out_dtype=torch.bfloat16, plain: bool = False) -> torch.Tensor:
+    """A W8A8 linear whose input dimension is split over the mesh's tensor
+    ranks (wo and w_down under tensor parallelism): x [..., in_local], wq
+    [out, in_local] int8, w_scale [out] float32 (whole) -> [..., out]
+    ``out_dtype``, the same on every rank.
+
+    The per-token scale must be the whole row's, as GSPMD's psum-max makes
+    it: the local absmax is all_reduced (MAX), the local slice quantized
+    with it exactly as ``quantize_act_per_token`` would quantize the whole
+    row, multiplied in ``gemm.w8a8_matmul``'s int8-input mode (the small-M
+    kernel up to ``SMALL_M_MAX`` rows, the tiled one past it) with float32
+    output, and the partial products all_reduced (SUM) in float32, then cast.
+    JAX sums the int32 partials and applies the scales once, so the two
+    differ by float32 rounding only. ``plain=True`` (or a CPU x) runs the
+    plain product."""
+    from ..parallel.mesh import all_reduce
+
+    lead, K = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, K).float()
+    xq, xs = _quantize_rows(xf, all_reduce(mesh, xf.abs().amax(dim=-1, keepdim=True), "max"))
+    fn = w8a8_matmul_plain if plain else w8a8_matmul
+    out = all_reduce(mesh, fn(xq, xs, wq, w_scale, torch.float32))
+    return out.to(out_dtype).reshape(*lead, wq.shape[0])
+
+
 def quantize_layer_weights(layer: Dict, keys=QUANTIZED_PROJECTIONS) -> Dict:
     """Replace the selected weights of a layer with (name_q8, name_scale)."""
     out = dict(layer)
@@ -236,31 +267,38 @@ def quantize_embeddings_int8(params: Dict) -> Dict:
 
 
 def init_params_w8a8(cfg, seed: int = 0, dtype=torch.bfloat16, device="cuda",
-                     quantize_embeds: bool = False) -> Dict:
+                     quantize_embeds: bool = False, shard=None) -> Dict:
     """Random W8A8 params, one layer at a time: each layer is drawn in
     ``dtype``, quantized and its source dropped, so peak memory is the int8
     model plus one high-precision layer. Draws come from one
     ``torch.Generator`` seeded with ``seed`` on ``device`` (raises when
-    device is "cuda" and no GPU is present)."""
+    device is "cuda" and no GPU is present). ``shard`` as in
+    ``llama.init_params``, applied after quantization."""
     from ..models import llama
 
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    layers = [quantize_layer_weights(llama.init_layer(cfg, gen, dtype, dev)) for _ in range(cfg.num_layers)]
+    shard = shard or llama._keep
+    layers = [shard(li, quantize_layer_weights(llama.init_layer(cfg, gen, dtype, dev)))
+              for li in range(cfg.num_layers)]
     top = llama.init_top(cfg, gen, dtype, dev)
+    top = shard(None, quantize_embeddings_int8(top) if quantize_embeds else top)
     top["layers"] = layers
-    return quantize_embeddings_int8(top) if quantize_embeds else top
+    return top
 
 
-def init_params_w8a8_random(cfg, seed: int = 0, device="cuda", quantize_embeds: bool = True) -> Dict:
+def init_params_w8a8_random(cfg, seed: int = 0, device="cuda", quantize_embeds: bool = True, shard=None) -> Dict:
     """Random W8A8 params with the int8 tensors drawn DIRECTLY, uniform in
     [-127, 127], and every weight scale fan_in**-0.5 / 127 (activations stay
     O(1)). For benchmarks and smoke runs, whose speed does not depend on the
     values: no high-precision weight is ever allocated. As JAX's, it draws
     dense layers whatever ``cfg.num_local_experts`` says (a W8A8 MoE model
-    comes from ``init_params_w8a8``)."""
+    comes from ``init_params_w8a8``). ``shard`` as in ``llama.init_params``."""
+    from ..models import llama
+
     dev = resolve_device(device)
+    shard = shard or llama._keep
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     E, D, I, V = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.vocab_size
@@ -271,20 +309,20 @@ def init_params_w8a8_random(cfg, seed: int = 0, device="cuda", quantize_embeds: 
         return w, torch.full((out_f,), in_f**-0.5 / 127.0, dtype=torch.float32, device=dev)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for li in range(cfg.num_layers):
         layer = {"input_norm": torch.ones(E, dtype=torch.bfloat16, device=dev),
                  "post_norm": torch.ones(E, dtype=torch.bfloat16, device=dev)}
         for name, out_f, in_f in (("wq", Hq * D, E), ("wk", Hkv * D, E), ("wv", Hkv * D, E),
                                   ("wo", E, Hq * D), ("w_gate", I, E), ("w_up", I, E), ("w_down", E, I)):
             layer[name + "_q8"], layer[name + "_scale"] = rand_q8(out_f, in_f)
-        layers.append(layer)
-    top = {"layers": layers, "final_norm": torch.ones(E, dtype=torch.bfloat16, device=dev)}
+        layers.append(shard(li, layer))
+    top = {"final_norm": torch.ones(E, dtype=torch.bfloat16, device=dev)}
     if quantize_embeds:
         top["embed_q8"] = torch.randint(-127, 128, (V, E), generator=gen, device=dev, dtype=torch.int8)
         top["embed_scale"] = torch.full((V,), 0.02 / 127.0, dtype=torch.float32, device=dev)
         top["lm_head_q8"], top["lm_head_scale"] = rand_q8(V, E)
     else:
-        from ..models import llama
-
         top.update(llama.init_top(cfg, gen, torch.bfloat16, dev))  # embed, final_norm, lm_head
+    top = shard(None, top)
+    top["layers"] = layers
     return top

@@ -23,7 +23,16 @@ pool decode run on one stream: the decode kernels' scratch
 (``ops/flash.py::_scratch``) is shared by every caller on a device. On the
 CPU the same step runs eagerly.
 
-Not ported yet: meshes.
+Tensor parallelism (``mesh=``, ``parallel/mesh.py``): every rank builds the
+engine on its slices of the params and is submitted the same requests; the
+scheduler runs in lockstep on every rank. The pool cache holds the rank's
+KV heads and, when the pool divides the data axis, its data group's slots:
+a slot's admission is prefilled by its group alone, and the first token and
+each burst's tokens are gathered over the data groups (a zero-padded
+all_reduce), so every rank's host state, which depends on those tokens
+only, stays the same. Within a tensor group each step's tokens are
+tensor-rank 0's (``_batched_decode_step`` broadcasts them). The pool step
+is captured only where the mesh's collectives can be (NCCL).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from .config import DuoConfig, ModelConfig
 from .engine import DuoEngine, _next_bucket, capture_step, capture_stream
 from .models import llama
 from .ops.sampling import SamplingParams, prng_key, sample_tokens_rowkeys, split
+from .parallel import mesh as pmesh
 from .utils import resolve_device
 
 
@@ -89,22 +99,25 @@ def _row_cache_to_batch(batch_cache, row_cache, slot: int):
 
 
 def _batched_decode_step(params, cfg: ModelConfig, duo: DuoConfig, cache, tokens: torch.Tensor,
-                         active: torch.Tensor, samp=None, *, full_bucket: int) -> torch.Tensor:
+                         active: torch.Tensor, samp=None, *, full_bucket: int, mesh=None) -> torch.Tensor:
     """One decode step for every slot; inactive slots do not advance.
 
     tokens [B] int64; active [B] bool. samp: None for all-greedy, else (keys
     [B, 2], temperature [B], top_p [B], top_k [B]); each row draws on its own
     key, and the advanced keys are written back into ``keys`` in place.
-    Returns the next tokens [B] (an inactive row keeps its token)."""
+    Returns the next tokens [B] (an inactive row keeps its token). Under a
+    mesh the rows are the rank's and the tokens tensor-rank 0's."""
     hidden, cache = llama.forward_chunk(params, cfg, duo, cache, tokens[:, None],
-                                        n_valid=active.to(torch.int32), full_bucket=full_bucket)
-    logits = llama.logits_at(params, hidden, 0)  # [B, vocab]
+                                        n_valid=active.to(torch.int32), full_bucket=full_bucket, mesh=mesh)
+    logits = llama.logits_at(params, hidden, 0, mesh=mesh, cfg=cfg)  # [B, vocab]
     if samp is None:
         nxt = torch.argmax(logits, dim=-1)
     else:
         keys, temp, top_p, top_k = samp
         nxt, keys_next = sample_tokens_rowkeys(logits.float(), keys, temp, top_p, top_k)
         keys.copy_(keys_next)
+    if mesh is not None:
+        pmesh.broadcast(mesh, nxt)
     return torch.where(active, nxt, tokens)
 
 
@@ -113,26 +126,34 @@ class ServingEngine:
 
     def __init__(self, params, cfg: ModelConfig, duo: DuoConfig, max_batch_size: int = 4,
                  dtype=torch.bfloat16, kv_quant: str = "none", decode_burst: int = 1,
-                 device="cuda", timing: bool = False):
+                 device="cuda", timing: bool = False, mesh=None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.duo = duo
         self.B = max_batch_size
         self.kv_quant = kv_quant
+        self.mesh = mesh
         # single-slot engine reused for admission prefill
         self._prefill_engine = DuoEngine(params, cfg, duo, batch_size=1, dtype=dtype, device=self.device,
-                                         kv_quant=kv_quant)
+                                         kv_quant=kv_quant, mesh=mesh)
+        # the pool rows this rank holds: its data group's slots [lo, lo + b), or all of them
+        heads = None
+        self._b, self._lo = max_batch_size, 0
+        if mesh is not None:
+            shards = pmesh.cache_shardings(mesh, cfg, duo, max_batch_size)
+            heads, self._b, self._lo = shards.heads, shards.batch, shards.batch_start
         init = init_cache_q4 if kv_quant == "int4" else init_cache
-        self.cache = init(cfg, duo, max_batch_size, dtype, self.device, decode_only=True)
-        self.cache.length = torch.zeros((max_batch_size,), dtype=torch.int32, device=self.device)
+        self.cache = init(cfg, duo, self._b, dtype, self.device, decode_only=True, heads=heads)
+        self.cache.length = torch.zeros((self._b,), dtype=torch.int32, device=self.device)
+        self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
         self.lengths = np.zeros(max_batch_size, np.int64)  # host mirror
         # per-slot sampling state: host mirrors (greedy rows have temp 0) and
         # the device buffers the pool step reads
         self.samp_temp = np.zeros(max_batch_size, np.float32)
         self.samp_top_p = np.ones(max_batch_size, np.float32)
         self.samp_top_k = np.zeros(max_batch_size, np.int32)
-        dev, B = self.device, max_batch_size
+        dev, B = self.device, self._b
         self.tokens = torch.zeros((B,), dtype=torch.long, device=dev)
         self._active = torch.zeros((B,), dtype=torch.bool, device=dev)
         # placeholder per-slot keys; admission installs PRNGKey(request seed)
@@ -235,31 +256,53 @@ class ServingEngine:
 
     # -- internals ----------------------------------------------------------
 
+    def _local(self, slot: int) -> Optional[int]:
+        """The slot's row in this rank's pool, or None when another data
+        group holds it."""
+        row = slot - self._lo
+        return row if 0 <= row < self._b else None
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """[B_local, ...] rows of the rank's slots -> [B, ...] of every slot."""
+        return local if self.mesh is None else pmesh.gather_rows(self.mesh, local, self.B)
+
     @torch.no_grad()
     def _admit_chunk(self):
         req, slot, cache, off = self._admitting
+        row = self._local(slot)
         C = self.duo.prefill_chunk_size
         chunk = req.prompt_ids[None, off : off + C]
-        cache, logits = self._prefill_engine.prefill(chunk, cache=cache, start=off)
+        if row is not None:  # under a data split only the slot's data group prefills it
+            cache, logits = self._prefill_engine.prefill(chunk, cache=cache, start=off)
         off += chunk.shape[1]
         self.trace.append(("admit", req.rid))
         if off < req.prompt_len:
             self._admitting = (req, slot, cache, off)
             return
         sp = req.sampling
+        first = torch.zeros((1,), dtype=torch.long, device=self.device)
         if sp is not None and not sp.is_greedy:
             self.samp_temp[slot], self.samp_top_p[slot], self.samp_top_k[slot] = sp.temperature, sp.top_p, sp.top_k
-            vec = lambda v, dt: torch.full((1,), v, dtype=dt, device=self.device)  # noqa: E731
-            toks, keys = sample_tokens_rowkeys(
-                logits.float(), prng_key(sp.seed, self.device)[None], vec(sp.temperature, torch.float32),
-                vec(sp.top_p, torch.float32), vec(sp.top_k, torch.int32))
-            first = int(toks[0])
-            self.samp_keys[slot].copy_(keys[0])
+            if row is not None:
+                vec = lambda v, dt: torch.full((1,), v, dtype=dt, device=self.device)  # noqa: E731
+                toks, keys = sample_tokens_rowkeys(
+                    logits.float(), prng_key(sp.seed, self.device)[None], vec(sp.temperature, torch.float32),
+                    vec(sp.top_p, torch.float32), vec(sp.top_k, torch.int32))
+                first = toks[:1]
+                self.samp_keys[row].copy_(keys[0])
         else:
             self.samp_temp[slot], self.samp_top_p[slot], self.samp_top_k[slot] = 0.0, 1.0, 0
-            first = int(torch.argmax(logits, dim=-1)[0])
-        _row_cache_to_batch(self.cache, cache, slot)
-        self.tokens[slot] = first
+            if row is not None:
+                first = torch.argmax(logits, dim=-1)[:1]
+        if self.mesh is not None:
+            if row is not None:
+                pmesh.broadcast(self.mesh, first)
+            if self._b < self.B:  # the slot's group tells the others its first token
+                first = pmesh.gather_rows(self.mesh, first.expand(self._b).clone(), self.B)[slot : slot + 1]
+        first = int(first[0])
+        if row is not None:
+            _row_cache_to_batch(self.cache, cache, row)
+            self.tokens[row] = first
         self.lengths[slot] = req.prompt_len
         req.generated.append(first)
         self.ttft[req.rid] = time.monotonic() - self._submit_t.get(req.rid, self._clock0)
@@ -273,7 +316,7 @@ class ServingEngine:
         ``self.tokens`` (and, sampled, the advanced keys in ``samp_keys``)."""
         self.tokens.copy_(_batched_decode_step(
             self.params, self.cfg, self.duo, self.cache, self.tokens, self._active,
-            self._samp if sample else None, full_bucket=bucket))
+            self._samp if sample else None, full_bucket=bucket, mesh=self.mesh))
 
     def pool_graph(self, bucket: int, sample: bool):
         """(the captured pool step for (bucket, sampled), whether it was
@@ -298,13 +341,14 @@ class ServingEngine:
         bucket = min(_next_bucket(maxlen + steps), self.duo.max_cache_size)
         # the all-greedy pool skips the sampling sort entirely
         sample = bool(np.any(self.samp_temp[active_np] > 0.0))
-        self._active.copy_(torch.from_numpy(active_np))
+        rows = slice(self._lo, self._lo + self._b)  # the rank's slots
+        self._active.copy_(torch.from_numpy(active_np[rows]))
         if sample:
             for buf, host in zip(self._samp[1:], (self.samp_temp, self.samp_top_p, self.samp_top_k)):
-                buf.copy_(torch.from_numpy(host))
-        seq = torch.empty((self.B, steps), dtype=torch.long, device=self.device)
+                buf.copy_(torch.from_numpy(host[rows]))
+        seq = torch.empty((self._b, steps), dtype=torch.long, device=self.device)
         first = 0
-        if self.device.type == "cuda":
+        if self.captures:
             graph, captured = self.pool_graph(bucket, sample)
             if captured:  # the capture's warm-up step was the burst's first step
                 seq[:, 0].copy_(self.tokens)
@@ -317,7 +361,7 @@ class ServingEngine:
                 self._pool_step(bucket, sample)
                 seq[:, t].copy_(self.tokens)
         self.trace.append(("decode", steps))
-        seq = seq.cpu().numpy()  # [B, steps] (waits: the burst's timing is honest)
+        seq = self._gather(seq).cpu().numpy()  # [B, steps] (waits: the burst's timing is honest)
         produced = live = 0
         for i, req in enumerate(self.slots):
             if req is None:

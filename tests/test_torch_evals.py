@@ -268,8 +268,37 @@ def test_niah_and_longbench_clis_constructed(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["niah", "longbench"])
-@pytest.mark.parametrize("flag", ["--tp", "--pp"])
+@pytest.mark.parametrize("flag", ["--pp"])
 def test_parallel_flags_name_the_roadmap_item(cli, flag):
     mod = niah if cli == "niah" else longbench
     with pytest.raises(SystemExit, match="ROADMAP.*item 8"):
         mod.main([flag, "2", "--device", "cpu"])
+
+
+def test_niah_cli_tp_matches_one_device(tmp_path):
+    """niah.main(--tp 2) on the constructed circuit (2 full and 2 streaming
+    KV heads a layer at sparsity 0.5, each split over the 2 gloo ranks):
+    every cell's response and score equal the --tp 0 run's, rank 0 wrote the
+    cells, and resuming reads them back on every rank."""
+    args = ["--model", "constructed", "--ctx", "448", "--depths", "3", "--sink", "16", "--recent", "64",
+            "--max-cache", "1024", "--prefill-chunk", "128", "--sparsity", "0.5", "--device", "cpu"]
+    one = niah.main(args + ["--output-dir", str(tmp_path / "one")])
+    tp = niah.main(args + ["--output-dir", str(tmp_path / "tp"), "--tp", "2"])
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "latency_s"} for r in rs]  # noqa: E731
+    assert strip(tp) == strip(one) and len(tp) == 3
+    assert sorted(p.name for p in (tmp_path / "tp").iterdir()) == sorted(p.name for p in (tmp_path / "one").iterdir())
+    assert niah.main(args + ["--output-dir", str(tmp_path / "tp"), "--tp", "2"]) == tp
+
+
+def test_longbench_cli_tp_matches_one_device(tmp_path):
+    """longbench.main(--tp 2) on the constructed circuit: the trec
+    predictions and score equal the --tp 0 run's, written once, by rank 0."""
+    data = tmp_path / "data"
+    longbench_data.main([str(data)])
+    args = ["--model", "constructed", "--tasks", "trec", "--max-samples", "2", "--data-dir", str(data),
+            "--max-prompt-len", "1500", "--max-cache", "2048", "--prefill-chunk", "256", "--simulation-tokens", "4",
+            "--stop-text", ".", "--single-bucket", "--sink", "16", "--recent", "64", "--device", "cpu"]
+    one = longbench.main(args + ["--out-dir", str(tmp_path / "one")])
+    tp = longbench.main(args + ["--out-dir", str(tmp_path / "tp"), "--tp", "2"])
+    assert tp == one and set(tp) == {"trec"}
+    assert (tmp_path / "tp" / "trec.jsonl").read_text() == (tmp_path / "one" / "trec.jsonl").read_text()

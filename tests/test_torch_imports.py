@@ -48,6 +48,22 @@ def test_the_training_slice_is_covered():
         assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
 
 
+def test_the_parallel_slice_is_covered():
+    for module in ("parallel/__init__", "parallel/mesh", "parallel/spmd"):
+        assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
+
+
+def test_no_rank_worker_lives_in_a_test_module():
+    """A spawned rank imports its function's module: the tests hand
+    ``run_ranks`` functions of the port (``pmesh.``), never their own (a test
+    module imports JAX)."""
+    import re
+
+    for path in sorted((REPO / "tests").glob("test_torch_*.py")):
+        for fn in re.findall(r"run_ranks\(\s*([\w.]+)", path.read_text()):
+            assert fn.startswith("pmesh."), (path.name, fn)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules((REPO / path).read_text()) if _forbidden(m)]

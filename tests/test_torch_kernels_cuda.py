@@ -1304,3 +1304,140 @@ def test_mixtral_head_dim_64_kernel_route_equals_the_plain_route(dev, kv_quant, 
     bound = (0.1 if kv_quant == "int4" else 0.05) * float(plain.abs().max()) + 0.05
     assert bool(torch.isfinite(kern).all())
     assert float((kern - plain).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the shapes a rank gives the kernels, and the mesh path on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,cs", [(1, 3000), (200, 1000)])
+@pytest.mark.parametrize("Hkv", [1, 2, 3])
+def test_attention_kernels_at_a_ranks_head_counts(dev, Hkv, S, cs):
+    """A TP = 2 rank of the 8B model holds 1-3 full and 1-3 streaming KV
+    heads of a head-sharded layer (query group 4): every attention kernel,
+    prefill and decode, at those counts against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    G, T, sink, recent, chunk, R = 4, 4096, 64, 256, 256, 512
+    q = randn(gen, 1, S, Hkv * G, 128, mul=Q_PEAK)
+    k, v = randn(gen, 1, Hkv, T, 128), randn(gen, 1, Hkv, T, 128)
+    csa = torch.tensor(cs, dtype=torch.int32, device=dev)
+    got = flash.full_cache_attention(q, k, v, csa, bucket=T)
+    assert_bf16_close(got, flash.full_cache_attention_plain(q, k, v, csa, bucket=T))
+    kq, ks = quant.quantize_int4_paired(k)
+    vq, vs = quant.quantize_int4_paired(v)
+    got = flash.full_cache_attention_q4(q, kq, ks, vq, vs, csa, bucket=T)
+    assert_q4_close(got, flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, csa, bucket=T))
+    bufs = [randn(gen, 1, Hkv, sink + chunk, 128), randn(gen, 1, Hkv, sink + chunk, 128),
+            randn(gen, 1, Hkv, R, 128), randn(gen, 1, Hkv, R, 128)]
+    got = flash.streaming_cache_attention(q, *bufs, csa, csa + S, sink, recent)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, flash.streaming_cache_attention_plain(q, *bufs, csa, csa + S, sink, recent))
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 300])
+@pytest.mark.parametrize("K", [2048, 7168])
+def test_w8a8_int8_input_with_a_cross_rank_scale(dev, K, M):
+    """A row shard's product (ops/quant.py::w8a8_linear_row_split): x
+    quantized with a per-token scale taken over a wider row than the rank's
+    slice (the all_reduce MAX), the int8-input mode of the small-M kernel (M
+    <= 8) or the tiled one, float32 output, at wo's and w_down's local depths
+    at TP = 2: bitwise the plain product."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = randn(gen, M, K, mul=2.0).float()
+    xq, xs = quant._quantize_rows(x, x.abs().amax(-1, keepdim=True) * 1.7)
+    wq = torch.randint(-127, 128, (4096, K), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((4096,), generator=gen, device=dev) * 1e-3 + 1e-4
+    before = gemm.w8a8_matmul.small_launches, gemm.w8a8_matmul.tiled_launches
+    got = gemm.w8a8_matmul(xq, xs, wq, ws, torch.float32)
+    small = M <= gemm.SMALL_M_MAX
+    assert (gemm.w8a8_matmul.small_launches - before[0], gemm.w8a8_matmul.tiled_launches - before[1]) == (
+        (1, 0) if small else (0, 1))
+    assert torch.equal(got, gemm.w8a8_matmul_plain(xq, xs, wq, ws, torch.float32))
+
+
+TP_TEST_CFG = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=8,
+                          num_kv_heads=4, head_dim=128, model_type="llama")
+TP_TEST_DUO = DuoConfig(sink_size=16, recent_size=64, num_full_kv_heads=(2, 1), max_cache_size=1024,
+                        prefill_chunk_size=256)
+
+
+def _tp_test_params(kv_quant):
+    from duo_attention_tpu_torch import init_params, init_params_w8a8
+
+    if kv_quant == "int4":
+        return init_params_w8a8(TP_TEST_CFG, seed=3, device="cuda", quantize_embeds=True)
+    return init_params(TP_TEST_CFG, seed=3, device="cuda")
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_one_rank_nccl_mesh_captures_and_equals_no_mesh(dev, kv_quant, tmp_path):
+    """TP = 1 over NCCL: the mesh path (every layer 'sharded' over one rank,
+    its collectives issued) decodes from a captured CUDA graph, NCCL's
+    collectives inside it, and gives bit for bit the no-mesh engine's tokens
+    and the collectives parallel.mesh reckons a step."""
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    params = _tp_test_params(kv_quant)
+    prompt = np.random.default_rng(4).integers(0, TP_TEST_CFG.vocab_size, (1, 600))
+    want, _ = DuoEngine(params, TP_TEST_CFG, TP_TEST_DUO, device="cuda", kv_quant=kv_quant).generate(prompt, 24)
+    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pmesh.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
+                                                                              prompt, 24), {"kv_quant": kv_quant})],),
+                             device="cuda", timeout_s=300, store_dir=str(tmp_path))
+    np.testing.assert_array_equal(got[0]["tokens"], want)
+    reckoned = pmesh.collectives_per_step(pmesh.Mesh(1, 1, 0, 0, 0, None, None, 0, "nccl", dev), TP_TEST_CFG,
+                                          TP_TEST_DUO, w8a8=kv_quant == "int4")
+    assert got[0]["collectives_per_step"] == reckoned
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_two_ranks_on_one_card_over_gloo(dev, kv_quant, tmp_path):
+    """TP = 2 over gloo, both ranks on the one card, through the kernels at
+    the ranks' head counts (layer 0 split 1 + 1 a rank, layer 1 replicated)
+    and the row-split products: fed the one-device engine's greedy tokens
+    (teacher-forced), the logits before each of them (the prefill's last,
+    then every decode step's) within chip_smoke.py's phase 5 bound of the
+    one-device engine's; and the ranks' own greedy tokens equal up to the
+    one-device run's first top-2 logit gap below 0.25."""
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    params = _tp_test_params(kv_quant)
+    prompt = np.random.default_rng(5).integers(0, TP_TEST_CFG.vocab_size, (1, 600))
+    one = DuoEngine(params, TP_TEST_CFG, TP_TEST_DUO, device="cuda", kv_quant=kv_quant)
+    want, gaps = pmesh._greedy_gaps(one, prompt, 16)
+    ref = pmesh.stream_logits(one, prompt, want)[:, 0]  # [16, vocab]
+    ranks = pmesh.run_ranks(pmesh.run_jobs, 2, args=([(pmesh.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
+                                                                             prompt, 16),
+                                                        {"kv_quant": kv_quant, "force": want})],),
+                            device="cuda", timeout_s=300, store_dir=str(tmp_path))
+    got = ranks[0][0]
+    np.testing.assert_array_equal(got["tokens"], ranks[1][0]["tokens"])
+    errs = np.abs(got["logits"][:, 0] - ref).max(axis=-1)
+    bounds = (0.1 if kv_quant == "int4" else 0.05) * np.abs(ref).max(axis=-1) + 0.05
+    assert (errs <= bounds).all(), (errs, bounds)
+    pmesh._agree_until_tie(got["tokens"], want, gaps, 0.25, "two ranks on one card")
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_one_rank_nccl_serving_captures_and_equals_no_mesh(dev, kv_quant, tmp_path):
+    """ServingEngine(mesh=) over a one-rank NCCL mesh captures its pool
+    steps with their collectives and serves three requests (one sampled)
+    bit for bit as the no-mesh pool does."""
+    from duo_attention_tpu_torch import Request, SamplingParams, ServingEngine
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    params = _tp_test_params(kv_quant)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, TP_TEST_CFG.vocab_size, n) for n in (300, 70, 180)]
+    sampling = {1: SamplingParams(temperature=0.8, top_p=0.95, top_k=50, seed=1)}
+    pool = ServingEngine(params, TP_TEST_CFG, TP_TEST_DUO, max_batch_size=2, kv_quant=kv_quant, decode_burst=4,
+                         device="cuda")
+    for i, p in enumerate(prompts):
+        pool.submit(Request(rid=i, prompt_ids=p, max_new_tokens=12, sampling=sampling.get(i)))
+    want = {r.rid: list(r.generated) for r in pool.run()}
+    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pmesh.serve_job, (params, TP_TEST_CFG, TP_TEST_DUO, prompts,
+                                                                           12, sampling),
+                                                        {"kv_quant": kv_quant, "max_batch_size": 2,
+                                                         "decode_burst": 4})],),
+                             device="cuda", timeout_s=300, store_dir=str(tmp_path))
+    assert got[0] == want

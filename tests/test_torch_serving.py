@@ -1,8 +1,8 @@
 """The port's continuous-batching ServingEngine, on the CPU, against its own
 isolated DuoEngine and against the JAX package's ServingEngine.
 
-Counterparts of every test of tests/test_serving.py but the mesh one (meshes
-are not ported): serving N requests through the shared pool (staggered
+Counterparts of every test of tests/test_serving.py but the mesh one (that
+one is tests/test_torch_parallel.py's): serving N requests through the shared pool (staggered
 admissions, per-sequence lengths, slot reuse) gives exactly the tokens
 isolated single-request generation gives, in the float32 cache and in the
 INT4 one; and the JAX ServingEngine, fed the same numpy-drawn weights, gives
