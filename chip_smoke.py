@@ -182,8 +182,44 @@ result):
         (4 experts a rank), bf16: the prefill logits of a 2,000-token prompt
         within phase 5's bound of the one-process run's, the router pinned to
         its experts (_PinnedRouting);
-     and parallel/mesh.py's dry runs (dryrun_step) on 2 ranks of the card.
+     and parallel/mesh.py's dry runs (dryrun_step) on 2 ranks of the card,
+     its pipeline and gate-training steps among them.
      A rank that fails or hangs fails the run.
+ 13. pipeline stages, gate-training layouts and the 1M-token decode
+     (parallel/pipeline.py, ulysses.py, fsdp.py; train/trainer.py on a mesh;
+     parallel/mesh.py::dryrun_1m_decode). Stages and ranks share the one card:
+     none of their times is a PP, SP or TP speed figure.
+     13a (run beside phases 4 and 6, on their weights): PipelinedEngine, PP = 2
+        (16 + 16 layers), both stages on the card, phase 4's prompt and 64
+        tokens in both formats: the prefill logits and the tokens bitwise
+        DuoEngine's in the same buckets (else phase 5's bound and tokens up to
+        the first near-tie, and the run says so), launch counts as phase 4
+        reckons them, each stage's KV bytes equal to their reckoning, launches
+        a token (counters) equal to the profiler's over 8 steps; TTFT, eager
+        ms/token;
+     13b evals/niah.py's CLI with --pp 2, unquantized as JAX's --pp requires:
+        constructed-8b is built only in W8A8, so the 64-wide long-range circuit
+        (constructed-long, head_dim 64, bf16 on the card) with its trained
+        pattern (artifacts/accuracy_loop_long/pattern) at sparsity 0.5, 32k
+        context at depths 0/50/100%: word overlap 1.00 in every cell, the
+        responses equal to the one-device CLI's; its launches are .d64 rows';
+     13c GateTrainer on a (data 1, seq 2) mesh over gloo (Ulysses), then with
+        FSDP: constructed-8b in W8A8 cut to 8 of its 32 layers (the script's
+        time: SP13_LAYERS), 2 steps of 2,048
+        tokens (1,024 a rank) from gates 0.6: losses and gates after each step
+        equal to the one-process step with JAX's N-scaled gradient within a
+        bound from two one-process runs (block 1024 and 512), the collectives
+        a step equal to train/trainer.py::collectives_per_step, FSDP's peak
+        memory a rank below the replicated one's; s a step;
+     13d dryrun_1m_decode(4): one decode step against the true 1,048,576-slot
+        INT4 cache on 4 gloo ranks of the card, finite logits, each rank's KV
+        bytes equal to their reckoning, held to the same step in one process
+        within phase 5's bound.
+     Phase 3 also holds the kernels at phase 13's new shapes: the tiled
+     product at M = 1,024 (13c's local length) at the five 8B weight shapes,
+     and the INT4 decode and the streaming decode at 13d's span (one KV head
+     a rank, bucket 1,048,576), the INT4 buffers' offsets checked against
+     int32 and the decode's split plan against its 32 merge slots.
 Then one JSON line of per-kernel numbers and, last, the device line. A
 detailed record goes to chiprun_out/chip_smoke.json (gitignored).
 """
@@ -316,6 +352,17 @@ TP, TP_LOCAL_KV, TP_WO_K, TP_DOWN_K = 2, 2, 2048, 7168
 TP_PROMPT, TP_NEW, TP_SERVE_LENS, TP_SERVE_NEW, TP_LAYERS = 8000, 32, (6000, 1500, 3000), 24, 8
 # 12d: Mixtral-8x7B's width cut to 2 layers, a 2,000-token prompt; a spawned sub-phase's time limit
 TP_MOE_LAYERS, TP_MOE_PROMPT, TP_TIMEOUT_S = 2, 2000, 600
+
+# Phase 13: PP stages on the one card (13a: phase 4's workload; 13b: the NIAH CLI with --pp at 32k, 3
+# depths); 13c's (data 1, seq 2) training mesh: a 2,048-token step is SP13_LOCAL tokens a rank, the gates
+# start at SP13_GATES (at 1.0 the student is the teacher and the distillation gradient is 0), the first
+# SP13_LAYERS layers of constructed-8b: at all 32, 13c took 125-142 s (FSDP 25-38 s a step, a layer's
+# gather through gloo) and the script 1,053 s of its 1,200 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §4); 13d: the 1M-token cache over TP = 4 ranks.
+PP, PP_NIAH_DEPTHS = 2, 3
+SP13, SP13_STEPS, SP13_LAYERS, SP13_GATES = 2, 2, 8, 0.6
+SP13_LOCAL = TRAIN_PAD // SP13
+CTX_1M, TP_1M = 1 << 20, 4
 
 
 class SmokeFailure(Exception):
@@ -865,6 +912,36 @@ def _small_case(rec, gen, label, ns, K, M, main=False):
     del copies
 
 
+def _gemm_case(rec, gen, label, N, K, M, out_dtype, main=False):
+    """The tiled route (prefill, training) from int8 x at one shape, bitwise
+    against the plain version. Operations: 2*M*N*K int8 operations. Bytes: x,
+    w, both scale vectors, the output. Library: torch._int_mm."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import gemm
+
+    dev = torch.device("cuda")
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
+    ws = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+    got = gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype)
+    want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
+    ok = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    nbytes = M * K + N * K + 4 * (M + N) + M * N * got.element_size()
+    wt = wq.t()
+    library = lambda: ((torch._int_mm(xq, wt).float() * xs) * ws).to(out_dtype)  # noqa: E731
+    require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
+    times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype),
+                  lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
+    require(M > gemm.SMALL_M_MAX, f"{label}: M={M} would not take the tiled route")
+    dt = "f32" if out_dtype == torch.float32 else "bf16"
+    rec.record("w8a8_matmul.tiled", f"{label} {N}x{K} M={M} {dt}", err, ok, times,
+               _bound(2 * M * N * K, nbytes, PEAK_INT8_OPS), main=main, tops=2 * M * N * K / times[1] / 1e9,
+               gbytes_per_s=nbytes / times[1] / 1e6)
+
+
 def phase_kernels_w8a8kv4(rec):
     """Phase 3 for the three kernels of the W8A8KV4 format."""
     import torch
@@ -888,27 +965,8 @@ def phase_kernels_w8a8kv4(rec):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
     # --- w8a8_matmul: bitwise ---------------------------------------------------
-    # The tiled route (prefill) from int8 x. Operations: 2*M*N*K int8 operations.
-    # Bytes: x, w, both scale vectors, the output.
     def gemm_case(label, N, K, M, out_dtype, main=False):
-        xq, wq = rand_q8(M, K), rand_q8(N, K)
-        xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
-        ws = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
-        got = gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype)
-        want = gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype)
-        ok = torch.equal(got, want)
-        err = float((got.float() - want.float()).abs().max())
-        nbytes = M * K + N * K + 4 * (M + N) + M * N * got.element_size()
-        wt = wq.t()
-        library = lambda: ((torch._int_mm(xq, wt).float() * xs) * ws).to(out_dtype)  # noqa: E731
-        require(torch.equal(library(), want), f"torch._int_mm disagrees with the plain version ({label})")
-        times = timed(lambda: gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype),
-                      lambda: gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype), library)
-        require(M > gemm.SMALL_M_MAX, f"{label}: M={M} would not take the tiled route")
-        dt = "f32" if out_dtype == torch.float32 else "bf16"
-        record("w8a8_matmul.tiled", f"{label} {N}x{K} M={M} {dt}", err, ok, times,
-               _bound(2 * M * N * K, nbytes, PEAK_INT8_OPS), main=main, tops=2 * M * N * K / times[1] / 1e9,
-               gbytes_per_s=nbytes / times[1] / 1e6)
+        _gemm_case(rec, gen, label, N, K, M, out_dtype, main)
 
     for label, (N, K) in GEMM_SHAPES.items():
         # (the main path runs the head at M = B only; M = 4096 is here for the float32 tiled epilogue)
@@ -1461,6 +1519,32 @@ def _model_setup():
     return cfg, duo, sparsity
 
 
+def _expected_launches(cfg, duo, q4, n_chunks, steps):
+    """Each kernel's launches in a prefill of ``n_chunks`` chunks and
+    ``steps`` decode steps of the main path, from the pattern's per-layer
+    split (and no plain version run on the card)."""
+    hf_layers = sum(1 for n in duo.num_full_kv_heads if n > 0)
+    hs_layers = sum(1 for n in duo.num_full_kv_heads if n < cfg.num_kv_heads)
+    full = "full_cache_attention_q4" if q4 else "full_cache_attention"
+    expected = dict.fromkeys(_counters(), 0)
+    expected.update({
+        full + ".prefill": n_chunks * hf_layers,
+        full + ".decode": steps * hf_layers,
+        "streaming_cache_attention.prefill": n_chunks * hs_layers,
+        "streaming_cache_attention.decode": steps * hs_layers,
+        # K and V rows in one launch (INT4: each quantized on the way)
+        "write_q4_token" if q4 else "write_row": steps * hf_layers,
+        "write_streaming_rows": steps * hs_layers,
+        "plain_cuda_calls": 0,
+    })
+    if q4:  # 7 projections a layer (a MoE layer: the 4 of attention; its experts stay bf16) and the head
+        moe = cfg.num_local_experts > 0
+        expected["w8a8_matmul.tiled"] = n_chunks * (4 if moe else 7) * cfg.num_layers  # M = 4096, a launch a weight
+        # M = 1: one launch for wq+wk+wv, wo (and gate+up, down), and the head: 129 a step for the 8B model
+        expected["w8a8_matmul.small"] = n_chunks + steps * ((2 if moe else 4) * cfg.num_layers + 1)
+    return expected
+
+
 def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     """Drive DuoEngine.generate on the 16,000-token prompt in one format
     (``kv_quant`` "none": bf16 params and cache; "int4": W8A8 params and the
@@ -1486,25 +1570,7 @@ def phase_end_to_end(params, cfg, duo, kv_quant="none"):
     counts = read_counts()
 
     n_chunks = -(-PROMPT_LEN // CHUNK)
-    hf_layers = sum(1 for n in duo.num_full_kv_heads if n > 0)
-    hs_layers = sum(1 for n in duo.num_full_kv_heads if n < cfg.num_kv_heads)
-    full = "full_cache_attention_q4" if q4 else "full_cache_attention"
-    expected = dict.fromkeys(_counters(), 0)
-    expected.update({
-        full + ".prefill": n_chunks * hf_layers,
-        full + ".decode": NEW_TOKENS * hf_layers,
-        "streaming_cache_attention.prefill": n_chunks * hs_layers,
-        "streaming_cache_attention.decode": NEW_TOKENS * hs_layers,
-        # K and V rows in one launch (INT4: each quantized on the way)
-        "write_q4_token" if q4 else "write_row": NEW_TOKENS * hf_layers,
-        "write_streaming_rows": NEW_TOKENS * hs_layers,
-        "plain_cuda_calls": 0,
-    })
-    if q4:  # 7 projections a layer (a MoE layer: the 4 of attention; its experts stay bf16) and the head
-        moe = cfg.num_local_experts > 0
-        expected["w8a8_matmul.tiled"] = n_chunks * (4 if moe else 7) * cfg.num_layers  # M = 4096, a launch a weight
-        # M = 1: one launch for wq+wk+wv, wo (and gate+up, down), and the head: 129 a step for the 8B model
-        expected["w8a8_matmul.small"] = n_chunks + NEW_TOKENS * ((2 if moe else 4) * cfg.num_layers + 1)
+    expected = _expected_launches(cfg, duo, q4, n_chunks, NEW_TOKENS)
     kv_bytes = kv_memory_bytes(cache)
     require(type(cache).__name__ == ("DuoCacheQ4" if q4 else "DuoCache"), f"cache is a {type(cache).__name__}")
     log(f"  launches {counts}")
@@ -3268,6 +3334,394 @@ def phase_tp():
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: pipeline stages, the gate-training layouts, the 1M-token decode
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_13(rec):
+    """Phase 3 at phase 13's new shapes: the tiled product at M = SP13_LOCAL
+    (a 2,048-token step's local length at sp = 2, 13c) at the five 8B weight
+    shapes; the INT4 decode and the streaming decode at 13d's span (one KV
+    head of 128 a rank, its query group of 4, cs = CTX_1M - 8, bucket
+    CTX_1M; the streaming buffers of 13d's window: sink 64 + chunk 512 rows,
+    ring round_up(256 + 512, 512)), with the INT4 decode's split plan and
+    the largest element offset into its buffers (int32 must hold it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
+    from duo_attention_tpu_torch.ops import flash, quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1313)
+    for label, (N, K) in GEMM_SHAPES.items():
+        _gemm_case(rec, gen, f"sp2 {label}", N, K, SP13_LOCAL, torch.float32 if label == "head" else torch.bfloat16)
+    torch.cuda.empty_cache()
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * mul).to(torch.bfloat16)
+
+    D, G, H, T = HEAD_DIM, GROUP, 1, CTX_1M
+    cs, Hq = T - 8, GROUP
+    kq, ks = quant.quantize_int4_paired(randn(1, H, T, D))
+    vq, vs = quant.quantize_int4_paired(randn(1, H, T, D))
+    largest = max(t.numel() for t in (kq, ks, vq, vs)) - 1
+    require(largest < 2**31, f"1M INT4 buffers: largest element offset {largest} overflows int32")
+    nsplit, split_keys = flash.q4_decode_split_plan(T, H)
+    require(nsplit <= 32 and nsplit * split_keys >= T, f"1M INT4 decode plan {nsplit} x {split_keys}")
+    q = randn(1, 1, Hq, D, mul=Q_PEAK)
+    cs_arg = torch.tensor(cs, dtype=torch.int32, device=dev)
+    call = lambda: flash.full_cache_attention_q4(q, kq, ks, vq, vs, cs_arg, bucket=T)  # noqa: E731
+    plain = lambda: flash.full_cache_attention_q4_plain(q, kq, ks, vq, vs, cs_arg, bucket=T)  # noqa: E731
+    err, ratio, ok = _attn_tol_ok(call(), plain(), q4=True)
+    mask = full_mask(cs + torch.arange(1, device=dev), T)[None, None]
+    kd = quant.dequantize_int4_paired(kq, ks).bfloat16().repeat_interleave(G, dim=1)
+    vd = quant.dequantize_int4_paired(vq, vs).bfloat16().repeat_interleave(G, dim=1)
+    times = timed(call, plain, lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kd, vd, attn_mask=mask))
+    nbytes = 2 * (2 * Hq * D) + 2 * H * (cs + 1) * (D // 2 + 4)
+    rec.record("full_cache_attention_q4.decode", f"1M span Hkv=1 cs={cs} bucket {T}", err, ok, times,
+               _bound(4 * D * Hq * (cs + 1), nbytes), ratio, nsplit=nsplit, split_keys=split_keys,
+               largest_offset=largest)
+    log(f"    1M INT4 decode: plan {nsplit} splits x {split_keys} keys; largest buffer offset {largest} (< 2^31)")
+    del kq, ks, vq, vs, kd, vd, mask
+    torch.cuda.empty_cache()
+    sink, recent, chunk = 64, 256, 512
+    Ts, R = sink + chunk, -(-(recent + chunk) // 512) * 512
+    sk, sv, rk, rv = randn(1, H, Ts, D), randn(1, H, Ts, D), randn(1, H, R, D), randn(1, H, R, D)
+    qpos = cs + torch.arange(1, device=dev)
+    smask = torch.cat([sink_mask(qpos, sink, sink), ring_mask(qpos, R, cs + 1, cs, sink, recent)], dim=-1)[None, None]
+    kc = torch.cat([sk[:, :, :sink], rk], dim=2).repeat_interleave(G, dim=1)
+    vc = torch.cat([sv[:, :, :sink], rv], dim=2).repeat_interleave(G, dim=1)
+    tot = cs_arg + 1
+    call = lambda: flash.streaming_cache_attention(q, sk, sv, rk, rv, cs_arg, tot, sink, recent)  # noqa: E731
+    plain = lambda: flash.streaming_cache_attention_plain(q, sk, sv, rk, rv, cs_arg, tot, sink, recent)  # noqa: E731
+    err, ratio, ok = _attn_tol_ok(call(), plain())
+    times = timed(call, plain, lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kc, vc, attn_mask=smask))
+    visible = int(smask.sum())
+    rec.record("streaming_cache_attention.decode", f"1M cs={cs} Hs=1 sink {sink} recent {recent}", err, ok, times,
+               _bound(4 * D * Hq * visible, 2 * (2 * Hq * D) + 2 * 2 * H * D * visible), ratio)
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(params, cfg, duo, kv_quant="none"):
+    """13a: parallel/pipeline.py's PipelinedEngine, PP stages (balanced: 16
+    and 16 layers) both on the card, on phase 4's weights and workload
+    (16,000-token prompt, 64 greedy tokens): its prefill logits and tokens
+    bitwise DuoEngine's in the same buckets; launch counts as phase 4
+    reckons them; each stage's KV bytes equal to their reckoning; kernel
+    launches a token (counters) equal to the profiler's over 8 steps; TTFT
+    and eager ms/token (the stages share the card: no pipeline speed figure)."""
+    import torch
+
+    from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
+    from duo_attention_tpu_torch.ops import launches
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel.pipeline import PipelinedEngine
+
+    q4 = kv_quant == "int4"
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))  # phase 4's prompt
+    one = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
+    cache, want_logits = one.prefill(ids)
+    want_tokens, cache = one.decode_tokens(cache, torch.argmax(want_logits, dim=-1), NEW_TOKENS, length=PROMPT_LEN)
+    del cache, one
+    torch.cuda.empty_cache()
+    pipe = PipelinedEngine(params, cfg, duo, devices=[torch.device("cuda", 0)] * PP, dtype=torch.bfloat16,
+                           kv_quant=kv_quant)
+    require(pipe.shares_a_card and pipe.bounds == [0, 16, 32], f"13a stages {pipe.bounds} on {pipe.devices}")
+    pipe.generate(ids[:, :300], 2)  # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    caches, logits = pipe.prefill(ids)
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tokens, caches = pipe.decode_tokens(caches, torch.argmax(logits, dim=-1), NEW_TOKENS, PROMPT_LEN)
+    torch.cuda.synchronize()
+    ms_per_token = (time.perf_counter() - t0) * 1e3 / NEW_TOKENS
+    counts = read_counts()
+    n_chunks = -(-PROMPT_LEN // CHUNK)
+    expected = _expected_launches(cfg, duo, q4, n_chunks, NEW_TOKENS)
+    if q4:  # the pipeline's prefill takes the head once, after its last chunk (JAX's does); DuoEngine's a chunk
+        expected["w8a8_matmul.small"] -= n_chunks - 1
+    require(counts == expected, f"13a launch counts {counts} != expected {expected}")
+    out = dict(ttft_ms=ttft_ms, eager_ms_per_token=ms_per_token, counts=counts, bounds=pipe.bounds,
+               logits_bitwise=bool(torch.equal(logits, want_logits)), tokens_bitwise=bool(np.array_equal(tokens,
+                                                                                                         want_tokens)))
+    if not (out["logits_bitwise"] and out["tokens_bitwise"]):
+        # not bitwise: phase 5's bound on the prefill logits, and tokens equal up to the first near-tie
+        out["logits"] = _hold_logits(f"13a {kv_quant} pipeline prefill", logits[0].float().cpu().numpy(),
+                                     want_logits[0].float().cpu().numpy(), kv_quant)
+        _, gaps = pmesh._greedy_gaps(DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant), ids, NEW_TOKENS)
+        out["first_difference"] = pmesh._agree_until_tie(tokens, want_tokens, gaps, NEAR_TIE, "13a pipeline")
+    stage_kv = [kv_memory_bytes(c) for c in caches]
+    reckoned = [_kv_bytes_reckoned(c, d, 1, q4=q4) for c, d in zip(pipe.stage_cfgs, pipe.stage_duos)]
+    require(stage_kv == reckoned, f"13a stage KV bytes {stage_kv} != reckoned {reckoned}")
+    length = PROMPT_LEN + NEW_TOKENS
+    token = torch.as_tensor(tokens[:, -1], device="cuda")
+    before = launches.snapshot()
+    pipe.decode_tokens(caches, token, 1, length)
+    per_token = {n: a - b for n, a, b in zip(launches.counters(), launches.snapshot(), before) if a != b}
+    prof = device_breakdown(lambda: pipe.decode_tokens(caches, token, 8, length + 1))
+    counted = {n: 8 * c for n, c in per_token.items() if n in REPLACES}
+    require(prof["kernels_ran"] == counted, f"13a: the device ran {prof['kernels_ran']} in 8 steps, the counters "
+            f"say 8 x {per_token}")
+    out.update(stage_kv_bytes=stage_kv, kernel_launches_per_token=per_token,
+               device_ms_per_step=prof["device_busy_ms"] / 8, idle_share=prof["idle_share"])
+    log(f"  13a {kv_quant}: PP = {PP} (layers {pipe.bounds}) on one card, {PROMPT_LEN} + {NEW_TOKENS} tokens: prefill "
+        f"logits bitwise DuoEngine's: {out['logits_bitwise']}, tokens: {out['tokens_bitwise']}; TTFT {ttft_ms:.1f} ms, "
+        f"eager {ms_per_token:.2f} ms/token, {out['device_ms_per_step']:.3f} device ms a step (stages share the card: "
+        f"not a pipeline speed figure); stage KV bytes {stage_kv} = reckoned; launches a token {per_token} = the "
+        f"profiler's over 8 steps / 8")
+    del caches, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_niah_pp():
+    """13b: evals/niah.py's CLI with ``--pp 2`` (both stages on the card),
+    unquantized as JAX's --pp requires. constructed-8b is built only in
+    W8A8, which --pp refuses, so this runs the 64-wide long-range circuit
+    (constructed-long, head_dim 64: the .d64 kernels) with its TPU-trained
+    pattern (artifacts/accuracy_loop_long/pattern) at sparsity 0.5: 32k
+    context, depths 0/50/100%, chunk 4096. Every cell's word overlap 1.00,
+    and the responses equal to the one-device CLI's."""
+    from duo_attention_tpu_torch.evals import niah
+
+    args = ["--model", "constructed-long", "--attn-pattern",
+            os.path.join(REPO, "artifacts", "accuracy_loop_long", "pattern"), "--ctx", str(EVAL_CTX), "--depths",
+            str(PP_NIAH_DEPTHS), "--prefill-chunk", str(CHUNK), "--max-cache", str(NIAH_SMALL_CACHE)]
+    reset_counts()
+    t0 = time.perf_counter()
+    pp = niah.main(args + ["--pp", str(PP), "--output-dir", _fresh_dir("niah_pp", phase="phase13")])
+    pp_s = time.perf_counter() - t0
+    counts = read_counts()
+    one = niah.main(args + ["--output-dir", _fresh_dir("niah_one", phase="phase13")])
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "latency_s"} for r in rs]  # noqa: E731
+    require(all(r["word_overlap"] == 1.0 for r in pp), f"13b: --pp cells {[r['word_overlap'] for r in pp]}")
+    require(strip(pp) == strip(one), f"13b: --pp responses differ from one device's: {strip(pp)} vs {strip(one)}")
+    log(f"  13b niah.main(--pp {PP}) constructed-long at {EVAL_CTX}: overlaps "
+        f"{[(r['depth_percent'], r['word_overlap']) for r in pp]}, responses = the one-device CLI's; "
+        f"{pp_s:.1f} s (stages share the card)")
+    return dict(cells=strip(pp), seconds=pp_s, counts=counts,
+                latency_s=[(r["depth_percent"], r["latency_s"]) for r in pp])
+
+
+def _train13_model(layers):
+    """13c's model: constructed-8b in W8A8, built on the card, cut to its
+    first ``layers`` layers."""
+    from duo_attention_tpu_torch.evals.niah import build_model
+
+    params, cfg, _ = build_model("constructed-8b", True, "cuda")
+    params["layers"] = params["layers"][:layers]
+    return params, dataclasses.replace(cfg, num_layers=layers)
+
+
+def _train13_tcfg(out_dir, **kw):
+    from duo_attention_tpu_torch.train.trainer import GateTrainConfig
+
+    return GateTrainConfig(**{**dict(lr=TRAIN_LR, reg_weight=TRAIN_REG, num_steps=TRAIN_STEPS,
+                                     warmup_steps=TRAIN_WARMUP, sink_size=SINK, recent_size=RECENT,
+                                     output_dir=out_dir, block_k=TRAIN_BLOCK), **kw})
+
+
+def _train13_rank(mesh, layers, batches, out_dir):
+    """13c on one rank of the (data 1, seq 2) mesh: the model built on the
+    card once, then GateTrainer(sp = 2) and GateTrainer(sp = 2, fsdp) in
+    turn (the whole params freed before the FSDP trainer's steps, so it
+    holds only its slices), each from gates SP13_GATES, one step a batch:
+    losses, gates, s a step, the step's training collectives, the kernels'
+    launches, the rank's layer bytes and its peak memory over the steps."""
+    import torch
+
+    from duo_attention_tpu_torch.parallel import fsdp as pfsdp
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.train.trainer import GateTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    params, cfg = _train13_model(layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {}
+    for label, fsdp in (("sp2", False), ("sp2_fsdp", True)):
+        trainer = GateTrainer(params, cfg, _train13_tcfg(os.path.join(out_dir, label), sp=SP13, fsdp=fsdp),
+                              mesh=mesh)
+        if fsdp:
+            params = None  # the FSDP trainer keeps its slices alone
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            trainer.gates.fill_(SP13_GATES)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = []
+        for ids, labels in batches:
+            before = pmesh.train_collectives()
+            t1 = time.perf_counter()
+            loss = trainer.train_step(ids, labels)
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss, gates=trainer.gates_numpy(), wall_s=time.perf_counter() - t1,
+                              collectives={k: v - before[k] for k, v in pmesh.train_collectives().items()}))
+        out[label] = dict(rank=mesh.rank, steps=steps, counts=read_counts(), build_s=build_s,
+                          layer_bytes=sum(pfsdp.layer_bytes(trainer.params)),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del trainer
+    return out
+
+
+def _train13_reference(batches):
+    """The one-process step that 13c's meshes must give, twice (block 1024 and
+    512: the same attention summed in another order): GateTrainer on the
+    whole sequence from gates SP13_GATES, its distillation gradient times N =
+    SP13 (JAX's sharded step, duo_attention_tpu/train/trainer.py:140) plus
+    the L1 term's, then AdamW and the clamp: for each run, (loss, distill,
+    reg) and the gates after each step."""
+    import torch
+
+    from duo_attention_tpu_torch.train.loss import l1_loss
+    from duo_attention_tpu_torch.train.trainer import GateTrainer
+
+    params, cfg = _train13_model(SP13_LAYERS)
+    runs = []
+    for block_k in (TRAIN_BLOCK, TRAIN_BLOCK // 2):
+        trainer = GateTrainer(params, cfg, _train13_tcfg(_fresh_dir("train_ref", phase="phase13"), reg_weight=0.0,
+                                                          block_k=block_k), device="cuda")
+        with torch.no_grad():
+            trainer.gates.fill_(SP13_GATES)
+        out = []
+        for ids, labels in batches:
+            _, d, _ = trainer.compute_grads(ids, labels)  # the distillation term alone (reg_weight 0)
+            trainer.gates.grad.mul_(SP13)
+            reg = l1_loss(trainer.gates)
+            (TRAIN_REG * reg).backward()
+            trainer.apply_grads()
+            d, reg = float(d), float(reg.detach())
+            out.append(dict(loss=(d + TRAIN_REG * reg, d, reg), gates=trainer.gates_numpy()))
+        runs.append(out)
+        del trainer
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_train_layouts():
+    """13c: gate training on a (data 1, seq 2) mesh over gloo, both ranks on
+    the card: constructed-8b in W8A8 (cut to SP13_LAYERS layers), SP13_STEPS
+    steps of TRAIN_PAD tokens (SP13_LOCAL a rank: the STE's tiled products at
+    M = SP13_LOCAL), sp = 2 with Ulysses, then sp = 2 with FSDP, on one spawn
+    of the two ranks (one build of the model a rank). The losses
+    and the gates after each step equal the one-process step with JAX's
+    N-scaled gradient within a bound taken from two one-process runs (block
+    1024 and 512: the same attention summed in another order): 4 times their
+    largest difference, and at least 1e-5 of the value; the collectives a
+    step as train/trainer.py::collectives_per_step reckons them; FSDP's peak
+    memory a rank below the replicated one's."""
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.train.trainer import collectives_per_step
+
+    it = _train_data(*TRAIN_CTX, TRAIN_PAD)
+    batches = [(b["input_ids"], b["labels"]) for b in (next(it) for _ in range(SP13_STEPS))]
+    t0 = time.perf_counter()
+    refs = _train13_reference(batches)
+    ref_s = time.perf_counter() - t0
+    ref = refs[0]
+    spread_loss = max(abs(a - b) for r0, r1 in zip(*refs) for a, b in zip(r0["loss"], r1["loss"]))
+    spread_gates = max(float(np.abs(r0["gates"] - r1["gates"]).max()) for r0, r1 in zip(*refs))
+    out = dict(reference=[dict(loss=r["loss"], gates=r["gates"].tolist()) for r in ref], reference_s=ref_s,
+               spread=dict(loss=spread_loss, gates=spread_gates),
+               note="both ranks share one card through gloo: no time here is a sequence-parallel speed figure")
+    log(f"  13c one-process reference ({SP13_LAYERS} layers, {SP13_STEPS} steps of {TRAIN_PAD}, gradient x {SP13}): "
+        f"losses {[r['loss'] for r in ref]}; block 1024 against 512: loss {spread_loss:.3e}, gates "
+        f"{spread_gates:.3e}")
+    t0 = time.perf_counter()
+    try:
+        both = pmesh.run_ranks(_train13_rank, SP13, 1, args=(SP13_LAYERS, batches, _fresh_dir("ranks", phase="phase13")),
+                               device="cuda", timeout_s=TP_TIMEOUT_S, inner="seq")
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure(f"13c: {e}") from e
+    out["ranks_s"] = time.perf_counter() - t0
+    for label, fsdp in (("sp2", False), ("sp2_fsdp", True)):
+        ranks = [x[label] for x in both]
+        r = dict(ranks=[{k: v for k, v in x.items() if k != "steps"} for x in ranks])
+        for i, (want, *got) in enumerate(zip(ref, *[x["steps"] for x in ranks])):
+            for g in got:
+                dl = max(abs(a - b) for a, b in zip(g["loss"], want["loss"]))
+                dg = float(np.abs(g["gates"] - want["gates"]).max())
+                bl = max(4 * spread_loss, 1e-5 * max(abs(v) for v in want["loss"]))
+                bg = max(4 * spread_gates, 1e-5)
+                require(dl <= bl and dg <= bg, f"13c {label} step {i}: loss off by {dl} (bound {bl}), gates by "
+                        f"{dg} (bound {bg})")
+                r.setdefault("errors", []).append(dict(step=i, loss=dl, loss_bound=bl, gates=dg, gates_bound=bg))
+            require(all(np.array_equal(g["gates"], got[0]["gates"]) for g in got), f"13c {label}: the ranks' gates differ")
+        tcfg = _train13_tcfg("unused", sp=SP13, fsdp=fsdp)
+        reckoned = collectives_per_step(dataclasses.replace(_model_setup()[0], num_layers=SP13_LAYERS), tcfg)
+        for x in ranks:
+            for st in x["steps"]:
+                require(st["collectives"] == reckoned, f"13c {label} rank {x['rank']}: collectives {st['collectives']}"
+                        f", reckoned {reckoned}")
+        r.update(collectives_per_step=reckoned, s_per_step=[[st["wall_s"] for st in x["steps"]] for x in ranks],
+                 peak_gib=[x["peak_gib"] for x in ranks], layer_bytes=[x["layer_bytes"] for x in ranks],
+                 counts=[x["counts"] for x in ranks], losses=[st["loss"] for st in ranks[0]["steps"]])
+        out[label] = r
+        log(f"  13c {label}: {SP13_STEPS} steps equal to the one-process step within the bound "
+            f"({json.dumps(r['errors'][-2:])}); s a step {r['s_per_step']} (gloo, one card: not a speed figure); "
+            f"peak {[round(p, 2) for p in r['peak_gib']]} GiB a rank; layer bytes a rank {r['layer_bytes']}; "
+            f"collectives a step {reckoned} = reckoned")
+    saved = out["sp2"]["peak_gib"][0] - out["sp2_fsdp"]["peak_gib"][0]
+    half_layers = (out["sp2"]["layer_bytes"][0] - out["sp2_fsdp"]["layer_bytes"][0]) / 2**30
+    out["fsdp_peak_saving_gib"], out["fsdp_layer_saving_gib"] = saved, half_layers
+    require(saved > 0, f"13c: FSDP's peak {out['sp2_fsdp']['peak_gib']} is not below the replicated one's "
+            f"{out['sp2']['peak_gib']}")
+    log(f"  13c FSDP peak a rank {saved:.2f} GiB below the replicated one's; the rank's layer slices hold "
+        f"{half_layers:.2f} GiB less; the ranks (both meshes, one spawn) {out['ranks_s']:.1f} s, the reference "
+        f"{ref_s:.1f} s")
+    return out
+
+
+def _train13_counts(out):
+    return {f"train13_{label}_rank{i}": c for label in ("sp2", "sp2_fsdp") for i, c in enumerate(out[label]["counts"])}
+
+
+def phase_1m():
+    """13d: parallel/mesh.py::dryrun_1m_decode(4): one decode step against
+    the true 1,048,576-slot INT4 cache on 4 gloo ranks sharing the card (1
+    full and 1 streaming head of 128 a layer a rank), finite logits, every
+    rank's KV bytes equal to their reckoning; then the same step in this
+    process on a whole cache of the same length, and the TP = 4 logits held
+    to it within phase 5's bound. (dryrun_step's pipeline and training steps
+    ran on 2 ranks of the card in phase 12's dryrun_step(2).)"""
+    import torch
+
+    from duo_attention_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    try:
+        r = pmesh.dryrun_1m_decode(TP_1M, ctx=CTX_1M, device="cuda", timeout_s=TP_TIMEOUT_S)
+    except (RuntimeError, TimeoutError, AssertionError) as e:
+        raise SmokeFailure(f"13d dryrun_1m_decode: {e}") from e
+    ranks_s = time.perf_counter() - t0
+    require(r["kv_bytes"] == r["kv_bytes_reckoned"], f"13d KV bytes {r['kv_bytes']} != {r['kv_bytes_reckoned']}")
+    t0 = time.perf_counter()
+    reset_counts()
+    want = pmesh.one_process_1m_logits(CTX_1M, TP_1M, device="cuda")
+    one_counts = read_counts()
+    torch.cuda.empty_cache()
+    out = dict(ranks_s=ranks_s, one_process_s=time.perf_counter() - t0, kv_bytes=r["kv_bytes"],
+               logits=_hold_logits(f"13d TP = {TP_1M} decode at {CTX_1M - 8} tokens", r["logits"][0], want[0], "int4"),
+               counts=[{k: v for k, v in x.items() if not k.startswith("collective.")} for x in r["launches"]],
+               collectives=[{k: v for k, v in x.items() if k.startswith("collective.")} for x in r["launches"]],
+               one_process_counts=one_counts)
+    log(f"  13d dryrun_1m_decode({TP_1M}) on the card: KV {r['kv_bytes'][0]} bytes a rank = reckoned "
+        f"({sum(r['kv_bytes']) / 2**30:.3f} GiB in all); rank 0's launches {out['counts'][0]}, collectives "
+        f"{out['collectives'][0]}; {ranks_s:.1f} s (4 ranks share the card: not a TP speed figure)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -3297,6 +3751,7 @@ def main():
         phase_kernels(rec)
         phase_kernels_w8a8kv4(rec)
         phase_kernels_tp(rec)
+        phase_kernels_13(rec)
         t1 = time.perf_counter()
         phase_kernels_d64(rec)
         record["kernels"] = rec.results
@@ -3333,6 +3788,11 @@ def main():
                                                          {1: _serve_sampling()[1]})
             record["serving_" + fmt]["phase_s"] = time.perf_counter() - t0
             log(f"  serving phase, {fmt}: {record['serving_' + fmt]['phase_s']:.1f} s")
+            log(f"phase 13a: pipeline stages, {fmt} (PipelinedEngine, PP = {PP} on the one card)")
+            t0 = time.perf_counter()
+            record["pipeline_" + fmt] = phase_pipeline(params, cfg, duo, kv_quant)
+            record["pipeline_" + fmt]["phase_s"] = time.perf_counter() - t0
+            log(f"  13a {fmt}: {record['pipeline_' + fmt]['phase_s']:.1f} s")
             del params  # free this format's weights before the next one's are made
             torch.cuda.empty_cache()
         log("phase 8b: serving bench (evals/serving_bench.py, W8A8KV4, defaults, no warm-up pass)")
@@ -3359,6 +3819,16 @@ def main():
         record["tp"] = phase_tp()
         record["tp"]["phase_s"] = time.perf_counter() - t0
         log(f"  phase 12: {record['tp']['phase_s']:.1f} s")
+        log("phase 13: --pp NIAH (13b), gate-training layouts (13c), the 1M-token sharded decode (13d)")
+        t0 = time.perf_counter()
+        p13 = record["phase13"] = {}
+        for key, fn in (("niah_pp", phase_niah_pp), ("train_layouts", phase_train_layouts), ("decode_1m", phase_1m)):
+            t1 = time.perf_counter()
+            p13[key] = fn()
+            p13[key]["phase_s"] = time.perf_counter() - t1
+            log(f"  13 {key}: {p13[key]['phase_s']:.1f} s")
+        p13["phase_s"] = time.perf_counter() - t0 + sum(record["pipeline_" + f]["phase_s"] for f, _, _ in formats)
+        log(f"  phase 13: {p13['phase_s']:.1f} s (13a included)")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3377,8 +3847,15 @@ def main():
                 runs[f"tp2_serving_rank{x['rank']}"] = x["serving"]["counts"]
     for i, counts in enumerate(record["tp"]["tp2_mixtral"]["counts"]):
         runs[f"tp2_mixtral_rank{i}"] = counts
-    # 10b is the path at head_dim 64: its launches are the .d64 rows' (every other path is at 128)
-    runs_d64 = {"accuracy_loop": record["train"]["accuracy_loop"]["counts"]}
+    # phase 13: 13a's pipelines, 13c's ranks, 13d's ranks and its one-process step
+    runs.update({"pipeline_" + fmt: record["pipeline_" + fmt]["counts"] for fmt, _, _ in formats})
+    runs.update(_train13_counts(record["phase13"]["train_layouts"]))
+    for i, counts in enumerate(record["phase13"]["decode_1m"]["counts"]):
+        runs[f"decode_1m_rank{i}"] = counts
+    runs["decode_1m_one_process"] = record["phase13"]["decode_1m"]["one_process_counts"]
+    # 10b and 13b are the paths at head_dim 64: their launches are the .d64 rows' (every other path is at 128)
+    runs_d64 = {"accuracy_loop": record["train"]["accuracy_loop"]["counts"],
+                "niah_pp": record["phase13"]["niah_pp"]["counts"]}
     line = []
     for name, cases in rec.results.items():
         if name not in REPLACES:
@@ -3386,7 +3863,7 @@ def main():
         head = next(c for c in cases if c["main"])  # the main path's shape
         d64 = name.endswith(".d64")
         paths = runs_d64 if d64 else ({**runs, **runs_d64} if name.startswith("w8a8") else runs)  # int8: any D
-        launches = {fmt: counts[name.removesuffix(".d64")] for fmt, counts in paths.items()}
+        launches = {fmt: counts.get(name.removesuffix(".d64"), 0) for fmt, counts in paths.items()}
         require(sum(launches.values()) > 0, f"{name}: no launch on either main path")
         line.append(dict(
             name=name, route="cuda",

@@ -21,8 +21,8 @@ circuit in W8A8KV4 with the trained pattern:
         --out-dir chiprun_out/longbench/trained
 
 ``--tp N`` runs N tensor-parallel ranks as ``evals/niah.py`` does; rank 0
-writes the predictions and the scores. ``--pp`` is not ported yet (ROADMAP
-item 8).
+writes the predictions and the scores. ``--pp N`` runs N pipeline stages as
+``evals/niah.py`` does (with ``--simulation-tokens 0``, unquantized).
 """
 
 from __future__ import annotations
@@ -275,7 +275,8 @@ def main(argv=None):
                    "(same budget, wrong heads — the ablation control)")
     p.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel ranks, one process each (NCCL when each has a card, else gloo)")
-    p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP item 8)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages (parallel/pipeline.py), the cards in turn; generate mode, unquantized")
     p.add_argument("--simulation-tokens", type=int, default=50,
                    help="feed the last N prompt tokens through the "
                    "decode path (reference protocol, pred.py:125-142)")
@@ -292,8 +293,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     if args.pp:
-        raise SystemExit("--pp: pipeline parallelism is not ported yet (ROADMAP.md §1 item 8, "
-                         "parallel layouts)")
+        # JAX's --pp restrictions (evals/longbench.py)
+        if args.simulation_tokens:
+            raise SystemExit("--pp supports generate mode only (no per-token simulation): pass --simulation-tokens 0")
+        if args.w8a8 or args.kv_quant != "none" or args.tp:
+            raise SystemExit("--pp LongBench runs unquantized and without --tp")
     os.makedirs(args.out_dir, exist_ok=True)
     if args.tp and not args.score_only:
         from ..parallel.mesh import run_ranks
@@ -314,7 +318,7 @@ def _run(args, mesh=None, out_dir=None):
     from ..config import DuoConfig
     from ..models.constructed import SPECS
     from ..patterns import load_attn_pattern, sparsify_attention_heads
-    from .niah import build_model, eval_dtype
+    from .niah import build_model, cast_for_eval, eval_dtype
 
     out_dir = out_dir or args.out_dir
     results = {}
@@ -343,12 +347,19 @@ def _run(args, mesh=None, out_dir=None):
             params = quantize_params_w8a8(params)
         duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=tuple(nf),
                         max_cache_size=args.max_cache, prefill_chunk_size=args.prefill_chunk)
+        params = cast_for_eval(params, args.model, device)
         if mesh is not None:
             from ..parallel.mesh import shard_params
 
             params = shard_params(mesh, cfg, duo, params)
-        engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=device,
-                           kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
+        dtype = eval_dtype(args.model, device)
+        if args.pp:
+            from ..parallel.pipeline import PipelinedEngine, stage_devices
+
+            engine = PipelinedEngine(params, cfg, duo, devices=stage_devices(args.pp, device), dtype=dtype)
+        else:
+            engine = DuoEngine(params, cfg, duo, dtype=dtype, device=device,
+                               kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
         tokenizer = get_tokenizer(args.tokenizer)
         stop_ids = ()
         if args.stop_text:

@@ -19,8 +19,10 @@ pattern at sparsity 0.5):
 
 ``--tp N`` runs N tensor-parallel ranks (``parallel/mesh.py``), one process
 each: NCCL when each has a card of its own, gloo when they share one or with
-``--device cpu``; rank 0 writes the results. ``--pp`` (pipeline parallelism)
-is not ported yet (ROADMAP item 8).
+``--device cpu``; rank 0 writes the results. ``--pp N`` runs N pipeline
+stages in one process (``parallel/pipeline.py``; stage s on card s mod the
+cards present, so a single card takes them all in turn), in generate mode
+and unquantized, as JAX's ``--pp``.
 """
 
 from __future__ import annotations
@@ -285,13 +287,24 @@ def build_model(model: str, w8a8: bool, device):
     return params, cfg, needle
 
 
-def eval_dtype(model: str):
+def eval_dtype(model: str, device="cpu"):
     """Constructed circuits run their score margins in float32, but the 8B
     graft, which is built in W8A8 and runs in bf16 (the serving dtype);
-    presets run in bf16."""
+    presets run in bf16. On the card everything runs in bf16, the dtype its
+    kernels take."""
     from ..models.constructed import SPECS
 
+    if torch.device(device).type == "cuda":
+        return torch.bfloat16
     return torch.float32 if model in SPECS and model != "constructed-8b" else torch.bfloat16
+
+
+def cast_for_eval(params, model: str, device):
+    """``params`` with their floating tensors (the W8A8 scales kept) in
+    ``eval_dtype(model, device)``."""
+    from .accuracy_loop import _cast_floats
+
+    return _cast_floats(params, eval_dtype(model, device))
 
 
 def main(argv=None):
@@ -327,12 +340,16 @@ def main(argv=None):
                    "stop at the live length)")
     p.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel ranks, one process each (NCCL when each has a card, else gloo)")
-    p.add_argument("--pp", type=int, default=0, help="not ported (ROADMAP item 8)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages (parallel/pipeline.py), the cards in turn; generate mode, unquantized")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     if args.pp:
-        raise SystemExit("--pp: pipeline parallelism is not ported yet (ROADMAP.md §1 item 8, "
-                         "parallel layouts)")
+        # JAX's --pp restrictions (evals/niah.py)
+        if args.simulation_tokens:
+            raise SystemExit("--pp supports generate mode only (no per-token simulation): pass --simulation-tokens 0")
+        if args.w8a8 or args.kv_quant != "none" or args.tp:
+            raise SystemExit("--pp NIAH runs unquantized and without --tp")
     if args.tp:
         from ..parallel.mesh import run_ranks
 
@@ -376,12 +393,19 @@ def _run(args, mesh=None, output_dir=None):
         params = quantize_params_w8a8(params)
     duo = DuoConfig(sink_size=sink, recent_size=recent, num_full_kv_heads=tuple(nf),
                     max_cache_size=args.max_cache, prefill_chunk_size=args.prefill_chunk)
+    params = cast_for_eval(params, args.model, device)
     if mesh is not None:
         from ..parallel.mesh import shard_params
 
         params = shard_params(mesh, cfg, duo, params)
-    engine = DuoEngine(params, cfg, duo, dtype=eval_dtype(args.model), device=device,
-                       kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
+    dtype = eval_dtype(args.model, device)
+    if args.pp:
+        from ..parallel.pipeline import PipelinedEngine, stage_devices
+
+        engine = PipelinedEngine(params, cfg, duo, devices=stage_devices(args.pp, device), dtype=dtype)
+    else:
+        engine = DuoEngine(params, cfg, duo, dtype=dtype, device=device,
+                           kv_quant=args.kv_quant, single_bucket=args.single_bucket, mesh=mesh)
     tokenizer = get_tokenizer(args.tokenizer)
     kw = {}
     if needle:

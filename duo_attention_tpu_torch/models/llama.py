@@ -12,8 +12,10 @@ named ``w`` runs as a W8A8 linear when the layer holds ``w_q8`` and
 first), as in the JAX package.
 
 Gate training's forward is here too: ``forward_two_way`` (teacher and
-student streams over ``ops/blockwise.py``), ``head_logits`` and
-``all_logits``. A Mixtral layer's MLP is ``_moe_mlp``: JAX's dense dispatch
+student streams over ``ops/blockwise.py``, optionally sequence-sharded with
+Ulysses and with a per-layer FSDP gather hook), ``head_logits`` and
+``all_logits``. ``forward_chunk`` also takes a pipeline stage's hidden
+states and its params without the embedding or the final norm. A Mixtral layer's MLP is ``_moe_mlp``: JAX's dense dispatch
 (every expert computes every token; the router's top-k weights pick the
 sum), its experts stacked on a leading axis in the ``[out, in]`` layout and
 the router ``moe_gate`` kept in JAX's ``[hidden, experts]`` float32.
@@ -44,6 +46,7 @@ from ..ops.quant import w8a8_linear, w8a8_linear_group, w8a8_linear_row_split
 from ..ops.rope import apply_rope, rope_tables
 from ..parallel import spmd
 from ..parallel.mesh import all_reduce, plan_for, sum_across, vocab_shard
+from ..parallel.ulysses import ulysses_attention
 from ..utils import resolve_device
 
 Params = Dict[str, Any]
@@ -339,7 +342,11 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     """One forward step over a chunk of tokens, updating the cache in place.
 
     input_ids [B, S] on the cache's device (the tail past n_valid is
-    padding, written to the cache and overwritten later as in JAX).
+    padding, written to the cache and overwritten later as in JAX), or the
+    hidden states [B, S, E] a pipeline stage after the first is fed
+    (``parallel/pipeline.py``): the embedding lookup is skipped. The final
+    norm is applied only when ``params`` holds ``final_norm`` (a stage before
+    the last emits the raw residual stream).
     full_bucket: a bound >= length + S on the full-cache slots the attention
     reads (0: the whole buffer). Returns (hidden [B, S, E] after the final
     norm, cache) with ``cache.length`` advanced by n_valid (default S) in
@@ -351,7 +358,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     tensor group must make the same call. The hidden states come back whole
     on every rank.
     """
-    B, S = input_ids.shape
+    B, S = input_ids.shape[:2]
     if n_valid is None:
         n_valid = S
     arange = torch.arange(S, dtype=torch.int32, device=input_ids.device)
@@ -369,7 +376,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     write_start = int(cache.length) if S > 1 else cache.length
 
     plan = None if mesh is None else plan_for(mesh, cfg, duo)
-    x = embed_lookup(params, input_ids, mesh, cfg)
+    x = embed_lookup(params, input_ids, mesh, cfg) if input_ids.dim() == 2 else input_ids
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, h, cfg, plain)
@@ -385,7 +392,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
         attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, sharded)
         x = x + _row_proj(layer, attn.reshape(B, S, -1), "wo", plain, sharded)
         x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain, mesh if s.mlp else None)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if "final_norm" in params:
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     cache.length.add_(n_valid)  # in place: a replayed decode step advances it too
     return x, cache
 
@@ -447,17 +455,33 @@ def forward_two_way(params: Params, gates: torch.Tensor, cfg: ModelConfig, sink_
     forward. Attention is ``ops/blockwise.py`` (its blocks recomputed in the
     backward too). ``plain`` runs the plain version of every kernel.
 
+    ``seq_axis`` (a mesh's seq axis, ``Mesh.axis("seq")``): input_ids are the
+    rank's sequence shard, its positions offset by seq rank x S, and both
+    attentions run under Ulysses resharding (``parallel/ulysses.py``), as
+    the reference's UlyssesAttention wrap (duo_attn/patch/llama.py:492-501);
+    every rank of the axis makes the same call.
+
+    ``layer_hook(layer, (ht, hs)) -> (layer, (ht, hs))`` is called at the top
+    of each layer (FSDP: ``parallel/fsdp.py::make_gather_hook`` gathers the
+    layer's sharded weights). Its layer serves the teacher and, without
+    remat, the student; with remat the student's checkpointed block calls the
+    hook itself, so its backward gathers the layer again instead of keeping
+    it (JAX runs the hook inside its remat'd block), and each gathered copy
+    is dropped after its use.
+
     Returns (teacher_hidden, student_hidden), both after the final norm,
     [B, S, E]; the teacher's is detached."""
-    if seq_axis is not None or layer_hook is not None:
-        raise NotImplementedError("sequence sharding and FSDP layer hooks come with the parallel layouts "
-                                  "(ROADMAP.md §1 item 8)")
     B, S = input_ids.shape
-    positions = torch.arange(S, dtype=torch.int32, device=input_ids.device)
+    offset = 0 if seq_axis is None else seq_axis.rank * S
+    positions = offset + torch.arange(S, dtype=torch.int32, device=input_ids.device)
     cos, sin = rope_tables(cfg, positions)
     cos, sin = cos[None], sin[None]
     lam = lambda_mask_fn(sink_size, recent_size)
     G = cfg.num_kv_groups
+
+    def attend(q, k, v, mask_fn):
+        fn = lambda q, k, v: blockwise_attention(q, k, v, mask_fn, block_k=block_k)  # noqa: E731
+        return fn(q, k, v) if seq_axis is None else ulysses_attention(fn, q, k, v, seq_axis)
 
     def attention_in(layer, h):
         q, k, v = _qkv(layer, rms_norm(h, layer["input_norm"], cfg.rms_norm_eps), cfg, plain)
@@ -469,19 +493,30 @@ def forward_two_way(params: Params, gates: torch.Tensor, cfg: ModelConfig, sink_
 
     def student(layer, alpha_raw, hs, full_out):
         alpha_q = clip_gates(alpha_raw).float().repeat_interleave(G).reshape(1, 1, cfg.num_heads, 1)
-        stream_out = blockwise_attention(*attention_in(layer, hs), lam, block_k=block_k)
+        stream_out = attend(*attention_in(layer, hs), lam)
         mixed = (1.0 - alpha_q) * stream_out.float() + alpha_q * full_out.float()
         return block_out(layer, hs, mixed.to(stream_out.dtype))
 
+    def student_gathered(layer, alpha_raw, hs, full_out):
+        return student(layer_hook(layer, (None, hs))[0], alpha_raw, hs, full_out)
+
     ht = hs = embed_lookup(params, input_ids)
     for li, layer in enumerate(params["layers"]):
+        used = layer
+        if layer_hook is not None:
+            used, (ht, hs) = layer_hook(layer, (ht, hs))
         with torch.no_grad():
-            full_out = blockwise_attention(*attention_in(layer, ht), causal_mask_fn, block_k=block_k)
-            ht = block_out(layer, ht, full_out)
+            full_out = attend(*attention_in(used, ht), causal_mask_fn)
+            ht = block_out(used, ht, full_out)
         if remat and torch.is_grad_enabled():
-            hs = checkpoint(student, layer, gates[li], hs, full_out, use_reentrant=False)
+            if layer_hook is not None:
+                del used  # the student's block gathers its own copy, forward and backward
+                hs = checkpoint(student_gathered, layer, gates[li], hs, full_out, use_reentrant=False)
+            else:
+                hs = checkpoint(student, layer, gates[li], hs, full_out, use_reentrant=False)
         else:
-            hs = student(layer, gates[li], hs, full_out)
+            hs = student(used, gates[li], hs, full_out)
+            del used
     ht = rms_norm(ht, params["final_norm"], cfg.rms_norm_eps)
     hs = rms_norm(hs, params["final_norm"], cfg.rms_norm_eps)
     return ht.detach(), hs

@@ -35,11 +35,19 @@ slices and calls the collectives itself, so the layout is explicit:
   (wo, w_down) quantizes x with the per-token absmax all_reduced (MAX) across
   ranks, as GSPMD's psum-max, and sums float32 partial products
   (``ops/quant.py::w8a8_linear_row_split``).
-* **Only all_reduce (SUM, MAX) and broadcast**, the collectives gloo offers on
-  CUDA tensors, so one code path runs under gloo (the CPU tests, two ranks
-  sharing one card) and NCCL. Each call is counted (``ops/launches.py``).
-  NCCL collectives can be captured in a CUDA graph; gloo's cannot, so
-  ``Mesh.capturable`` tells the engines whether to capture their decode step.
+* **Only all_reduce (SUM, MAX) and broadcast** on the inference paths, the
+  collectives gloo offers on CUDA tensors, so one code path runs under gloo
+  (the CPU tests, two ranks sharing one card) and NCCL. Each call is counted
+  (``ops/launches.py``). NCCL collectives can be captured in a CUDA graph;
+  gloo's cannot, so ``Mesh.capturable`` tells the engines whether to capture
+  their decode step.
+* **Training's collectives**: gate training runs on a (data, seq) mesh, the
+  same ranks and groups with the inner axis named ``seq`` (``build_mesh(...,
+  inner="seq")``, ``run_ranks(..., inner="seq")``). Ulysses needs
+  ``all_to_all`` over the seq group and FSDP ``all_gather`` over every rank
+  (``Mesh.axis("world")``); gloo (torch 2.11, on the H100) and NCCL both take
+  them on the card's tensors. They are counted apart from the inference
+  collectives (``train_collectives``): no training step is captured.
 * **The data axis**: a batch that divides ``data`` is split over the data
   groups, each of which runs its slice alone (as ``cache_shardings`` shards
   the batch only when it divides); results are gathered through a
@@ -91,12 +99,38 @@ class Mesh:
     tensor_src: int  # global rank of tensor-rank 0 in this rank's tensor group
     backend: str
     device: torch.device
+    inner: str = "tensor"  # the inner axis's name: "tensor", or "seq" for gate training
 
     @property
     def capturable(self) -> bool:
         """Whether a CUDA graph can capture this mesh's collectives: NCCL's
         can (once the communicator is warm), gloo's cannot."""
         return self.backend == "nccl"
+
+    def axis(self, name: str) -> "Axis":
+        """The named axis as this rank sees it: "data", the inner axis
+        (``inner``; "tensor" also names it) or "world" (every rank, in rank
+        order: data major, as JAX flattens ("data", "seq"))."""
+        if name == "data":
+            return Axis(name, self.data, self.data_rank, self.data_group, self)
+        if name in (self.inner, "tensor"):
+            return Axis(name, self.tensor, self.tensor_rank, self.tensor_group, self)
+        if name == "world":
+            return Axis(name, self.data * self.tensor, self.rank, None, self)
+        raise ValueError(f"mesh axes are data, {self.inner} and world, not {name!r}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Axis:
+    """One axis of a mesh as a rank sees it: its name, size, the rank's index
+    on it, its process group (None: the default group, every rank) and the
+    mesh."""
+
+    name: str
+    size: int
+    rank: int
+    group: Any
+    mesh: Mesh
 
 
 def default_backend(device, world: int) -> str:
@@ -133,12 +167,13 @@ def init_distributed(init_method: Optional[str] = None, world_size: Optional[int
                             rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
-def build_mesh(tensor: Optional[int] = None, data: int = 1, device=None) -> Mesh:
+def build_mesh(tensor: Optional[int] = None, data: int = 1, device=None, inner: str = "tensor") -> Mesh:
     """The (data, tensor) mesh over every rank of the default group (which
     must exist: ``init_distributed``). Every rank must call it, in the same
     order as any other group it makes. ``device``: the rank's device, the
     card by default (its current one), which raises when no GPU is present;
-    pass "cpu" for the CPU."""
+    pass "cpu" for the CPU. ``inner`` names the inner axis: "seq" makes gate
+    training's (data, seq) mesh, whose seq size is ``tensor``."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh: call init_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -159,7 +194,7 @@ def build_mesh(tensor: Optional[int] = None, data: int = 1, device=None) -> Mesh
         data_group = group if t == tensor_rank else data_group
     return Mesh(tensor=tensor, data=data, rank=rank, tensor_rank=tensor_rank, data_rank=data_rank,
                 tensor_group=tensor_group, data_group=data_group, tensor_src=data_rank * tensor,
-                backend=dist.get_backend(), device=dev)
+                backend=dist.get_backend(), device=dev, inner=inner)
 
 
 # ---------------------------------------------------------------------------
@@ -168,10 +203,10 @@ def build_mesh(tensor: Optional[int] = None, data: int = 1, device=None) -> Mesh
 
 
 def all_reduce(mesh: Mesh, t: torch.Tensor, op: str = "sum", group: str = "tensor") -> torch.Tensor:
-    """In-place all_reduce of t over the rank's tensor group (or ``group=
-    "data"``), ``op`` "sum" or "max"; returns t."""
-    pg = mesh.tensor_group if group == "tensor" else mesh.data_group
-    dist.all_reduce(t, op=_OPS[op], group=pg)
+    """In-place all_reduce of t over the rank's tensor group (or the group of
+    another axis, ``Mesh.axis``: "data", "seq", "world"), ``op`` "sum" or
+    "max"; returns t."""
+    dist.all_reduce(t, op=_OPS[op], group=mesh.axis(group).group)
     if op == "sum":
         all_reduce.sum_calls += 1
     else:
@@ -211,6 +246,50 @@ def broadcast(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 
 broadcast.calls = 0
+
+
+def all_to_all(axis: Axis, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all`` over ``axis``: x's ``split_dim`` is cut
+    into axis.size chunks, chunk j goes to the axis's rank j, and the chunks
+    received are joined along ``concat_dim`` in rank order. An axis of one
+    rank returns x."""
+    P = axis.size
+    if P == 1:
+        return x
+    chunks = x.unflatten(split_dim, (P, -1)).movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(chunks)
+    dist.all_to_all_single(recv, chunks, group=axis.group)
+    all_to_all.calls += 1
+    return recv.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+all_to_all.calls = 0
+
+
+def all_gather(axis: Axis, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """JAX's tiled ``lax.all_gather``: every rank's x joined along ``dim`` in
+    the axis's rank order. An axis of one rank returns x."""
+    if axis.size == 1:
+        return x
+    send = x.contiguous()
+    parts = [torch.empty_like(send) for _ in range(axis.size)]
+    dist.all_gather(parts, send, group=axis.group)
+    all_gather.calls += 1
+    return torch.cat(parts, dim=dim)
+
+
+all_gather.calls = 0
+
+
+def axis_sum(axis: Axis, t: torch.Tensor) -> torch.Tensor:
+    """In-place SUM of t over ``axis`` (nothing on an axis of one rank)."""
+    return t if axis.size == 1 else all_reduce(axis.mesh, t, group=axis.name)
+
+
+def train_collectives() -> Dict[str, int]:
+    """Gate training's collective calls so far: all_to_all, all_gather and
+    the all_reduce SUMs (the counter shared with inference)."""
+    return {"all_to_all": all_to_all.calls, "all_gather": all_gather.calls, "all_reduce.sum": all_reduce.sum_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -495,11 +574,11 @@ def rank_output_dir(mesh: Mesh, path: str):
 
 
 def _rank_entry(fn, rank: int, tensor: int, data: int, device: str, init_method: str, args: tuple,
-                results) -> None:
+                results, inner: str = "tensor") -> None:
     try:
         torch.set_num_threads(1)  # the ranks share the host's cores
         init_distributed(init_method, tensor * data, rank, device)
-        mesh = build_mesh(tensor, data, device=device)
+        mesh = build_mesh(tensor, data, device=device, inner=inner)
         results.put((rank, True, fn(mesh, *args)))
     except Exception:
         results.put((rank, False, traceback.format_exc()))
@@ -510,9 +589,11 @@ def _rank_entry(fn, rank: int, tensor: int, data: int, device: str, init_method:
 
 
 def run_ranks(fn: Callable, tensor: int, data: int = 1, args: tuple = (), *, device="cuda",
-              timeout_s: float = 600.0, store_dir: Optional[str] = None) -> List[Any]:
+              timeout_s: float = 600.0, store_dir: Optional[str] = None, inner: str = "tensor") -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``tensor * data`` new processes (start
     method ``spawn``), one rank each, and return their results by rank.
+    ``inner="seq"`` makes the mesh gate training's (data, seq), seq size
+    ``tensor``.
 
     ``fn`` must be importable by name (a module-level function of this
     package: a spawned child imports it, and must not import a test module
@@ -531,7 +612,8 @@ def run_ranks(fn: Callable, tensor: int, data: int = 1, args: tuple = (), *, dev
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_entry, args=(fn, r, tensor, data, str(device), init_method, args, results))
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(fn, r, tensor, data, str(device), init_method, args, results, inner))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -741,8 +823,38 @@ def _dry_serving_tp(mesh: Mesh, device) -> dict:
     return {"tokens": finished}
 
 
+def _dry_pipeline(mesh: Mesh, device) -> dict:
+    """JAX dryrun_step's pipeline step: 2 balanced layer stages
+    (``parallel/pipeline.py``; both on the rank's device) generate the
+    one-device engine's tokens from a zero prompt of one chunk (on the card
+    up to a near-tie)."""
+    from ..engine import DuoEngine
+    from ..models import llama
+    from .pipeline import PipelinedEngine
+
+    cfg, duo, dtype = _dryrun_setup(device)
+    params = llama.init_params(cfg, seed=0, dtype=dtype, device=device)
+    prompt = np.zeros((1, duo.prefill_chunk_size), np.int64)
+    want, gaps = _greedy_gaps(DuoEngine(params, cfg, duo, dtype=dtype, device=device), prompt, 2)
+    got, caches = PipelinedEngine(params, cfg, duo, devices=[mesh.device] * 2, dtype=dtype).generate(prompt, 2)
+    if got.shape != (1, 2) or [int(c.length) for c in caches] != [duo.prefill_chunk_size + 2] * 2:
+        raise AssertionError(f"pipeline step: tokens {got.shape}, stage lengths {[int(c.length) for c in caches]}")
+    near_tie = DRYRUN_NEAR_TIE if torch.device(device).type == "cuda" else 0.0
+    return {"agree": _agree_until_tie(got, want, gaps, near_tie, "pipeline"), "tokens": got.tolist()}
+
+
+def _dry_train(mesh: Mesh, device) -> dict:
+    """JAX dryrun_step's training step on the same ranks seen as a (data, seq)
+    mesh (``train/trainer.py``'s dry-run model; sp = the tensor size)."""
+    from ..train.trainer import _dryrun_train_rank
+
+    out = _dryrun_train_rank(dataclasses.replace(mesh, inner="seq"), device, tempfile.mkdtemp(prefix="dryrun_train_"))
+    out["gates"] = out["gates"].tolist()
+    return out
+
+
 _DRY = {"step": _dry_step, "tp_equivalence": _dry_tp_equivalence, "tp_niah_cell": _dry_tp_niah_cell,
-        "serving_tp": _dry_serving_tp}
+        "serving_tp": _dry_serving_tp, "pipeline": _dry_pipeline, "train": _dry_train}
 
 
 def _dryrun_rank(mesh: Mesh, checks: Sequence[str], device, extra: tuple = ()) -> dict:
@@ -758,20 +870,21 @@ def _dryrun(checks, tensor: int, data: int, device, extra=(), **kw) -> dict:
 
 
 def dryrun_step(n_devices: int, device="cuda", **kw) -> dict:
-    """Every TP dry run on ``n_devices`` new ranks, one spawn: the tp x dp
-    chunk step and the expert-parallel step, then ``dryrun_tp_equivalence``,
-    ``dryrun_tp_niah_cell`` and (with 4 ranks or more) ``dryrun_serving_tp``
-    on the same (data, tensor) mesh: data 2 when ``n_devices`` is a multiple
-    of 4, else 1. JAX's also runs a pipeline step, a training step and the
-    1M-token decode: pipeline parallelism, the training layouts and
-    ``dryrun_1m_decode`` (a 1M-token cache over 8 devices) are not ported yet
-    (ROADMAP.md §1 item 8). ``kw`` goes to ``run_ranks``."""
+    """Every dry run of JAX's ``dryrun_step`` on ``n_devices`` new ranks, one
+    spawn: the tp x dp chunk step and the expert-parallel step, then
+    ``dryrun_tp_equivalence``, ``dryrun_tp_niah_cell`` and (with 4 ranks or
+    more) ``dryrun_serving_tp`` on the same (data, tensor) mesh (data 2 when
+    ``n_devices`` is a multiple of 4, else 1), the pipeline step (2 stages on
+    each rank's device) and the gate-training step on the same ranks as a
+    (data, seq) mesh. JAX's last step, ``dryrun_1m_decode``, is a spawn of
+    its own (a 1M-token cache). ``kw`` goes to ``run_ranks``."""
     data = 2 if n_devices % 4 == 0 else 1
     checks = ["step", "tp_equivalence"]
     if n_devices // data >= 2:
         checks.append("tp_niah_cell")
     if data == 2:
         checks.append("serving_tp")
+    checks += ["pipeline", "train"]
     return _dryrun(checks, n_devices // data, data, device, **kw)
 
 
@@ -794,6 +907,101 @@ def dryrun_serving_tp(n_devices: int, device="cuda", **kw) -> Optional[dict]:
     if n_devices < 4:
         return None
     return _dryrun(["serving_tp"], 2, 2, device, **kw)
+
+
+def _1m_setup(tensor: int, ctx: int, device):
+    """JAX ``dryrun_1m_decode``'s model (2 layers, 8 KV heads of head_dim 128,
+    hidden 1,024), its split (``tensor`` full heads a layer: sparsity 0.5 at
+    TP = 4), the INT4 cache's span and the activations' dtype (float32 on
+    the CPU, bf16 on the card)."""
+    cfg = ModelConfig(vocab_size=512, hidden_size=1024, intermediate_size=2048, num_layers=2, num_heads=8,
+                      num_kv_heads=8, head_dim=128, model_type="llama")
+    duo = DuoConfig(sink_size=64, recent_size=256, num_full_kv_heads=(tensor,) * cfg.num_layers,
+                    max_cache_size=ctx, prefill_chunk_size=512)
+    return cfg, duo, (torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32)
+
+
+def kv_bytes_reckoned(cfg: ModelConfig, duo: DuoConfig, heads, batch: int, q4: bool, dtype) -> int:
+    """A chunked-prefill cache's bytes from its shapes and per-layer (full,
+    streaming) head counts: an INT4 full head a byte a channel a token pair
+    and four bf16 scale rows a pair (a bf16/float full head the dtype's bytes
+    a channel a token), K and V; a streaming head its sink + chunk rows and
+    round_up(recent + chunk, 512) ring rows."""
+    T, D, C = duo.max_cache_size, cfg.head_dim, duo.prefill_chunk_size
+    size = torch.tensor([], dtype=dtype).element_size()
+    full = (T // 2) * (D + 4 * 2) if q4 else T * D * size
+    stream = (duo.sink_size + C + -(-(duo.recent_size + C) // 512) * 512) * D * size
+    return sum(2 * batch * (hf * full + hs * stream) for hf, hs in heads)
+
+
+def _dry_1m_rank(mesh: Mesh, ctx: int, device) -> dict:
+    """One decode step against a true ``ctx``-token INT4 cache (its length
+    ctx - 8), head-sharded over the rank's tensor group: W8A8 weights with
+    int8 embeddings, built as the rank's slices (``sharder``), kernels on the
+    card. The logits (whole on every rank) must be finite and the rank's KV
+    bytes equal their reckoning."""
+    from ..cache import init_cache_q4, kv_memory_bytes
+    from ..models import llama
+    from ..ops.quant import init_params_w8a8
+
+    from ..ops import launches
+
+    cfg, duo, dtype = _1m_setup(mesh.tensor, ctx, device)
+    params = init_params_w8a8(cfg, seed=0, dtype=dtype, device=device, quantize_embeds=True,
+                              shard=sharder(mesh, cfg, duo))
+    before = launches.snapshot()
+    shards = cache_shardings(mesh, cfg, duo, 1)
+    cache = init_cache_q4(cfg, duo, 1, dtype, device, heads=shards.heads)
+    cache.length.fill_(ctx - 8)
+    with torch.no_grad():
+        hidden, cache = llama.forward_chunk(params, cfg, duo, cache, torch.zeros((1, 1), dtype=torch.long,
+                                                                                  device=device),
+                                            1, full_bucket=ctx, mesh=mesh)
+        logits = llama.logits_at(params, hidden, 0, mesh=mesh, cfg=cfg).float()
+    step = {name: a - b for name, a, b in zip(launches.counters(), launches.snapshot(), before) if a != b}
+    kv, reckoned = kv_memory_bytes(cache), kv_bytes_reckoned(cfg, duo, shards.heads, 1, True, dtype)
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"1M decode: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    if kv != reckoned or int(cache.length) != ctx - 7:
+        raise AssertionError(f"1M decode: KV {kv} bytes, reckoned {reckoned}; length {int(cache.length)}")
+    return {"logits": logits.cpu().numpy(), "kv_bytes": kv, "kv_bytes_reckoned": reckoned, "heads": shards.heads,
+            "launches": step}
+
+
+def one_process_1m_logits(ctx: int, tensor: int = 4, device="cuda") -> np.ndarray:
+    """``dryrun_1m_decode``'s step in this process, with no mesh: the whole
+    params (the same draws) and a whole cache of the same length."""
+    from ..cache import init_cache_q4
+    from ..models import llama
+    from ..ops.quant import init_params_w8a8
+
+    cfg, duo, dtype = _1m_setup(tensor, ctx, device)
+    params = init_params_w8a8(cfg, seed=0, dtype=dtype, device=device, quantize_embeds=True)
+    cache = init_cache_q4(cfg, duo, 1, dtype, device)
+    cache.length.fill_(ctx - 8)
+    with torch.no_grad():
+        hidden, _ = llama.forward_chunk(params, cfg, duo, cache, torch.zeros((1, 1), dtype=torch.long, device=device),
+                                        1, full_bucket=ctx)
+        return llama.logits_at(params, hidden, 0).float().cpu().numpy()
+
+
+def dryrun_1m_decode(n_devices: int, ctx: int = 1 << 20, device="cuda", **kw) -> dict:
+    """One decode step against a true 1M-token INT4 KV cache, head-sharded
+    over TP = min(4, n_devices) new ranks (JAX ``dryrun_1m_decode``: the
+    reference reaches 1M with 8-GPU tensor parallelism,
+    scripts/run_niah.sh:2-8). The KV geometry is real (8 KV heads of
+    head_dim 128 over 1,048,576 slots, INT4, 1 full and 1 streaming head a
+    layer on each of 4 ranks); depth and width are cut. Rank 0's logits, and
+    every rank's KV bytes (each equal to its reckoning) and the kernel
+    launches and collectives of its step (``ops/launches.py``'s counters).
+    ``kw`` goes to ``run_ranks``."""
+    tensor = min(4, n_devices)
+    ranks = run_ranks(_dry_1m_rank, tensor, 1, args=(ctx, str(device)), device=device, **kw)
+    kv = [r["kv_bytes"] for r in ranks]
+    print(f"[dryrun] {ctx}-token sharded decode ok: tp={tensor}, KV {sum(kv) / 1e9:.3f} GB in all, "
+          f"{kv[0] / 1e9:.3f} GB a rank (2 layers; x16 for 32)", flush=True)
+    return {"logits": ranks[0]["logits"], "kv_bytes": kv, "kv_bytes_reckoned": [r["kv_bytes_reckoned"] for r in ranks],
+            "launches": [r["launches"] for r in ranks], "tensor": tensor, "ctx": ctx}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Gate-identification trainer on one device.
+"""Gate-identification trainer, on one device or on a (data, seq) mesh.
 
 Counterpart of duo_attention_tpu/train/trainer.py: AdamW on the per-(layer,
 KV-head) gates only, distillation MSE + L1 regularizer, the gates clamped to
@@ -15,9 +15,19 @@ update has lr 0. Checkpoints use the JAX package's file names and its
 ``arr_0`` the Adam count int32, ``arr_1`` mu, ``arr_2`` nu, ``arr_3`` the
 schedule count int32), so either package resumes the other's checkpoint.
 
-The data- and sequence-parallel mesh, FSDP and ``dryrun_train_step`` come
-with the parallel layouts (ROADMAP.md §1 item 8): a ``dp * sp > 1`` or
-``fsdp`` config raises.
+Parallelism (``dp * sp > 1``): every rank of a (data, seq) mesh
+(``build_mesh_for``; ``parallel.mesh.run_ranks(..., inner="seq")`` spawns
+them) holds the gates and the optimizer whole and takes the step with the
+same global batch: it keeps its rows (data) and its sequence shard (seq),
+runs the two-way forward with Ulysses all_to_all over seq
+(``parallel/ulysses.py``) and takes the distillation term's gradient of its
+local sum over the global count; the ranks' gradients are summed. With
+``fsdp`` the frozen params are split over every rank (``parallel/fsdp.py``)
+and each layer is all-gathered where it is used. The L1 term is taken on the
+replicated gates; AdamW and the clamp then run alike on every rank, and only
+global rank 0 writes files. The JAX sharded step's gradient is N = dp x sp
+times its one-device gradient (see ``_sharded_grads``); the port reproduces
+that factor.
 
 Run on the card, e.g.:
 
@@ -25,6 +35,10 @@ Run on the card, e.g.:
         --sink 64 --recent 256 --lr 0.05 --num-steps 40 --context-min 1024 \\
         --context-max 2048 --num-passkeys 4 --pad-to 2048 --block-k 1024 \\
         --output-dir attn_patterns/constructed-8b
+
+``--dp N --sp M [--fsdp]`` spawns N x M ranks (``parallel.mesh.run_ranks``;
+gloo when they share a card or with ``--device cpu``, NCCL when each has a
+card); the data's lengths are padded to a multiple of max(64, 128 x sp).
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import llama
+from ..parallel import mesh as pmesh
 from ..patterns import save_attn_pattern, save_full_attention_heads
 from ..utils import resolve_device
 from .data import IGNORE_INDEX
@@ -62,10 +77,10 @@ class GateTrainConfig:
     output_dir: str = "attn_patterns/run"
     seed: int = 42
     block_k: int = 512
-    # mesh (data, seq) and FSDP: kept for the artifact's config.json; only
-    # (1, 1) without FSDP runs here
+    # mesh (data, seq); (1, 1) = one device
     dp: int = 1
     sp: int = 1
+    # shard the frozen params over the flattened mesh (parallel/fsdp.py)
     fsdp: bool = False
     # per-layer activation checkpointing of the student stream
     remat: bool = True
@@ -99,25 +114,47 @@ def make_loss_fn(mcfg: ModelConfig, tcfg: GateTrainConfig):
     return loss_fn
 
 
-def _check_single_device(tcfg: GateTrainConfig) -> None:
-    if tcfg.dp * tcfg.sp > 1 or tcfg.fsdp:
-        raise NotImplementedError(f"dp={tcfg.dp}, sp={tcfg.sp}, fsdp={tcfg.fsdp}: data and sequence parallel "
-                                  "gate training and FSDP come with the parallel layouts (ROADMAP.md §1 item 8)")
-
-
 def params_device(params) -> torch.device:
     return params["final_norm"].device
 
 
+def build_mesh_for(tcfg: GateTrainConfig, device="cuda"):
+    """The (data, seq) mesh of ``tcfg`` over the default process group (which
+    must hold dp x sp ranks: ``parallel.mesh.init_distributed``), or None at
+    dp x sp = 1. Rank r has data rank r // sp and seq rank r % sp, the way
+    JAX reshapes its devices."""
+    if tcfg.dp * tcfg.sp <= 1:
+        return None
+    from ..parallel.mesh import build_mesh
+
+    return build_mesh(tcfg.sp, tcfg.dp, device=device, inner="seq")
+
+
 class GateTrainer:
     """Trains the gates of a frozen model on ``device`` (the card unless the
-    caller asks for the CPU; the params must already be there)."""
+    caller asks for the CPU; the params must already be there), or, with
+    ``dp * sp > 1``, on this rank of ``mesh`` (``build_mesh_for``; every rank
+    builds its trainer from the same whole params, and ``fsdp`` keeps its
+    slices of them)."""
 
-    def __init__(self, params, mcfg: ModelConfig, tcfg: GateTrainConfig, device="cuda"):
-        _check_single_device(tcfg)
-        self.device = resolve_device(device)
+    def __init__(self, params, mcfg: ModelConfig, tcfg: GateTrainConfig, device="cuda", mesh=None):
+        self.device = resolve_device(device if mesh is None else mesh.device)
         if params_device(params).type != self.device.type:
             raise ValueError(f"params are on {params_device(params)}, the trainer on {self.device}")
+        if tcfg.dp < 1 or tcfg.sp < 1:
+            raise ValueError(f"dp={tcfg.dp}, sp={tcfg.sp}: both must be at least 1")
+        self.sharded = tcfg.dp * tcfg.sp > 1
+        if self.sharded and (mesh is None or (mesh.data, mesh.tensor, mesh.inner) != (tcfg.dp, tcfg.sp, "seq")):
+            raise ValueError(f"dp={tcfg.dp} x sp={tcfg.sp} needs this rank's (data, seq) mesh of that shape "
+                             "(build_mesh_for, on ranks spawned by parallel.mesh.run_ranks(..., inner='seq'))")
+        self.mesh = mesh if self.sharded else None
+        self.layer_hook = None
+        if self.sharded and tcfg.fsdp:
+            from ..parallel import fsdp
+
+            self.layer_specs = fsdp.param_specs(params, mesh.axis("world").size)["layers"][0]
+            params = fsdp.shard_params(params, mesh)
+            self.layer_hook = fsdp.make_gather_hook(self.layer_specs, mesh)
         self.params = params
         self.mcfg = mcfg
         self.tcfg = tcfg
@@ -133,6 +170,11 @@ class GateTrainer:
         self.step_idx = 0
         os.makedirs(tcfg.output_dir, exist_ok=True)
 
+    @property
+    def writes(self) -> bool:
+        """Whether this trainer writes files: on one device, or on global rank 0."""
+        return self.mesh is None or self.mesh.rank == 0
+
     # -- optimizer state: (count, mu, nu) and the schedule's count -----------
 
     def _set_opt_state(self, count: int, mu: torch.Tensor, nu: torch.Tensor) -> None:
@@ -143,11 +185,15 @@ class GateTrainer:
         return int(st["step"]), st["exp_avg"], st["exp_avg_sq"]
 
     def gates_numpy(self) -> np.ndarray:
-        return self.gates.detach().cpu().numpy()
+        """A copy of the gates (on the CPU, ``numpy()`` alone would share the
+        live tensor's memory)."""
+        return self.gates.detach().cpu().numpy().copy()
 
     # -- checkpointing (reference train.py:202-236, 366-386) ----------------
 
     def save(self, tag: Optional[str] = None):
+        if not self.writes:
+            return
         tag = tag if tag is not None else f"step={self.step_idx}"
         out = self.tcfg.output_dir
         gates = self.gates_numpy()
@@ -181,31 +227,80 @@ class GateTrainer:
 
     def finalize(self, extra_config: Optional[dict] = None):
         """Write the reference-compatible artifact: TSV + config.json."""
+        if not self.writes:
+            return
         save_attn_pattern(self.tcfg.output_dir, self.gates_numpy(), self.tcfg.sink_size, self.tcfg.recent_size,
                           extra_config={**dataclasses.asdict(self.tcfg), **(extra_config or {})})
 
     # -- training loop --------------------------------------------------------
 
+    def compute_grads(self, ids: np.ndarray, labels: np.ndarray):
+        """The step's loss terms (loss, distill, reg) as tensors, with the
+        step's gradient left in ``gates.grad``. ids and labels [B, S] are the
+        global batch (every rank of a mesh passes the same)."""
+        # Supervise the PREDICTION positions: hidden state t predicts token
+        # t+1, so the position feeding the first answer token enters the
+        # distill mask (the JAX trainer's shift, trainer.py:265-281), shifted
+        # over the whole sequence before it is sharded.
+        labels = np.asarray(labels)
+        labels = np.concatenate([labels[:, 1:], np.full((labels.shape[0], 1), IGNORE_INDEX, labels.dtype)], axis=1)
+        ids = np.asarray(ids)
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.sharded:
+            return self._sharded_grads(ids, labels)
+        ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        labels_t = torch.as_tensor(labels, device=self.device)
+        loss, (d, reg) = self.loss_fn(self.gates, self.params, ids_t, labels_t)
+        loss.backward()
+        return loss.detach(), d.detach(), reg.detach()
+
+    def _sharded_grads(self, ids: np.ndarray, labels: np.ndarray):
+        """The rank's part of a dp x sp step: its rows and sequence shard
+        through the Ulysses two-way forward; the distillation gradient of its
+        local sum over the global count, summed over every rank."""
+        data, seq, world = (self.mesh.axis(n) for n in ("data", "seq", "world"))
+        B, S = ids.shape
+        if B % data.size or S % seq.size:
+            raise ValueError(f"a batch of {B} x {S} does not split over data {data.size} x seq {seq.size}")
+        tcfg = self.tcfg
+        ids_t = torch.as_tensor(_local(self.mesh, ids), dtype=torch.long, device=self.device)
+        teacher, student = llama.forward_two_way(self.params, self.gates, self.mcfg, tcfg.sink_size,
+                                                 tcfg.recent_size, ids_t, seq_axis=seq, block_k=tcfg.block_k,
+                                                 layer_hook=self.layer_hook, remat=tcfg.remat)
+        mask = torch.as_tensor(_local(self.mesh, labels) != IGNORE_INDEX, device=self.device)
+        d = distill_loss(teacher, student, mask, axis_names=(data, seq))
+        d.backward()
+        if self.gates.grad is None:
+            self.gates.grad = torch.zeros_like(self.gates)
+        # JAX's sharded step differentiates its psum'd loss (duo_attention_tpu/train/loss.py:41-42)
+        # inside shard_map: the transpose of a psum is a psum, so each device's gradient is already
+        # N times its share, and the psum at duo_attention_tpu/train/trainer.py:140 makes the total
+        # N = dp x sp times the one-device gradient. The sum over ranks of the local gradients is the
+        # one-device gradient; the port multiplies it by N to take JAX's step.
+        pmesh.axis_sum(world, self.gates.grad).mul_(world.size)
+        # the L1 term on the replicated gates, outside (its gradient adds to gates.grad)
+        reg = l1_loss(self.gates)
+        (tcfg.reg_weight * reg).backward()
+        d, reg = d.detach(), reg.detach()
+        return d + tcfg.reg_weight * reg, d, reg
+
     def train_step(self, ids: np.ndarray, labels: np.ndarray):
         """One update from a batch of ids [B, S] and labels [B, S]; returns
         (loss, distill, reg) as floats."""
-        # Supervise the PREDICTION positions: hidden state t predicts token
-        # t+1, so the position feeding the first answer token enters the
-        # distill mask (the JAX trainer's shift, trainer.py:265-281).
-        labels = np.asarray(labels)
-        labels = np.concatenate([labels[:, 1:], np.full((labels.shape[0], 1), IGNORE_INDEX, labels.dtype)], axis=1)
-        ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
-        labels_t = torch.as_tensor(labels, device=self.device)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, (d, reg) = self.loss_fn(self.gates, self.params, ids_t, labels_t)
-        loss.backward()
+        loss, d, reg = self.compute_grads(ids, labels)
+        self.apply_grads()
+        return float(loss), float(d), float(reg)
+
+    def apply_grads(self) -> None:
+        """The update from ``gates.grad`` (kept as ``last_grad``): AdamW at
+        the schedule's rate, then the clamp to [0, 1]."""
+        self.last_grad = self.gates.grad.detach().clone()
         self.optimizer.param_groups[0]["lr"] = self.schedule(self.sched_count)
         self.optimizer.step()
         with torch.no_grad():
             self.gates.clamp_(0.0, 1.0)  # reference train.py:98-102
         self.sched_count += 1
         self.step_idx += 1
-        return float(loss.detach()), float(d.detach()), float(reg.detach())
 
     def train(self, data_iter, log_every: int = 10, wandb_run=None):
         for _ in range(self.step_idx, self.tcfg.num_steps):
@@ -261,6 +356,33 @@ def main(argv=None):
     p.add_argument("--wandb-project", default="duo-attention-tpu")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
+    if args.dp < 1 or args.sp < 1:
+        raise SystemExit(f"--dp {args.dp} --sp {args.sp}: both must be at least 1")
+    if args.wandb:
+        try:
+            import wandb  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError("--wandb needs the wandb package, which is not installed") from e
+    if args.dp * args.sp > 1:
+        from ..parallel.mesh import run_ranks
+
+        # dp x sp ranks, one process each (NCCL when each has a card, else gloo); rank 0 writes
+        return run_ranks(_main_rank, args.sp, args.dp, args=(args,), device=args.device, inner="seq",
+                         timeout_s=24 * 3600)[0]
+    return _train(args)
+
+
+def _main_rank(mesh, args):
+    return _train(args, mesh)
+
+
+def _train(args, mesh=None):
+    """The CLI's run on one device or on this rank of the (data, seq) mesh;
+    returns the final gates."""
+    from ..evals.niah import build_model
+    from ..models.constructed import SPECS
+    from ..tokenizer import get_tokenizer
+    from .data import MultiPasskeyDataset, PasskeyDataConfig, data_iterator
 
     tcfg = GateTrainConfig(
         lr=args.lr, num_steps=args.num_steps, reg_weight=args.reg_weight, sink_size=args.sink,
@@ -268,17 +390,11 @@ def main(argv=None):
         output_dir=args.output_dir, dp=args.dp, sp=args.sp, fsdp=args.fsdp, remat=not args.no_remat,
         block_k=args.block_k,
     )
-    _check_single_device(tcfg)
-    wandb = None
-    if args.wandb:
-        try:
-            import wandb
-        except ImportError as e:
-            raise RuntimeError("--wandb needs the wandb package, which is not installed") from e
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     # constructed-8b is built in W8A8 on the device: its gate gradients flow through the STE
     params, mcfg, _ = build_model(args.model, args.model == "constructed-8b", device)
-    trainer = GateTrainer(params, mcfg, tcfg, device=device)
+    trainer = GateTrainer(params, mcfg, tcfg, device=device, mesh=mesh)
+    del params  # under FSDP the trainer keeps only its slices
     if args.resume:
         trainer.resume()
     tokenizer = get_tokenizer("word" if args.model in SPECS else args.tokenizer)
@@ -287,14 +403,137 @@ def main(argv=None):
                              haystack_path=args.haystack)
     it = data_iterator(MultiPasskeyDataset(tokenizer, dcfg), tcfg.batch_size * max(tcfg.dp, 1), pad_to=args.pad_to)
     wandb_run = None
-    if wandb is not None:
+    if args.wandb and trainer.writes:
+        import wandb
+
         wandb_run = wandb.init(project=args.wandb_project, name=os.path.basename(args.output_dir.rstrip("/")),
                                config=vars(args))
     try:
-        trainer.train(it, log_every=args.log_every, wandb_run=wandb_run)
+        trainer.train(it, log_every=args.log_every if trainer.writes else 1 << 62, wandb_run=wandb_run)
     finally:
         if wandb_run is not None:
             wandb_run.finish()
+    return trainer.gates_numpy()
+
+
+# ---------------------------------------------------------------------------
+# Rank jobs (parallel.mesh.run_jobs on a (data, seq) mesh) and the dry run
+# ---------------------------------------------------------------------------
+
+
+def collectives_per_step(mcfg: ModelConfig, tcfg: GateTrainConfig) -> dict:
+    """The training collectives of one dp x sp step on a rank
+    (``parallel.mesh.train_collectives``): per layer 4 all_to_alls (q, k, v
+    and the output) in the teacher, in the student's forward, in its
+    recompute (remat) and in its backward, but the first layer's backward,
+    whose attention inputs do not depend on the gates (none at sp = 1); with
+    FSDP one all_gather of a layer's slices for the teacher, the student's
+    block and its recompute (remat), or one shared by both streams (no
+    remat); an all_reduce SUM for the loss on each axis of more than one rank
+    and one for the gradient."""
+    L = mcfg.num_layers
+    a2a = ((16 if tcfg.remat else 12) * L - 4) if tcfg.sp > 1 else 0
+    gathers = (3 if tcfg.remat else 1) * L if tcfg.fsdp else 0
+    return {"all_to_all": a2a, "all_gather": gathers, "all_reduce.sum": (tcfg.dp > 1) + (tcfg.sp > 1) + 1}
+
+
+def _local(mesh, a: np.ndarray) -> np.ndarray:
+    """The rank's rows (data) and sequence shard (seq) of a global [B, S] array."""
+    data, seq = mesh.axis("data"), mesh.axis("seq")
+    rows, cols = a.shape[0] // data.size, a.shape[1] // seq.size
+    return np.ascontiguousarray(a[data.rank * rows : (data.rank + 1) * rows, seq.rank * cols : (seq.rank + 1) * cols])
+
+
+def two_way_job(mesh, params, mcfg: ModelConfig, gates: np.ndarray, ids: np.ndarray, labels: np.ndarray,
+                sink_size: int, recent_size: int, block_k: int, fsdp: bool = False, remat: bool = False) -> dict:
+    """``forward_two_way`` of the rank's shard of the global batch ``ids``
+    (Ulysses over seq; with ``fsdp`` the params split and gathered a layer
+    at a time) and ``distill_loss`` over both axes on the rank's ``labels``
+    mask: the rank's teacher and student [B/dp, S/sp, E], the global loss,
+    and the gradient of the local sum over the global count."""
+    from ..parallel import fsdp as pfsdp
+
+    hook = None
+    if fsdp:
+        specs = pfsdp.param_specs(params, mesh.axis("world").size)["layers"][0]
+        params, hook = pfsdp.shard_params(params, mesh), pfsdp.make_gather_hook(specs, mesh)
+    g = torch.as_tensor(gates, device=mesh.device).requires_grad_(True)
+    teacher, student = llama.forward_two_way(params, g, mcfg, sink_size, recent_size,
+                                             torch.as_tensor(_local(mesh, ids), device=mesh.device).long(),
+                                             seq_axis=mesh.axis("seq"), block_k=block_k, layer_hook=hook, remat=remat)
+    mask = torch.as_tensor(_local(mesh, labels) != IGNORE_INDEX, device=mesh.device)
+    d = distill_loss(teacher, student, mask, axis_names=(mesh.axis("data"), mesh.axis("seq")))
+    d.backward()
+    return {"teacher": teacher.cpu().numpy(), "student": student.detach().cpu().numpy(), "distill": float(d),
+            "local_grad": g.grad.cpu().numpy()}
+
+
+def steps_job(mesh, params, mcfg: ModelConfig, tcfg: GateTrainConfig, batches, gates: Optional[np.ndarray] = None,
+              resume: bool = False) -> dict:
+    """``GateTrainer`` on this rank, built from the whole ``params``
+    (``gates`` set first when given), one step a global (ids, labels) of
+    ``batches``: each step's (loss, distill, reg), gradient, gates after it
+    and training collectives (``parallel.mesh.train_collectives``), and the
+    shapes of the rank's first layer. With ``resume``, rank 0 saves after the
+    steps and a new trainer on every rank resumes it: (resumed, step, gates,
+    Adam's mu)."""
+    trainer = GateTrainer(params, mcfg, tcfg, mesh=mesh)
+    if gates is not None:
+        with torch.no_grad():
+            trainer.gates.copy_(torch.as_tensor(gates))
+    out = {"losses": [], "grads": [], "gates": [], "collectives": []}
+    for ids, labels in batches:
+        before = pmesh.train_collectives()
+        out["losses"].append(trainer.train_step(ids, labels))
+        out["collectives"].append({k: v - before[k] for k, v in pmesh.train_collectives().items()})
+        out["grads"].append(trainer.last_grad.cpu().numpy())
+        out["gates"].append(trainer.gates_numpy())
+    out["layer0_shapes"] = {k: tuple(v.shape) for k, v in trainer.params["layers"][0].items()}
+    if resume:
+        trainer.save()
+        pmesh.axis_sum(mesh.axis("world"), torch.zeros(1, device=mesh.device))  # rank 0 has written
+        back = GateTrainer(params, mcfg, tcfg, mesh=mesh)
+        ok = back.resume()
+        out["resumed"] = (ok, back.step_idx, back.gates_numpy(), back._opt_state()[1].cpu().numpy())
+    return out
+
+
+def _dryrun_train_rank(mesh, device, output_dir: str) -> dict:
+    """JAX ``dryrun_train_step``'s model and step on this rank of the (data,
+    seq) mesh: a finite loss, equal on every rank."""
+    mcfg = ModelConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2, num_heads=8,
+                       num_kv_heads=4, head_dim=8)
+    dp, sp = mesh.data, mesh.tensor
+    tcfg = GateTrainConfig(num_steps=2, sink_size=8, recent_size=16, dp=dp, sp=sp, block_k=64,
+                           output_dir=output_dir)
+    params = llama.init_params(mcfg, seed=0, dtype=torch.float32, device=device)
+    trainer = GateTrainer(params, mcfg, tcfg, device=device, mesh=mesh if dp * sp > 1 else None)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 256, (max(dp, 1), 128 * sp)).astype(np.int32)
+    labels = np.where(rng.uniform(size=ids.shape) < 0.1, ids, IGNORE_INDEX)
+    loss, d, reg = trainer.train_step(ids, labels)
+    if not np.isfinite(loss):
+        raise AssertionError(f"dryrun_train_step: loss {loss}")
+    return {"loss": loss, "distill": d, "reg": reg, "gates": trainer.gates_numpy()}
+
+
+def dryrun_train_step(n_devices: int, device="cuda", **kw) -> dict:
+    """One dp x sp sharded gate-training step on tiny shapes (JAX
+    ``dryrun_train_step``: dp 2 when ``n_devices`` is even, sp the rest) on
+    ``n_devices`` new ranks; rank 0's loss, distill, reg and gates. ``kw``
+    goes to ``run_ranks``."""
+    import tempfile
+
+    from ..parallel.mesh import run_ranks
+
+    dp = 2 if n_devices % 2 == 0 else 1
+    sp = n_devices // dp
+    with tempfile.TemporaryDirectory() as out:
+        results = run_ranks(_dryrun_train_rank, sp, dp, args=(str(device), out), device=device, inner="seq", **kw)
+    if any(r["loss"] != results[0]["loss"] for r in results):
+        raise AssertionError(f"dryrun_train_step: the ranks' losses differ: {[r['loss'] for r in results]}")
+    print(f"[dryrun] gate-training step dp={dp} x sp={sp} on {device}: loss {results[0]['loss']:.6f}", flush=True)
+    return results[0]
 
 
 if __name__ == "__main__":

@@ -269,10 +269,32 @@ def test_niah_and_longbench_clis_constructed(tmp_path):
 
 @pytest.mark.parametrize("cli", ["niah", "longbench"])
 @pytest.mark.parametrize("flag", ["--pp"])
-def test_parallel_flags_name_the_roadmap_item(cli, flag):
+def test_parallel_flags_name_the_roadmap_item(cli, flag, tmp_path):
+    """``--pp 2`` (it raised, naming the roadmap item, until pipeline
+    parallelism was ported): two stages on the CPU give the one-device
+    CLI's results; JAX's restrictions still raise (generate mode only,
+    unquantized)."""
     mod = niah if cli == "niah" else longbench
-    with pytest.raises(SystemExit, match="ROADMAP.*item 8"):
-        mod.main([flag, "2", "--device", "cpu"])
+    if cli == "niah":
+        args = ["--model", "constructed", "--ctx", "448", "--depths", "3", "--sink", "16", "--recent", "64",
+                "--max-cache", "1024", "--prefill-chunk", "128", "--sparsity", "0.5", "--device", "cpu"]
+        one = mod.main(args + ["--output-dir", str(tmp_path / "one")])
+        pp = mod.main(args + ["--output-dir", str(tmp_path / "pp"), flag, "2"])
+        strip = lambda rs: [{k: v for k, v in r.items() if k != "latency_s"} for r in rs]  # noqa: E731
+        assert strip(pp) == strip(one) and len(pp) == 3
+    else:
+        data = tmp_path / "data"
+        longbench_data.main([str(data)])
+        args = ["--model", "constructed", "--tasks", "trec", "--max-samples", "2", "--data-dir", str(data),
+                "--max-prompt-len", "1500", "--max-cache", "2048", "--prefill-chunk", "256", "--simulation-tokens",
+                "0", "--stop-text", ".", "--sink", "16", "--recent", "64", "--device", "cpu"]
+        one = mod.main(args + ["--out-dir", str(tmp_path / "one")])
+        pp = mod.main(args + ["--out-dir", str(tmp_path / "pp"), flag, "2"])
+        assert pp == one and set(pp) == {"trec"}
+        assert (tmp_path / "pp" / "trec.jsonl").read_text() == (tmp_path / "one" / "trec.jsonl").read_text()
+    for extra in (["--w8a8"], ["--simulation-tokens", "4"]):
+        with pytest.raises(SystemExit, match="--pp"):
+            mod.main([flag, "2", "--device", "cpu", *extra])
 
 
 def test_niah_cli_tp_matches_one_device(tmp_path):

@@ -345,12 +345,42 @@ def test_dryrun_step_on_four_ranks(tmp_path):
     """parallel.mesh.dryrun_step(4): the tp x dp chunk step and the
     expert-parallel step (float32 logits within 1e-4 of one device), 16
     greedy tokens, the trained-pattern NIAH cell and the sharded
-    ServingEngine, all equal to one device, on a (data 2, tensor 2) mesh."""
+    ServingEngine, all equal to one device, on a (data 2, tensor 2) mesh;
+    then JAX's pipeline step (2 stages, the one-device tokens) and its
+    gate-training step on the same ranks as a (data 2, seq 2) mesh."""
     out = pmesh.dryrun_step(4, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
-    assert set(out) == {"step", "tp_equivalence", "tp_niah_cell", "serving_tp"}
-    assert out["tp_equivalence"]["agree"] == 16
+    assert set(out) == {"step", "tp_equivalence", "tp_niah_cell", "serving_tp", "pipeline", "train"}
+    assert out["tp_equivalence"]["agree"] == 16 and out["pipeline"]["agree"] == 2
+    assert np.isfinite(out["train"]["loss"])
     assert out["tp_niah_cell"]["word_overlap"] == 1.0
     assert pmesh.dryrun_tp_niah_cell(1, device="cpu") is None and pmesh.dryrun_serving_tp(2, device="cpu") is None
+
+
+def _dryrun_1m_at(ctx, tmp_path):
+    out = pmesh.dryrun_1m_decode(4, ctx=ctx, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
+    want = pmesh.one_process_1m_logits(ctx, device="cpu")
+    assert out["logits"].shape == (1, 512) and np.isfinite(out["logits"]).all()
+    np.testing.assert_allclose(out["logits"], want, atol=1e-4, rtol=1e-4)
+    # 1 full and 1 streaming head a layer on each of 4 ranks: INT4 K and V of ctx slots and their scales
+    assert out["kv_bytes"] == out["kv_bytes_reckoned"] and len(set(out["kv_bytes"])) == 1
+    assert out["kv_bytes"][0] >= 2 * 2 * (ctx // 2) * (128 + 8)
+    return out
+
+
+def test_dryrun_1m_decode_at_131072(tmp_path):
+    """parallel.mesh.dryrun_1m_decode at 131,072 slots (the 1M geometry with
+    a shorter span; tests/test_spmd.py runs 131,072 in tier-1 too): TP = 4,
+    W8A8 with int8 embeddings, an INT4 cache of length ctx - 8, one decode
+    step with the bucket at ctx: finite logits within 1e-4 of the one-process
+    step, and every rank's KV bytes equal to their reckoning."""
+    _dryrun_1m_at(131072, tmp_path)
+
+
+@pytest.mark.slow
+def test_dryrun_1m_decode(tmp_path):
+    """The true 1,048,576-slot cache (JAX marks its 1M case slow,
+    tests/test_spmd.py:131; run with ``-m slow``)."""
+    _dryrun_1m_at(1 << 20, tmp_path)
 
 
 def test_a_failing_rank_fails_the_run(tmp_path):

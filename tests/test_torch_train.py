@@ -304,12 +304,34 @@ def test_two_way_remat_matches_no_remat(w8a8):
 
 
 def test_two_way_parallel_options_raise():
+    """The parallel options of forward_two_way (they raised until the
+    parallel layouts were ported; what still raises is a seq axis that does
+    not divide the heads). A layer hook is called at the top of every layer
+    and, with remat, once more inside each student block's forward and
+    recompute; an identity hook and a seq axis of one rank change nothing.
+    The cross-rank cases are tests/test_torch_train_parallel.py's."""
+    from duo_attention_tpu_torch.parallel.mesh import Axis
+
     tcfg, _, tp, _ = _models()
-    gates = torch.ones((tcfg.num_layers, tcfg.num_kv_heads))
-    ids = torch.as_tensor(_ids(tcfg))
-    for kw in ({"seq_axis": "seq"}, {"layer_hook": lambda layer, hs: (layer, hs)}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tllama.forward_two_way(tp, gates, tcfg, SINK, RECENT, ids, **kw)
+    g = _gates(tcfg, "inside", seed=3)
+    ids = _ids(tcfg)
+    want = _port_two_way(tp, tcfg, g, ids, remat=True)
+    calls = []
+
+    def hook(layer, deps):
+        calls.append(len(calls))
+        return layer, deps
+
+    one = Axis("seq", 1, 0, None, None)
+    gt = t(g).requires_grad_(True)
+    tt, ss = tllama.forward_two_way(tp, gt, tcfg, SINK, RECENT, torch.as_tensor(ids), seq_axis=one,
+                                    block_k=BLOCK, layer_hook=hook, remat=True)
+    ((tt - ss) ** 2).mean().backward()
+    for a, b in zip((tt.detach().numpy(), ss.detach().numpy(), gt.grad.numpy()), want):
+        np.testing.assert_array_equal(a, b)
+    assert len(calls) == 3 * tcfg.num_layers  # teacher, student forward, student recompute
+    with pytest.raises(ValueError, match="divisible by 3"):
+        tllama.forward_two_way(tp, t(g), tcfg, SINK, RECENT, torch.as_tensor(ids), seq_axis=Axis("seq", 3, 0, None, None))
 
 
 def test_head_and_all_logits_match_jax():
@@ -337,8 +359,13 @@ def test_losses_match_jax():
                                rtol=RTOL)
     assert float(tloss.distill_loss(t(th), t(sh), torch.zeros(2, 16, dtype=torch.bool))) == 0.0
     np.testing.assert_allclose(float(tloss.l1_loss(t(gates))), float(jloss.l1_loss(jnp.asarray(gates))), rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tloss.distill_loss(t(th), t(sh), t(mask), axis_names=("data",))
+    # over mesh axes of one rank each (no collective) it is the same value (cross-rank sums:
+    # tests/test_torch_train_parallel.py)
+    from duo_attention_tpu_torch.parallel.mesh import Axis
+
+    axes = (Axis("data", 1, 0, None, None), Axis("seq", 1, 0, None, None))
+    assert float(tloss.distill_loss(t(th), t(sh), t(mask), axis_names=axes)) == float(
+        tloss.distill_loss(t(th), t(sh), t(mask)))
 
 
 @pytest.mark.parametrize("warmup,num_steps", [(4, 40), (20, 300), (0, 5), (10, 10)])
@@ -476,25 +503,37 @@ def test_port_resumes_a_jax_checkpoint(tmp_path):
 
 
 def test_trainer_rejects_what_it_does_not_run(tmp_path):
+    """dp or sp above 1 needs the rank's (data, seq) mesh, so without one it
+    raises; FSDP without a mesh is one device (as JAX, which shards only on a
+    mesh); params on another device than the trainer's raise."""
     tcfg, _, tp, _ = _models()
-    for kw in ({"dp": 2}, {"sp": 2}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for kw in ({"dp": 2}, {"sp": 2}, {"dp": 0}):
+        with pytest.raises(ValueError, match="needs this rank's|at least 1"):
             ttrainer.GateTrainer(tp, tcfg, _tcfg(ttrainer, tmp_path, **kw), device="cpu")
+    assert ttrainer.GateTrainer(tp, tcfg, _tcfg(ttrainer, tmp_path, fsdp=True), device="cpu").layer_hook is None
     with pytest.raises(ValueError, match="params are on"):
         ttrainer.GateTrainer(tp, tcfg, _tcfg(ttrainer, tmp_path), device="meta")
 
 
 def test_trainer_main_flags(tmp_path, monkeypatch):
-    """The CLI: a short run on the CPU writes the artifact; a mesh, FSDP and
-    a missing wandb raise before any model is built."""
+    """The CLI: a short run on the CPU writes the artifact, on one process
+    and on a (data 1, seq 2) mesh with FSDP; a size below 1 and a missing
+    wandb raise before any model is built."""
     out = tmp_path / "cli"
     ttrainer.main(["--model", "tiny-llama", "--num-steps", "2", "--sink", "8", "--recent", "16", "--context-min",
                    "64", "--context-max", "96", "--num-passkeys", "1", "--pad-to", "128", "--block-k", "64",
                    "--save-steps", "1", "--output-dir", str(out), "--device", "cpu"])
     assert (out / "full_attention_heads.tsv").exists() and (out / "opt_state_step=2.npz").exists()
-    for flags in (["--dp", "2"], ["--sp", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttrainer.main(flags + ["--device", "cpu"])
+    # --sp 2 --fsdp: two gloo ranks; rank 0 writes the same artifact
+    out_sp = tmp_path / "cli_sp"
+    gates = ttrainer.main(["--model", "tiny-llama", "--num-steps", "2", "--sink", "8", "--recent", "16",
+                           "--context-min", "64", "--context-max", "96", "--num-passkeys", "1", "--pad-to", "256",
+                           "--block-k", "64", "--save-steps", "1", "--output-dir", str(out_sp), "--device", "cpu",
+                           "--sp", "2", "--fsdp"])
+    assert gates.shape == (2, 2) and np.isfinite(gates).all()
+    assert (out_sp / "full_attention_heads.tsv").exists() and (out_sp / "opt_state_step=2.npz").exists()
+    with pytest.raises(SystemExit, match="at least 1"):
+        ttrainer.main(["--dp", "0", "--device", "cpu"])
     monkeypatch.setitem(__import__("sys").modules, "wandb", None)
     with pytest.raises(RuntimeError, match="wandb"):
         ttrainer.main(["--wandb", "--device", "cpu"])
