@@ -52,6 +52,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4
 from .config import DuoConfig, ModelConfig
 from .models import llama
@@ -199,7 +200,8 @@ class DuoEngine:
                 start: int = 0) -> Tuple[DuoCache, torch.Tensor]:
         """Chunked prefill of host ids [B, S] (under a mesh: the rank's rows,
         ``local_rows``). ``start`` is the host-known length already in
-        ``cache``. Returns (cache, last-token logits [B, vocab] float32)."""
+        ``cache``. Returns (cache, last-token logits [B, vocab] float32).
+        Each chunk is an ``engine.prefill_chunk`` span (``tracing``)."""
         if cache is None:
             cache = self.new_cache()
         input_ids = np.asarray(input_ids)
@@ -212,11 +214,12 @@ class DuoEngine:
             n_valid = chunk.shape[1]
             if n_valid < C:  # pad the tail chunk; the masks hide the padding
                 chunk = np.pad(chunk, ((0, 0), (0, C - n_valid)))
-            hidden, cache = llama.forward_chunk(
-                self.params, self.cfg, self.duo, cache, self._ids(chunk), n_valid,
-                full_bucket=self.bucket_for(pos + C), mesh=self.mesh,
-            )
-            logits = llama.logits_at(self.params, hidden, n_valid - 1, mesh=self.mesh, cfg=self.cfg)
+            with tracing.span("engine.prefill_chunk", device=self.device, tokens=n_valid):
+                hidden, cache = llama.forward_chunk(
+                    self.params, self.cfg, self.duo, cache, self._ids(chunk), n_valid,
+                    full_bucket=self.bucket_for(pos + C), mesh=self.mesh,
+                )
+                logits = llama.logits_at(self.params, hidden, n_valid - 1, mesh=self.mesh, cfg=self.cfg)
             pos += n_valid
         return cache, logits
 

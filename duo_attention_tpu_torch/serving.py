@@ -23,6 +23,13 @@ pool decode run on one stream: the decode kernels' scratch
 (``ops/flash.py::_scratch``) is shared by every caller on a device. On the
 CPU the same step runs eagerly.
 
+Spans (``tracing``): each ``step()`` is a ``serve.step`` span around its
+admission chunk (``serve.admit``, holding the prefill engine's
+``engine.prefill_chunk`` spans) and its decode burst (``serve.decode``,
+with the burst's live rows and KV counters, ``_burst_counts``), recorded
+while a profiler runs or inside ``tracing.recording()``. The counters come
+from host state alone: ``stale`` mirrors each freed slot's device length.
+
 Tensor parallelism (``mesh=``, ``parallel/mesh.py``): every rank builds the
 engine on its slices of the params and is submitted the same requests; the
 scheduler runs in lockstep on every rank. The pool cache holds the rank's
@@ -45,7 +52,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .cache import init_cache, init_cache_q4, ring_slot_positions
+from . import tracing
+from .cache import init_cache, init_cache_q4, kv_memory_bytes, ring_slot_positions
 from .config import DuoConfig, ModelConfig
 from .engine import DuoEngine, _next_bucket, capture_step, capture_stream
 from .models import llama
@@ -148,6 +156,10 @@ class ServingEngine:
         self.cache.length = torch.zeros((self._b,), dtype=torch.int32, device=self.device)
         self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
         self.lengths = np.zeros(max_batch_size, np.int64)  # host mirror
+        # a freed slot's device length, which it keeps until its next
+        # admission (the decode kernels read its full-head rows up to it)
+        self.stale = np.zeros(max_batch_size, np.int64)
+        self._kv_sizes = None  # (pool bytes, full-head and streaming bytes a row a position), once traced
         # per-slot sampling state: host mirrors (greedy rows have temp 0) and
         # the device buffers the pool step reads
         self.samp_temp = np.zeros(max_batch_size, np.float32)
@@ -167,17 +179,23 @@ class ServingEngine:
         self._admitting = None  # (req, slot, row_cache, tokens prefilled so far)
         # recent scheduler events for tests/metrics, bounded
         self.trace = collections.deque(maxlen=4096)
-        # With timing=True, step() stamps each phase into ``timings``:
+        # With timing=True, step() keeps a view of its phases' spans
+        # (``tracing``: ``serve.admit``, ``serve.decode``) in ``timings``:
         #   {"t", "event": "admit",  "rid", "tokens", "done", "dur_s"}
         #   {"t", "event": "decode", "steps", "produced", "live", "dur_s"}
-        # A mid-prompt admission chunk is followed by a device synchronize so
-        # its duration is the chunk's (the final chunk and every decode burst
-        # read their tokens back to the host, which waits anyway). ttft[rid]
-        # (seconds from submit to first token) is recorded always.
+        # ("t": seconds from the engine's creation to the span's start,
+        # "dur_s": the span's host seconds). A mid-prompt admission chunk is
+        # still followed by a device synchronize, inside its span, so its
+        # duration is the chunk's (the final chunk and every decode burst
+        # read their tokens back to the host, which waits anyway): the
+        # benchmark's prefill/decode split of a profile relies on it. The
+        # spans themselves never synchronize. ttft[rid] (seconds from submit
+        # to first token) is recorded always.
         self.timing = timing
         self.timings = collections.deque(maxlen=65536)
         self.ttft: Dict[int, float] = {}
         self._clock0 = time.monotonic()
+        self._wall0 = time.time_ns()  # the spans' clock at the same instant
         self._submit_t: Dict[int, float] = {}
         self._last_decode = None  # (steps, produced, live) from _decode_step
         self._graphs = {}  # (bucket, sampled) -> engine.StepGraph, on the card
@@ -219,36 +237,35 @@ class ServingEngine:
         """One scheduler iteration, Sarathi-style: advance the in-flight
         admission by ONE prefill chunk (never a whole prompt), then run a
         decode burst for the live slots. At most one admission is in flight.
-        With ``timing=True`` each phase is stamped into ``self.timings``."""
-        admitted, off0 = None, 0
-        t0 = time.monotonic()
-        if self._admitting is not None:
-            admitted, off0 = self._admitting[0], self._admitting[3]
+        Each phase is a span (``tracing``); with ``timing=True`` each is
+        also kept in ``self.timings``."""
+        with tracing.span("serve.step"):
+            if self._admitting is None:
+                free = [i for i, r in enumerate(self.slots) if r is None]
+                if self.pending and free:
+                    self._admitting = (self.pending.pop(0), free[0], None, 0)
+            if self._admitting is not None:
+                self._admit_traced()
+            if any(r is not None for r in self.slots):
+                with tracing.span("serve.decode", keep=self.timing, device=self.device, device_now=False) as sp:
+                    self._decode_step(sp)
+                if self.timing:
+                    steps, produced, live = self._last_decode
+                    self.timings.append({"t": (sp.t0 - self._wall0) / 1e9, "event": "decode", "steps": steps,
+                                         "produced": produced, "live": live, "dur_s": sp.seconds})
+
+    def _admit_traced(self):
+        """One admission chunk in its ``serve.admit`` span."""
+        req, _, _, off0 = self._admitting
+        with tracing.span("serve.admit", rid=req.rid, keep=self.timing) as sp:
             self._admit_chunk()
-        else:
-            free = [i for i, r in enumerate(self.slots) if r is None]
-            if self.pending and free:
-                req = self.pending.pop(0)
-                self._admitting = (req, free[0], None, 0)
-                admitted = req
-                self._admit_chunk()
-        if self.timing and admitted is not None:
-            if self._admitting is not None:  # mid-prompt chunk: wait for it
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                off_now = self._admitting[3]
-            else:
-                off_now = admitted.prompt_len  # final chunk (its first token was read back)
-            self.timings.append({"t": t0 - self._clock0, "event": "admit", "rid": admitted.rid,
-                                 "tokens": off_now - off0, "done": self._admitting is None,
-                                 "dur_s": time.monotonic() - t0})
-        if any(r is not None for r in self.slots):
-            t1 = time.monotonic()
-            self._decode_step()
-            if self.timing:
-                steps, produced, live = self._last_decode
-                self.timings.append({"t": t1 - self._clock0, "event": "decode", "steps": steps,
-                                     "produced": produced, "live": live, "dur_s": time.monotonic() - t1})
+            done = self._admitting is None
+            if self.timing and not done and self.device.type == "cuda":  # mid-prompt chunk: wait for it
+                torch.cuda.synchronize(self.device)
+        if self.timing:
+            tokens = (req.prompt_len if done else self._admitting[3]) - off0
+            self.timings.append({"t": (sp.t0 - self._wall0) / 1e9, "event": "admit", "rid": req.rid,
+                                 "tokens": tokens, "done": done, "dur_s": sp.seconds})
 
     def graph_captures(self) -> List[dict]:
         """The pool step's captures: bucket, sampled, the capture's seconds."""
@@ -304,6 +321,7 @@ class ServingEngine:
             _row_cache_to_batch(self.cache, cache, row)
             self.tokens[row] = first
         self.lengths[slot] = req.prompt_len
+        self.stale[slot] = 0
         req.generated.append(first)
         self.ttft[req.rid] = time.monotonic() - self._submit_t.get(req.rid, self._clock0)
         req.slot = slot
@@ -331,7 +349,10 @@ class ServingEngine:
         return graph, True
 
     @torch.no_grad()
-    def _decode_step(self):
+    def _decode_step(self, sp):
+        """One decode burst for the live slots; ``sp`` is its span, which
+        gets the burst's counts (``_burst_counts``) and its device time from
+        before the first step to after the last token's copy."""
         active_np = np.array([r is not None for r in self.slots])
         maxlen = int(self.lengths.max())
         # Don't run past the cache. The request budget does not shrink the
@@ -341,6 +362,8 @@ class ServingEngine:
         bucket = min(_next_bucket(maxlen + steps), self.duo.max_cache_size)
         # the all-greedy pool skips the sampling sort entirely
         sample = bool(np.any(self.samp_temp[active_np] > 0.0))
+        if sp:
+            sp.set(steps=steps, **self._burst_counts(steps, bucket))
         rows = slice(self._lo, self._lo + self._b)  # the rank's slots
         self._active.copy_(torch.from_numpy(active_np[rows]))
         if sample:
@@ -350,6 +373,7 @@ class ServingEngine:
         first = 0
         if self.captures:
             graph, captured = self.pool_graph(bucket, sample)
+            sp.device_start()
             if captured:  # the capture's warm-up step was the burst's first step
                 seq[:, 0].copy_(self.tokens)
                 first = 1
@@ -357,11 +381,14 @@ class ServingEngine:
                 graph.replay()
                 seq[:, t].copy_(self.tokens)
         else:
+            sp.device_start()
             for t in range(steps):
                 self._pool_step(bucket, sample)
                 seq[:, t].copy_(self.tokens)
+        sp.device_end()
         self.trace.append(("decode", steps))
         seq = self._gather(seq).cpu().numpy()  # [B, steps] (waits: the burst's timing is honest)
+        tracing.resolve()
         produced = live = 0
         for i, req in enumerate(self.slots):
             if req is None:
@@ -376,6 +403,37 @@ class ServingEngine:
                     break
         self._last_decode = (steps, produced, live)
 
+    def _burst_counts(self, steps: int, bucket: int) -> dict:
+        """A burst's counts, from host state alone, over this rank's rows
+        and KV heads: its live rows' requests (``rids``); ``kv_pool_bytes``,
+        the pool's KV buffers as allocated; ``kv_live_bytes``, what the live
+        rows hold at the burst's start (full heads at the row's length,
+        streaming heads at sink + recent at most); and the full-head K and V
+        bytes the decode kernels read over the burst's steps, for live rows
+        (``attn_full_live_bytes``: a row at length n reads n + t + 1
+        positions at step t; the bucket covers them all) and for freed ones
+        (``attn_full_dead_bytes``: a freed row reads its stale length, up to
+        the bucket, at every step)."""
+        if self._kv_sizes is None:
+            c, n = self.cache, self._b
+            full = sum(t.numel() * t.element_size() for name in c.BUFFERS if "full" in name
+                       for t in getattr(c, name)) / (n * self.duo.max_cache_size)
+            ring = sum(t.numel() * t.element_size() / t.shape[2] for t in (*c.k_ring, *c.v_ring)) / n
+            self._kv_sizes = (kv_memory_bytes(c), full, ring)
+        pool, full, ring = self._kv_sizes
+        window = self.duo.sink_size + self.duo.recent_size
+        rids, held, live_pos, dead_pos = [], 0.0, 0, 0
+        for i in range(self._lo, self._lo + self._b):
+            if self.slots[i] is not None:
+                n = int(self.lengths[i])
+                rids.append(self.slots[i].rid)
+                held += n * full + min(n, window) * ring
+                live_pos += steps * (n + 1) + steps * (steps - 1) // 2
+            else:
+                dead_pos += steps * min(int(self.stale[i]), bucket)
+        return dict(rids=rids, kv_pool_bytes=pool, kv_live_bytes=held,
+                    attn_full_live_bytes=live_pos * full, attn_full_dead_bytes=dead_pos * full)
+
     def _maybe_finish(self, slot: int):
         req = self.slots[slot]
         tok = req.generated[-1]
@@ -385,5 +443,6 @@ class ServingEngine:
             req.done = True
             self.finished.append(req)
             self.slots[slot] = None
+            self.stale[slot] = self.lengths[slot]
             self.lengths[slot] = 0
             self.samp_temp[slot], self.samp_top_p[slot], self.samp_top_k[slot] = 0.0, 1.0, 0  # back to greedy

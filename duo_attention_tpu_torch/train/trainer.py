@@ -52,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import ModelConfig
 from ..models import llama
 from ..parallel import mesh as pmesh
@@ -250,8 +251,10 @@ class GateTrainer:
             return self._sharded_grads(ids, labels)
         ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         labels_t = torch.as_tensor(labels, device=self.device)
-        loss, (d, reg) = self.loss_fn(self.gates, self.params, ids_t, labels_t)
-        loss.backward()
+        with tracing.span("train.forward", device=self.device):
+            loss, (d, reg) = self.loss_fn(self.gates, self.params, ids_t, labels_t)
+        with tracing.span("train.backward", device=self.device):
+            loss.backward()
         return loss.detach(), d.detach(), reg.detach()
 
     def _sharded_grads(self, ids: np.ndarray, labels: np.ndarray):
@@ -264,41 +267,50 @@ class GateTrainer:
             raise ValueError(f"a batch of {B} x {S} does not split over data {data.size} x seq {seq.size}")
         tcfg = self.tcfg
         ids_t = torch.as_tensor(_local(self.mesh, ids), dtype=torch.long, device=self.device)
-        teacher, student = llama.forward_two_way(self.params, self.gates, self.mcfg, tcfg.sink_size,
-                                                 tcfg.recent_size, ids_t, seq_axis=seq, block_k=tcfg.block_k,
-                                                 layer_hook=self.layer_hook, remat=tcfg.remat)
-        mask = torch.as_tensor(_local(self.mesh, labels) != IGNORE_INDEX, device=self.device)
-        d = distill_loss(teacher, student, mask, axis_names=(data, seq))
-        d.backward()
-        if self.gates.grad is None:
-            self.gates.grad = torch.zeros_like(self.gates)
-        # JAX's sharded step differentiates its psum'd loss (duo_attention_tpu/train/loss.py:41-42)
-        # inside shard_map: the transpose of a psum is a psum, so each device's gradient is already
-        # N times its share, and the psum at duo_attention_tpu/train/trainer.py:140 makes the total
-        # N = dp x sp times the one-device gradient. The sum over ranks of the local gradients is the
-        # one-device gradient; the port multiplies it by N to take JAX's step.
-        pmesh.axis_sum(world, self.gates.grad).mul_(world.size)
-        # the L1 term on the replicated gates, outside (its gradient adds to gates.grad)
-        reg = l1_loss(self.gates)
-        (tcfg.reg_weight * reg).backward()
+        with tracing.span("train.forward", device=self.device):
+            teacher, student = llama.forward_two_way(self.params, self.gates, self.mcfg, tcfg.sink_size,
+                                                     tcfg.recent_size, ids_t, seq_axis=seq, block_k=tcfg.block_k,
+                                                     layer_hook=self.layer_hook, remat=tcfg.remat)
+            mask = torch.as_tensor(_local(self.mesh, labels) != IGNORE_INDEX, device=self.device)
+            d = distill_loss(teacher, student, mask, axis_names=(data, seq))
+        with tracing.span("train.backward", device=self.device):
+            d.backward()
+            if self.gates.grad is None:
+                self.gates.grad = torch.zeros_like(self.gates)
+            # JAX's sharded step differentiates its psum'd loss (duo_attention_tpu/train/loss.py:41-42)
+            # inside shard_map: the transpose of a psum is a psum, so each device's gradient is already
+            # N times its share, and the psum at duo_attention_tpu/train/trainer.py:140 makes the total
+            # N = dp x sp times the one-device gradient. The sum over ranks of the local gradients is the
+            # one-device gradient; the port multiplies it by N to take JAX's step.
+            pmesh.axis_sum(world, self.gates.grad).mul_(world.size)
+            # the L1 term on the replicated gates, outside (its gradient adds to gates.grad)
+            reg = l1_loss(self.gates)
+            (tcfg.reg_weight * reg).backward()
         d, reg = d.detach(), reg.detach()
         return d + tcfg.reg_weight * reg, d, reg
 
     def train_step(self, ids: np.ndarray, labels: np.ndarray):
         """One update from a batch of ids [B, S] and labels [B, S]; returns
-        (loss, distill, reg) as floats."""
-        loss, d, reg = self.compute_grads(ids, labels)
-        self.apply_grads()
-        return float(loss), float(d), float(reg)
+        (loss, distill, reg) as floats. The step is a ``train.step`` span
+        (``tracing``) around ``train.forward``, ``train.backward`` and
+        ``train.update``; their device times are read once the loss has
+        reached the host."""
+        with tracing.span("train.step"):
+            loss, d, reg = self.compute_grads(ids, labels)
+            self.apply_grads()
+            out = float(loss), float(d), float(reg)
+        tracing.resolve()
+        return out
 
     def apply_grads(self) -> None:
         """The update from ``gates.grad`` (kept as ``last_grad``): AdamW at
         the schedule's rate, then the clamp to [0, 1]."""
-        self.last_grad = self.gates.grad.detach().clone()
-        self.optimizer.param_groups[0]["lr"] = self.schedule(self.sched_count)
-        self.optimizer.step()
-        with torch.no_grad():
-            self.gates.clamp_(0.0, 1.0)  # reference train.py:98-102
+        with tracing.span("train.update", device=self.device):
+            self.last_grad = self.gates.grad.detach().clone()
+            self.optimizer.param_groups[0]["lr"] = self.schedule(self.sched_count)
+            self.optimizer.step()
+            with torch.no_grad():
+                self.gates.clamp_(0.0, 1.0)  # reference train.py:98-102
         self.sched_count += 1
         self.step_idx += 1
 
