@@ -13,9 +13,11 @@ result):
      sink 64, recent 256; the 8B model's five weight shapes), prefill and
      decode, scalar and per-sequence lengths, ragged query tiles, a query group
      of 8, a ring walk that wraps, a sink not yet full, no sink, a tiny
-     window, decode split plans with one, full, ragged and empty splits (and
-     sweeps of other plans: the bf16 full-head decode's at the main shape, the
-     streaming decode's at each main-path head count, B = 1 and 4); queries
+     window, decode split plans with one, full, ragged and empty splits, the
+     bf16 full-head decode's partition (even shares, checked) at B = 1 and 4
+     and at the serving pool's shape (16 rows, 5 live, 11 with no query, hf
+     1, 4 and 8), and sweeps of the streaming decode's plans at each
+     main-path head count, B = 1 and 4; queries
      drawn 4x larger than keys, so scores are peaked and a dropped key shows;
      attention held to
      flash.kernel_tolerance (INT4: kernel_tolerance_q4), writes (the K/V pair
@@ -483,26 +485,58 @@ def _attn_tol_ok(got, want, q4=False):
     return float(err.max()), ratio, bool((err <= tol).all())
 
 
-def _decode_plan_sweep(call, span, heads):
-    """Device ms of the bf16 decode call under other split plans than the one
-    ``flash.decode_split_plan`` makes (the plan is a host function of the
-    bucket, so it can be swapped for the sweep and put back)."""
-    from duo_attention_tpu_torch.ops import flash
-    from duo_attention_tpu_torch.utils import cuda_graph_time_ms
+def _decode_partition_record(case, cs, valid, Hkv, bucket):
+    """The bf16 decode's grid and partition for a case, as the kernel works
+    it out on the device (``flash.decode_partition``), logged and returned
+    for its record."""
+    import torch
 
-    kept = flash.decode_split_plan
-    sweep = {}
-    try:
-        for split_keys in (128, 256, 512, 1024, 2048, span):
-            plan = (-(-span // split_keys), split_keys)
-            flash.decode_split_plan = lambda span_, heads_, plan=plan: plan
-            sweep[f"{plan[0]}x{plan[1]}"] = cuda_graph_time_ms(call)
-    finally:
-        flash.decode_split_plan = kept
-    sweep["kept"] = "%dx%d" % kept(span, heads)
-    log(f"  decode split plan sweep at span {span} (splits x keys: device ms): "
-        + ", ".join(f"{k}: {v:.4f}" if k != "kept" else f"kept {v}" for k, v in sweep.items()))
-    return sweep
+    from duo_attention_tpu_torch.ops import flash
+
+    row_keys = flash.decode_row_keys(cs, valid, bucket)
+    nblocks = flash.decode_grid(len(cs), Hkv, bucket, torch.cuda.get_device_properties(0).multi_processor_count)
+    tiles = [sum(-(-(hi - lo) // flash.DECODE_TILE_KEYS) for _, _, lo, hi in segs)
+             for segs in flash.decode_partition(row_keys, Hkv, nblocks)]
+    used = [t for t in tiles if t]
+    log(f"  partition for {case}: bucket {bucket}, {len(cs) * Hkv} (b, KV head) pairs, {sum(row_keys)} keys a "
+        f"head -> a grid of {nblocks}, {len(used)} with {min(used, default=0)}-{max(used, default=0)} tiles")
+    require(not used or max(used) - min(used) <= 1, f"{case}: uneven shares {min(used)}-{max(used)}")
+    return dict(blocks=nblocks, blocks_used=len(used), tiles_per_block=max(used, default=0))
+
+
+def _pool_decode_cases(randn, record):
+    """The bf16 decode at the serving pool's shape (longdoc): 16 rows, 5 live
+    at 4k-28k keys and 11 freed at stale lengths with valid 0, bucket 32,768,
+    hf 1, 4 and 8 with query groups of 4. The live rows against the plain
+    version, the freed ones exactly 0."""
+    import torch
+
+    from duo_attention_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    B, T, D, live = 16, 32768, HEAD_DIM, 5
+    rng = np.random.default_rng(17)
+    valid = np.zeros(B, np.int32)
+    valid[rng.choice(B, live, replace=False)] = 1
+    cs = np.where(valid > 0, rng.integers(4096, 28672, B), rng.integers(0, 2 * T, B)).astype(np.int32)
+    cs_arg, valid_arg = torch.tensor(cs, device=dev), torch.tensor(valid, device=dev)
+    for hf in (1, 4, 8):
+        case = f"decode pool B=16 hf={hf} ({live} live)"
+        q = randn(B, 1, hf * GROUP, D, mul=Q_PEAK)
+        k, v = randn(B, hf, T, D), randn(B, hf, T, D)
+        extra = _decode_partition_record(case, cs.tolist(), valid.tolist(), hf, T)
+        call = lambda: flash.full_cache_attention(q, k, v, cs_arg, bucket=T, valid=valid_arg)  # noqa: E731
+        got = call()
+        want = flash.full_cache_attention_plain(q, k, v, cs_arg, bucket=T, valid=valid_arg)
+        on = torch.as_tensor(valid > 0, device=dev)
+        err, ratio, ok = _attn_tol_ok(got[on], want[on])
+        require(bool((got[~on] == 0).all()), f"{case}: a row with no query is not 0")
+        keys = int((cs[valid > 0] + 1).sum())
+        nbytes = 2 * (2 * B * hf * GROUP * D) + 2 * (2 * hf * D * keys)
+        times = timed(call, lambda: flash.full_cache_attention_plain(q, k, v, cs_arg, bucket=T, valid=valid_arg))
+        record("full_cache_attention.decode", case, err, ok, times, _bound(4 * D * hf * GROUP * keys, nbytes),
+               ratio, **extra)
+        del q, k, v
 
 
 def _stream_decode_sweep(randn):
@@ -632,11 +666,7 @@ def phase_kernels(rec):
         kb, vb = k[:B, :Hkv].contiguous(), v[:B, :Hkv].contiguous()
         extra = {}
         if S == 1:
-            nsplit, split_keys = flash.decode_split_plan(bucket, B * Hkv)
-            extra = dict(nsplit=nsplit, split_keys=split_keys, blocks=B * Hkv * nsplit)
-            log(f"  split plan for {case}: bucket {bucket}, {B * Hkv} (b, KV head) pairs -> "
-                f"{nsplit} splits of {split_keys} keys, {B * Hkv * nsplit} blocks")
-            require((nsplit == 1) == (bucket <= flash.DECODE_ONE_BLOCK_SPAN), f"{case}: {nsplit} splits")
+            extra = _decode_partition_record(case, csv.tolist(), None, Hkv, bucket)
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
         got = flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket)
         want = flash.full_cache_attention_plain(q, kb, vb, cs_arg, bucket=bucket)
@@ -658,10 +688,9 @@ def phase_kernels(rec):
                main=case in ("prefill cs=12288", "decode cs=16000"), **extra)
         del k_cat, v_cat, mask
         if case == "decode cs=16000":
-            require(extra["blocks"] > B * Hkv, "the decode kernel did not split the key range")
-            rec.results["full_cache_attention.decode_plan_sweep"] = _decode_plan_sweep(
-                lambda: flash.full_cache_attention(q, kb, vb, cs_arg, bucket=bucket), bucket, B * Hkv)
+            require(extra["blocks_used"] > B * Hkv, "the decode kernel did not spread the keys over the card")
     del k, v
+    _pool_decode_cases(randn, record)
     Hkv, G = 4, GROUP
 
     # --- streaming_cache_attention --------------------------------------------

@@ -53,18 +53,25 @@
 //     the softmax's dependent chains (maxima, shuffles, 2^x on the
 //     special-function unit) behind the other warpgroup's products.
 //   * full-head decode (S == 1) is bound by bytes (every visible K/V row is
-//     read once) and, with one query row per head, by how many SMs read at
-//     once. The key range of a (KV head, b) is split over blockIdx.z (the
-//     wrapper's plan, made from the bucket alone); each block of 128 threads
-//     runs the online softmax over its keys with the G query heads of the
-//     group as rows, so K/V are read once per group, and writes (acc, m, l)
-//     in f32; a merge kernel combines the splits. With one split the block
-//     writes the output itself (short spans). K tiles of 128 keys are staged
-//     in shared memory by `cp.async` (16 lanes read one 256-byte row:
-//     coalesced), rows padded by 16 bytes so that each thread scores its own
-//     key without bank conflicts; the next tile's copy runs under the softmax
-//     and the P.V of this one. V rows are read straight from device memory,
-//     a whole row per warp load.
+//     read once) and, with one query row per head, by how many bytes are in
+//     flight at once. The pool's rows have lengths far apart, some with no
+//     query at all, so no plan made on the host from the bucket fills the
+//     card. Every block instead reads the B lengths itself and takes an
+//     equal share of the (b, KV head, 128-key tile) space of the keys that
+//     are read: min(cs + 1, bucket) a row, none for a row whose `valid` is 0.
+//     The grid is fixed (two blocks an SM, from host integers), so a launch
+//     reads nothing back and a captured step replays as lengths change. In a
+//     block four warps take 16-key chunks of a (b, KV head) in turn, each
+//     through its own ring of three chunks (K and V by `cp.async`, two in
+//     flight while one is multiplied: 128 KB of loads in flight an SM), with
+//     the G query heads as the rows of m16n8k16 `mma.sync` products (scores
+//     and P.V, as the streaming decode); rows are swizzled so that the
+//     fragment loads meet no bank conflict. A block merges its warps and
+//     writes one (acc, m, l) partial a (b, KV head) its share touches, at
+//     slot block + pair (unique: both rise together along the space); the
+//     merge kernel finds which blocks touched a pair from the same lengths
+//     and combines their partials in block order, so the result does not
+//     depend on timing.
 //   * streaming decode (S == 1) sees at most sink + recent + 1 keys (321 on
 //     the main path, ~0.16 MB of K/V a head), so neither bytes nor operations
 //     bound it: a chain of latencies does (the lengths, the copies, the
@@ -116,8 +123,13 @@ struct Args {
   int nkeys;  // full heads: slots at or past this (the bucket) are never read
   int sink, recent;
   float scale;
-  float* part;  // full-head decode scratch [B, Hkv, nsplit, G, PART] when nsplit > 1
-  int nsplit, split_keys;
+  int nsplit, split_keys;  // the streaming decode's plan
+  // full-head decode: real queries a row ([B] or one value, stride 0; null: every row),
+  // the rows, the grid's blocks, and the partials [nblocks + B * Hkv][decode_partial_floats]
+  const int* valid;
+  int valid_stride;
+  int B, nblocks;
+  float* part;
 };
 
 __device__ __forceinline__ int pmod(int a, int m) {
@@ -503,223 +515,6 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Full-head decode: blocks over (KV head, b, key split), the G grouped query
-// heads as rows; then a merge when there is more than one split
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct Decode {
-  static constexpr int THREADS = D;  // thread d owns output column d; a K tile is one key a thread
-  static constexpr int WARPS = THREADS / 32;
-  static constexpr int LDKD = D + 8;  // K rows padded by 16 bytes: 8 threads' uint4 reads hit 8 bank groups
-  static constexpr int SMEM = THREADS * LDKD * (int)sizeof(bf16);
-  static constexpr int PART = D + 2;  // per (split, query head): D sums, then the max and the denominator
-};
-
-template <int G, int D>
-__global__ void __launch_bounds__(D) decode_kernel(Args a) {
-  constexpr int DEC_THREADS = Decode<D>::THREADS, DEC_WARPS = Decode<D>::WARPS;
-  constexpr int LDKD = Decode<D>::LDKD, DEC_SMEM = Decode<D>::SMEM, PART = Decode<D>::PART;
-  constexpr int CPL = D / 32;  // P.V: the output columns a lane owns
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [DEC_THREADS][LDKD]
-  float* sacc = reinterpret_cast<float*>(smem);  // [DEC_WARPS][G][D], after the key walk
-  static_assert(DEC_WARPS * G * D * sizeof(float) <= DEC_SMEM, "sacc must fit in the K tile");
-  __shared__ float sq[G][D];
-  __shared__ float sp[G][DEC_THREADS];
-  __shared__ float red[G][DEC_WARPS];
-  __shared__ float sm[G], sl[G], salpha[G];
-
-  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cs = a.cs[b * a.cs_stride];  // the query's position
-  const float sc = bf16_scale(a.scale);
-
-  for (int i = tid; i < G * D; i += DEC_THREADS) {
-    const int g = i / D, d = i % D;
-    const float qv = __bfloat162float(a.q[((size_t)b * a.Hq + hk * G + g) * D + d]);
-    sq[g][d] = __bfloat162float(__float2bfloat16(qv * sc));
-  }
-  if (tid < G) {
-    sm[tid] = NEG_INF;
-    sl[tid] = 0.f;
-  }
-  // P.V: warp w takes keys [32w, 32w+32) of each tile; lane owns columns CPL*lane..CPL*lane+CPL-1.
-  float acc[G][CPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
-  const Keys keys = key_range<MODE_FULL>(a, cs, 0, cs);
-  // this block's keys: [lo, hi) of the visible range; every key below keys.end
-  // is visible to the one query
-  const int lo = split * a.split_keys;
-  const int hi = min(keys.end, lo + a.split_keys);
-
-  const Rows src_rows = rows_of<MODE_FULL, D>(a, b, hk, keys.glo);
-  // A K tile into shared memory: D / 8 neighbouring threads copy one row.
-  auto load_k = [&](int k0) {
-    const uint32_t dst = smem_addr(sK);
-#pragma unroll 4
-    for (int i = tid; i < DEC_THREADS * (D / 8); i += DEC_THREADS) {
-      const int r = i / (D / 8), c = i % (D / 8);
-      if (k0 + r < hi) {
-        const bf16 *kp, *vp;
-        kv_row<MODE_FULL, D>(src_rows, k0 + r, kp, vp);
-        cp_async16(dst + (r * LDKD + c * 8) * (int)sizeof(bf16), kp + c * 8, 16);
-      }
-    }
-    cp_async_commit();
-  };
-  load_k(lo);
-
-  for (int k0 = lo; k0 < hi; k0 += DEC_THREADS) {
-    cp_async_wait<0>();
-    __syncthreads();  // the K tile (and, the first time, sq, sm, sl) is ready
-    const int j = k0 + tid;
-    const bool vis = j < hi;
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) s[g] = NEG_INF;
-    if (vis) {
-      const bf16* kp = sK + tid * LDKD;
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D; c += 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kp + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const float kf = __bfloat162float(e[u]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] += sq[g][c + u] * kf;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float m = s[g];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) red[g][warp] = m;
-    }
-    __syncthreads();  // every thread has scored its key: the K tile is free
-    if (k0 + DEC_THREADS < hi) load_k(k0 + DEC_THREADS);  // lands under the softmax and P.V below
-    if (tid < G) {
-      float mx = red[tid][0];
-#pragma unroll
-      for (int w = 1; w < DEC_WARPS; ++w) mx = fmaxf(mx, red[tid][w]);
-      const float m_prev = sm[tid], m_next = fmaxf(m_prev, mx);
-      salpha[tid] = expf(m_prev - m_next);
-      sm[tid] = m_next;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = vis ? expf(s[g] - sm[g]) : 0.f;
-      sp[g][tid] = __bfloat162float(__float2bfloat16(p));
-      float ps = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      if (lane == 0) red[g][warp] = ps;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float tot = 0.f;
-#pragma unroll
-      for (int w = 0; w < DEC_WARPS; ++w) tot += red[tid][w];
-      sl[tid] = salpha[tid] * sl[tid] + tot;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[g][c] *= salpha[g];
-    const int jend = min(32 * warp + 32, hi - k0);
-#pragma unroll 8
-    for (int jj = 32 * warp; jj < jend; ++jj) {
-      const bf16 *kp, *vp;
-      kv_row<MODE_FULL, D>(src_rows, k0 + jj, kp, vp);
-      float e[CPL];  // this lane's CPL columns of the V row, in one load
-      if constexpr (CPL == 4) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(vp + 4 * lane);
-        e[0] = bf16_lo(raw.x);
-        e[1] = bf16_hi(raw.x);
-        e[2] = bf16_lo(raw.y);
-        e[3] = bf16_hi(raw.y);
-      } else {
-        const uint32_t raw = *reinterpret_cast<const uint32_t*>(vp + 2 * lane);
-        e[0] = bf16_lo(raw);
-        e[1] = bf16_hi(raw);
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = sp[g][jj];
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[g][c] += p * e[c];
-      }
-    }
-    __syncthreads();
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();  // no copy is in flight and no thread reads the K tile: sacc may take its place
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) sacc[(warp * G + g) * D + CPL * lane + c] = acc[g][c];
-  __syncthreads();
-  if (a.nsplit == 1) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float o = 0.f;
-#pragma unroll
-      for (int w = 0; w < DEC_WARPS; ++w) o += sacc[(w * G + g) * D + tid];
-      float l = sl[g];
-      if (l == 0.f) l = 1.f;
-      a.out[((size_t)b * a.Hq + hk * G + g) * D + tid] = __float2bfloat16(o / l);
-    }
-    return;
-  }
-  // an empty split leaves m = NEG_INF, l = 0, acc = 0: it weighs nothing in the merge
-  float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit + split) * G) * PART;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) o += sacc[(w * G + g) * D + tid];
-    part[g * PART + tid] = o;
-  }
-  if (tid < G) {
-    part[tid * PART + D] = sm[tid];
-    part[tid * PART + D + 1] = sl[tid];
-  }
-}
-
-// out[b, h, :] from the splits' states: out = sum_s e^(m_s - M) acc_s /
-// sum_s e^(m_s - M) l_s with M = max_s m_s. With every split empty M is
-// NEG_INF, the weights are 1, the sums 0, and the row is 0.
-template <int D>
-__global__ void __launch_bounds__(D) decode_merge_kernel(Args a) {
-  constexpr int PART = Decode<D>::PART;
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int hk = h / a.G, g = h % a.G;
-  const float* part = a.part + ((((size_t)b * a.Hkv + hk) * a.nsplit) * a.G + g) * PART;
-  const size_t stride = (size_t)a.G * PART;
-  float M = NEG_INF;
-  for (int s = 0; s < a.nsplit; ++s) M = fmaxf(M, part[s * stride + D]);
-  float o = 0.f, l = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const float* p = part + s * stride;
-    const float w = expf(p[D] - M);
-    o += w * p[d];
-    l += w * p[D + 1];
-  }
-  if (l == 0.f) l = 1.f;
-  a.out[((size_t)b * a.Hq + h) * D + d] = __float2bfloat16(o / l);
-}
-
-// ---------------------------------------------------------------------------
 // Streaming decode: one launch, a thread-block cluster per (streaming KV head,
 // b) over the splits of its keys; a warp takes 16 keys at a time on mma.sync,
 // a block merges its warps, and the cluster's leader merges the blocks
@@ -1015,6 +810,329 @@ __global__ void __launch_bounds__(32 * ST_MAX_WARPS) stream_decode_kernel(Args a
   }
 }
 
+// ---------------------------------------------------------------------------
+// Full-head decode: the keys of every (b, KV head) shared out evenly over a
+// fixed grid; a block's warps take 16-key chunks in turn on mma.sync, and the
+// block writes one partial a (b, KV head) it touches; a merge combines them
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_TILE = 128;  // keys of a tile: the unit of the partition
+constexpr int DEC_CHUNK = 16;  // keys a warp takes at a time: one k-step of the m16n8k16 P.V
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_STAGES = 3;  // chunks in a warp's ring: two in flight while one is multiplied
+constexpr int DEC_MERGE_WAYS = 8;  // merge threads that share four columns, each taking every 8th partial
+
+template <int D>
+struct Decode {
+  static constexpr int ROW = D * 2;  // bytes of a K or V row
+  static constexpr int CHUNK_BYTES = 2 * DEC_CHUNK * ROW;  // the chunk's K rows, then its V rows
+  static constexpr int WARP_BYTES = DEC_STAGES * CHUNK_BYTES;
+  // After a segment's walk a warp's output rows (float) take its ring, D + 8
+  // floats apart: a half-warp's float2 stores, (row gid, column 8j + 2t), hit 32 banks.
+  static constexpr int ACC_LD = D + 8;
+  static_assert(ST_MAX_G * ACC_LD * 4 <= WARP_BYTES, "a warp's rows must fit in its ring");
+  // the warps' rings, then the rows' keys [B] and tile starts [B + 1]
+  static __host__ __device__ constexpr int smem_bytes(int B) { return DEC_WARPS * WARP_BYTES + (2 * B + 1) * 4; }
+};
+
+// A decode partial: the G rows' unnormalized sums [G][D], then ST_MAX_G maxima
+// and ST_MAX_G denominators (16-byte aligned for any G).
+__host__ __device__ constexpr int decode_slot_floats(int G, int D) { return G * D + 2 * ST_MAX_G; }
+
+// A chunk's rows are 16-byte pieces, swizzled so that the fragment loads meet
+// no bank conflict with no padding: K piece c of row r sits at c ^ 4 (r & 1)
+// (a quarter-warp's loads take rows gid and gid + 1 at pieces 4u + t), V
+// piece c at c ^ (r & 7) (an ldmatrix phase takes 8 rows at one piece).
+__device__ __forceinline__ int k_piece(int r, int c) { return c ^ ((r & 1) << 2); }
+__device__ __forceinline__ int v_piece(int r, int c) { return c ^ (r & 7); }
+
+// The keys a (b, KV head) pair of row b reads: min(cs + 1, bucket), none when
+// the row has no query.
+__device__ __forceinline__ int decode_row_keys(const Args& a, int b) {
+  if (a.valid != nullptr && a.valid[b * a.valid_stride] <= 0) return 0;
+  return max(min(a.cs[b * a.cs_stride] + 1, a.nkeys), 0);
+}
+
+// Every row's keys, and the tiles of one KV head of the rows before each
+// (starts[B] is the total), into shared memory by a block-wide scan; ends at
+// a barrier.
+__device__ void decode_rows(const Args& a, int* keys, int* starts) {
+  __shared__ int wsum[DEC_WARPS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) starts[0] = 0;
+  int carry = 0;
+  for (int b0 = 0; b0 < a.B; b0 += DEC_THREADS) {
+    const int b = b0 + tid;
+    const int n = b < a.B ? decode_row_keys(a, b) : 0;
+    int x = (n + DEC_TILE - 1) / DEC_TILE;  // inclusive scan of the tiles over the warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    int before = carry;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      before += w < warp ? wsum[w] : 0;
+      carry += wsum[w];
+    }
+    if (b < a.B) {
+      keys[b] = n;
+      starts[b + 1] = before + x;
+    }
+    __syncthreads();  // wsum is read before the next chunk of rows writes it
+  }
+}
+
+// The tiles of one KV head of the rows before b, of row b and of every row,
+// summed by each warp for itself.
+__device__ __forceinline__ void decode_row_tiles(const Args& a, int b, int& before, int& mine, int& all) {
+  const int lane = threadIdx.x & 31;
+  before = mine = all = 0;
+  for (int r = lane; r < a.B; r += 32) {
+    const int n = (decode_row_keys(a, r) + DEC_TILE - 1) / DEC_TILE;
+    before += r < b ? n : 0;
+    mine += r == b ? n : 0;
+    all += n;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    before += __shfl_xor_sync(0xffffffffu, before, off);
+    mine += __shfl_xor_sync(0xffffffffu, mine, off);
+    all += __shfl_xor_sync(0xffffffffu, all, off);
+  }
+}
+
+// Block p of `used` = min(nblocks, total tiles) takes tiles [p * total / used,
+// (p + 1) * total / used) of the (b, KV head, tile) space; blocks past `used`
+// have nothing. A share is cut into segments, one a (b, KV head) it touches:
+// warp w takes chunks w, w + 4, ... of a segment through its ring, keeping
+// its own online softmax of the G heads (row gid of the mma tiles); the block
+// then merges its warps into the segment's partial.
+template <int G, int D>
+__global__ void __launch_bounds__(DEC_THREADS, 2) decode_kernel(Args a) {
+  using Dc = Decode<D>;
+  constexpr int PPR = D / 8, RPI = 32 / PPR;  // 16-byte pieces a row; rows a warp copies at once
+  constexpr int SLOT = decode_slot_floats(G, D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float wm[DEC_WARPS][G], wl[DEC_WARPS][G];
+  int* keys = reinterpret_cast<int*>(smem + DEC_WARPS * Dc::WARP_BYTES);
+  int* starts = keys + a.B;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tq = lane & 3;
+
+  decode_rows(a, keys, starts);
+  const long long total = (long long)a.Hkv * starts[a.B];
+  const long long used = min((long long)a.nblocks, total);
+  if (blockIdx.x >= used) return;
+  long long t = blockIdx.x * total / used;
+  const long long t1 = (blockIdx.x + 1) * total / used;
+  unsigned char* ring = smem + warp * Dc::WARP_BYTES;
+  const float sc = bf16_scale(a.scale);
+  // V fragments: lane gives row (lane & 7) + 8 ((lane >> 3) & 1), piece 2jj + (lane >> 4)
+  const int vr = (lane & 7) + 8 * ((lane >> 3) & 1);
+
+  int b = 0;
+  while (t < t1) {
+    while ((long long)a.Hkv * starts[b + 1] <= t) ++b;  // the row of tile t (rows with no keys have no tile)
+    const int nt = starts[b + 1] - starts[b];
+    const int off = (int)(t - (long long)a.Hkv * starts[b]);
+    const int hk = off / nt, tile0 = off % nt;
+    const int ntiles = (int)min(t1 - t, (long long)(nt - tile0));
+    t += ntiles;
+    const int klo = tile0 * DEC_TILE, khi = min((tile0 + ntiles) * DEC_TILE, keys[b]);
+    const int nch = (khi - klo + DEC_CHUNK - 1) / DEC_CHUNK;
+    const int mine = nch > warp ? (nch - 1 - warp) / DEC_WARPS + 1 : 0;  // this warp's chunks
+
+    const size_t bh = (size_t)b * a.Hkv + hk;
+    const bf16* kbase = a.k0 + bh * a.T0 * D;
+    const bf16* vbase = a.v0 + bh * a.T0 * D;
+    // chunk i of this warp (keys klo + 16 (warp + 4i) on) into stage i % 3; rows at or past khi are zeros
+    auto issue = [&](int i) {
+      const int k0 = klo + DEC_CHUNK * (warp + DEC_WARPS * i);
+      const uint32_t sk = smem_addr(ring + (i % DEC_STAGES) * Dc::CHUNK_BYTES), sv = sk + DEC_CHUNK * Dc::ROW;
+#pragma unroll
+      for (int u = 0; u < DEC_CHUNK / RPI; ++u) {
+        const int r = RPI * u + lane / PPR, c = lane % PPR, j = k0 + r;
+        const bool in = j < khi;
+        cp_async16(sk + r * Dc::ROW + 16 * k_piece(r, c), in ? kbase + (size_t)j * D + c * 8 : a.k0, in ? 16 : 0);
+        cp_async16(sv + r * Dc::ROW + 16 * v_piece(r, c), in ? vbase + (size_t)j * D + c * 8 : a.v0, in ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < DEC_STAGES - 1; ++i) {
+      if (i < mine) issue(i);
+      cp_async_commit();
+    }
+
+    // q rows of the group scaled in bf16, as A fragments (rows at or past G are 0)
+    uint32_t qa[D / 16][2];
+    {
+      const uint4* qrow = reinterpret_cast<const uint4*>(a.q + ((size_t)b * a.Hq + hk * G + min(gid, G - 1)) * D) + tq;
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u) {  // channels 32u + 8t .. + 7: k-steps 2u and 2u + 1
+        const uint4 raw = gid < G ? __ldg(qrow + 4 * u) : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          qa[2 * u + (h >> 1)][h & 1] = pack_bf16(bf16_lo(w[h]) * sc, bf16_hi(w[h]) * sc);
+      }
+    }
+
+    float m = NEG_INF, l = 0.f;  // row gid's; l this thread's keys' share (summed over the quad at the end)
+    float o[D / 8][2];  // row gid, channels 8j + 2t and 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = 0.f;
+    for (int i = 0; i < mine; ++i) {
+      if (i + DEC_STAGES - 1 < mine) issue(i + DEC_STAGES - 1);
+      cp_async_commit();
+      cp_async_wait<DEC_STAGES - 1>();  // chunk i has landed
+      __syncwarp();
+      const int k0 = klo + DEC_CHUNK * (warp + DEC_WARPS * i);
+      const unsigned char* sK = ring + (i % DEC_STAGES) * Dc::CHUNK_BYTES;
+      const uint32_t sV = smem_addr(sK) + DEC_CHUNK * Dc::ROW;
+      // S of keys k0 + 8nt + 2t + c: n-tile nt's B fragment is K row 8nt + gid
+      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int u = 0; u < D / 32; ++u) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int r = 8 * nt + gid;
+          const uint4 kw = *reinterpret_cast<const uint4*>(sK + r * Dc::ROW + 16 * k_piece(r, 4 * u + tq));
+          mma_16816(s[nt][0], s[nt][1], qa[2 * u][0], qa[2 * u][1], kw.x, kw.y);
+          mma_16816(s[nt][0], s[nt][1], qa[2 * u + 1][0], qa[2 * u + 1][1], kw.z, kw.w);
+        }
+      }
+      bool vis[2][2];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          vis[nt][c] = k0 + 8 * nt + 2 * tq + c < khi;
+          mx = fmaxf(mx, vis[nt][c] ? s[nt][c] : NEG_INF);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_next = fmaxf(m, mx);
+      const float alpha = fast_exp2((m - m_next) * LOG2E);
+      m = m_next;
+      l *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= alpha;
+        o[j][1] *= alpha;
+      }
+      float p[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          p[nt][c] = vis[nt][c] ? fast_exp2((s[nt][c] - m) * LOG2E) : 0.f;
+          l += p[nt][c];
+        }
+      // P (rounded to bf16) of keys 2t, 2t + 1 and 2t + 8, 2t + 9: the A fragment of O += P V
+      const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]), pa2 = pack_bf16(p[1][0], p[1][1]);
+#pragma unroll
+      for (int jj = 0; jj < D / 16; ++jj) {
+        uint32_t b0, b1, b2, b3;
+        ldmatrix_x4_trans(sV + vr * Dc::ROW + 16 * v_piece(vr, 2 * jj + (lane >> 4)), b0, b1, b2, b3);
+        mma_16816(o[2 * jj][0], o[2 * jj][1], pa0, pa2, b0, b1);
+        mma_16816(o[2 * jj + 1][0], o[2 * jj + 1][1], pa0, pa2, b2, b3);
+      }
+      __syncwarp();  // every lane is done with this stage before a later issue refills it
+    }
+    cp_async_wait<0>();  // (only empty groups are left)
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+    // The warp's state into its ring and wm/wl, then the block's into the segment's slot
+    __syncwarp();
+    float* wacc = reinterpret_cast<float*>(ring);
+    if (mine > 0 && gid < G) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(wacc + gid * Dc::ACC_LD + 8 * j + 2 * tq) = make_float2(o[j][0], o[j][1]);
+      if (tq == 0) {
+        wm[warp][gid] = m;
+        wl[warp][gid] = l;
+      }
+    }
+    __syncthreads();
+    const int nvw = min(DEC_WARPS, nch);  // warps that hold keys: the first nvw
+    float* slot = a.part + ((size_t)blockIdx.x + bh) * SLOT;
+    for (int i = tid; i < G * (D / 4); i += DEC_THREADS) {
+      const int g = i / (D / 4), c4 = 4 * (i % (D / 4));
+      float4 acc;
+      float L, M;
+      merge4<DEC_WARPS>(
+          nvw, [&](int w, int which) { return which ? wl[w][g] : wm[w][g]; },
+          [&](int w) {
+            return *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(smem + w * Dc::WARP_BYTES) +
+                                                    g * Dc::ACC_LD + c4);
+          },
+          acc, L, M);
+      *reinterpret_cast<float4*>(slot + g * D + c4) = acc;
+      if (c4 == 0) {
+        slot[G * D + g] = M;
+        slot[G * D + ST_MAX_G + g] = L;
+      }
+    }
+    __syncthreads();  // the rings and wm/wl are free for the next segment
+  }
+}
+
+// out[b, h, :] from the partials of the blocks that touched (b, h's KV head),
+// found from the lengths as decode_kernel cut them: the blocks whose shares
+// hold the pair's first and last tile and all between, combined in block
+// order (out = sum_p e^(m_p - M) acc_p / sum_p e^(m_p - M) l_p, M = max_p
+// m_p). A pair with no key (its row has no query) has no partial: its row
+// is 0.
+template <int D>
+__global__ void __launch_bounds__(DEC_MERGE_WAYS * (D / 4)) decode_merge_kernel(Args a) {
+  constexpr int LANES = D / 4;  // a thread: four columns of the row, every DEC_MERGE_WAYS-th partial
+  __shared__ float sm[DEC_MERGE_WAYS], sl[DEC_MERGE_WAYS];
+  __shared__ __align__(16) float sacc[DEC_MERGE_WAYS][D];
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.G, g = h % a.G;
+  const int way = threadIdx.x / LANES, c4 = 4 * (threadIdx.x % LANES);
+  const int slot_floats = decode_slot_floats(a.G, D);
+  int before, mine, all;
+  decode_row_tiles(a, b, before, mine, all);
+  float M = NEG_INF, L = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (mine > 0) {
+    const long long total = (long long)a.Hkv * all, used = min((long long)a.nblocks, total);
+    const long long first = (long long)a.Hkv * before + (long long)hk * mine;
+    const int p0 = (int)(((first + 1) * used - 1) / total), p1 = (int)(((first + mine) * used - 1) / total);
+    const float* pair = a.part + ((size_t)b * a.Hkv + hk) * slot_floats;
+    for (int p = p0 + way; p <= p1; p += DEC_MERGE_WAYS) {
+      const float* s = pair + (size_t)p * slot_floats;
+      const float ms = s[a.G * D + g], ls = s[a.G * D + ST_MAX_G + g];
+      const float4 x = *reinterpret_cast<const float4*>(s + g * D + c4);
+      const float mn = fmaxf(M, ms);
+      const float wo = fast_exp2((M - mn) * LOG2E), ws = fast_exp2((ms - mn) * LOG2E);
+      acc = make_float4(acc.x * wo + x.x * ws, acc.y * wo + x.y * ws, acc.z * wo + x.z * ws, acc.w * wo + x.w * ws);
+      L = L * wo + ls * ws;
+      M = mn;
+    }
+  }
+  *reinterpret_cast<float4*>(&sacc[way][c4]) = acc;
+  if (c4 == 0) {
+    sm[way] = M;
+    sl[way] = L;
+  }
+  __syncthreads();
+  if (way != 0) return;
+  merge4<DEC_MERGE_WAYS>(
+      DEC_MERGE_WAYS, [&](int w, int which) { return which ? sl[w] : sm[w]; },
+      [&](int w) { return *reinterpret_cast<const float4*>(&sacc[w][c4]); }, acc, L, M);
+  const float inv = 1.f / (L == 0.f ? 1.f : L);  // no key at all: the row is 0
+  *reinterpret_cast<uint2*>(a.out + ((size_t)b * a.Hq + h) * D + c4) =
+      make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
+}
+
 // An empty kernel: the launch floor that the decode kernels are measured
 // against (chip_smoke.py launches it as the streaming decode is launched).
 __global__ void empty_kernel() {}
@@ -1057,14 +1175,35 @@ int launch_stream_decode(const Args& a, int B, cudaStream_t stream) {
                                     Stream<D>::smem_bytes(warps, a.nsplit, a.G), a.nsplit, stream, a));
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device:
+// a host call made when the device or a larger size first comes (`dev` and
+// `size` keep what was set), never again for the same launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& dev, int& size) {
+  int now = 0;
+  cudaError_t err = cudaGetDevice(&now);
+  if (err != cudaSuccess || (now == dev && bytes <= size)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    dev = now;
+    size = bytes;
+  }
+  return err;
+}
+
 template <int D>
-int launch_full_decode(const Args& a, int B, cudaStream_t stream) {
-  const dim3 grid(a.Hkv, B, a.nsplit);
+int launch_full_decode(const Args& a, cudaStream_t stream) {
+  const int smem = Decode<D>::smem_bytes(a.B);
+  cudaError_t err = cudaSuccess;
   switch (a.G) {
-#define DUO_DECODE_CASE(NG) \
-  case NG:                  \
-    decode_kernel<NG, D><<<grid, Decode<D>::THREADS, Decode<D>::SMEM, stream>>>(a); \
-    break;
+#define DUO_DECODE_CASE(NG)                                                              \
+  case NG: {                                                                             \
+    static int dev = -1, size = 0;                                                       \
+    err = allow_smem(decode_kernel<NG, D>, smem, dev, size);                             \
+    if (err != cudaSuccess) return static_cast<int>(err);                                \
+    decode_kernel<NG, D><<<a.nblocks, DEC_THREADS, smem, stream>>>(a);                   \
+    break;                                                                               \
+  }
     DUO_DECODE_CASE(1)
     DUO_DECODE_CASE(2)
     DUO_DECODE_CASE(3)
@@ -1077,11 +1216,9 @@ int launch_full_decode(const Args& a, int B, cudaStream_t stream) {
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.nsplit > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_merge_kernel<D><<<dim3(a.Hq, B), Decode<D>::THREADS, 0, stream>>>(a);
-  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_merge_kernel<D><<<dim3(a.Hq, a.B), DEC_MERGE_WAYS * (D / 4), 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1104,22 +1241,21 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// Floats of decode scratch per (b, KV head, split, query head of the group).
-int decode_partial_floats(int head_dim) { return head_dim + 2; }
+// Floats of one full-head decode partial of a group of G query heads.
+int decode_partial_floats(int G, int head_dim) { return decode_slot_floats(G, head_dim); }
 
 // q [B, S, Hq, D]; k/v [B, Hkv, T, D] (already holding the chunk at
 // [cs, cs+S)); cs [B] (or one value, cs_stride 0); out [B, S, Hq, D].
-// Keys at or past `span` are never read. Decode (S == 1): split s covers keys
-// [s*split_keys, (s+1)*split_keys), split_keys a multiple of the 128-key tile
-// with nsplit*split_keys >= span; with nsplit > 1, `part` is scratch of
-// B*Hkv*nsplit*G*decode_partial_floats() floats.
+// Keys at or past `span` are never read. Decode (S == 1) only: valid [B] (or
+// one value, valid_stride 0; null: every row), a row with none reads no key
+// and gives 0; the keys are shared out over `nblocks` blocks, and `part` is
+// scratch of (nblocks + B*Hkv)*decode_partial_floats(Hq/Hkv, D) floats.
 int full_cache_attention(const void* q, const void* k, const void* v, const void* cs,
-                         int cs_stride, void* out, int B, int S, int Hq, int Hkv, int T,
-                         int span, int head_dim, float scale, void* part, int nsplit,
-                         int split_keys, void* stream) {
+                         int cs_stride, const void* valid, int valid_stride, void* out, int B, int S,
+                         int Hq, int Hkv, int T, int span, int head_dim, float scale, void* part,
+                         int nblocks, void* stream) {
   if (!head_dim_ok(head_dim) || Hq % Hkv != 0 || span > T) return static_cast<int>(cudaErrorInvalidValue);
-  if (S == 1 && (nsplit < 1 || (nsplit > 1 && part == nullptr) || split_keys % head_dim != 0 ||
-                 (long long)nsplit * split_keys < span))
+  if (S == 1 ? (Hq / Hkv > ST_MAX_G || nblocks < 1 || part == nullptr) : valid != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.q = static_cast<const bf16*>(q);
@@ -1128,6 +1264,8 @@ int full_cache_attention(const void* q, const void* k, const void* v, const void
   a.v0 = static_cast<const bf16*>(v);
   a.cs = static_cast<const int*>(cs);
   a.cs_stride = cs_stride;
+  a.valid = static_cast<const int*>(valid);
+  a.valid_stride = valid_stride;
   a.S = S;
   a.Hq = Hq;
   a.Hkv = Hkv;
@@ -1135,12 +1273,12 @@ int full_cache_attention(const void* q, const void* k, const void* v, const void
   a.T0 = T;
   a.nkeys = span;
   a.scale = scale;
+  a.B = B;
+  a.nblocks = nblocks;
   a.part = static_cast<float*>(part);
-  a.nsplit = nsplit;
-  a.split_keys = split_keys;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return S == 1 ? launch_full_decode<64>(a, B, st) : launch_prefill<MODE_FULL, 64>(a, B, st);
-  return S == 1 ? launch_full_decode<128>(a, B, st) : launch_prefill<MODE_FULL, 128>(a, B, st);
+  if (head_dim == 64) return S == 1 ? launch_full_decode<64>(a, st) : launch_prefill<MODE_FULL, 64>(a, B, st);
+  return S == 1 ? launch_full_decode<128>(a, st) : launch_prefill<MODE_FULL, 128>(a, B, st);
 }
 
 // q [B, S, Hq, D]; k/v_sink [B, Hs, Ts, D]; k/v_ring [B, Hs, R, D] (already

@@ -271,14 +271,17 @@ def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int, mesh=None) -> torch.Ten
 
 
 def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig,
-                         duo: DuoConfig, write_start, full_bucket: int, plain: bool, shard=None, mesh=None):
+                         duo: DuoConfig, write_start, full_bucket: int, plain: bool, shard=None, mesh=None,
+                         valid=None):
     """Split-head attention of one layer; writes this chunk's K/V into the
     layer's cache buffers first (in place).
 
     q [B, S, Hq, D]; k/v [B, S, Hkv, D], post-RoPE. The first hf*G query
     heads and hf KV heads are retrieval heads, the rest streaming heads.
     write_start: the chunk's first position (an int for S > 1; the length
-    tensor for decode). ``plain`` runs every op's plain PyTorch version
+    tensor for decode). valid: the [B] real queries of a decode step's rows
+    (None: every row); the bf16 full heads read no key of a row with none,
+    whose output is then 0. ``plain`` runs every op's plain PyTorch version
     whatever the device — the reference path the kernels are held against.
     With a ``DuoCacheQ4`` the full heads are quantized to INT4 on the way in
     and attended through ``full_cache_attention_q4``. Under tensor
@@ -314,10 +317,11 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
             kf, vf = write_full_pair(cache.k_full[layer_idx], cache.v_full[layer_idx], k_in, v_in,
                                      write_start, plain)
             if mesh is not None:
-                outs.append(spmd.sharded_full_attention(mesh, q_f, kf, vf, cs, bucket=full_bucket, plain=plain))
+                outs.append(spmd.sharded_full_attention(mesh, q_f, kf, vf, cs, bucket=full_bucket, plain=plain,
+                                                        valid=valid))
             else:
                 attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
-                outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket))
+                outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket, valid=valid))
     if hs > 0:
         bufs = write_streaming(
             cache.k_sink[layer_idx], cache.v_sink[layer_idx],
@@ -374,6 +378,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     if S > 1 and cache.length.dim() != 0:
         raise ValueError("ragged prefill is unsupported: a chunk needs one scalar cache length")
     write_start = int(cache.length) if S > 1 else cache.length
+    # a decode step's [B] n_valid (the serving pool's active rows): the full heads skip the rows with none
+    valid = n_valid if S == 1 and torch.is_tensor(n_valid) and n_valid.dim() == 1 else None
 
     plan = None if mesh is None else plan_for(mesh, cfg, duo)
     x = embed_lookup(params, input_ids, mesh, cfg) if input_ids.dim() == 2 else input_ids
@@ -383,13 +389,14 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if plan is None:
-            attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain)
+            attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, valid=valid)
             x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
             x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
             continue
         s = plan.layers[li]
         sharded = mesh if s.sharded else None  # a replicated layer's attention needs no collective
-        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, sharded)
+        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, sharded,
+                                    valid)
         x = x + _row_proj(layer, attn.reshape(B, S, -1), "wo", plain, sharded)
         x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain, mesh if s.mlp else None)
     if "final_norm" in params:

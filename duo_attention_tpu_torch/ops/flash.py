@@ -5,8 +5,10 @@ Counterpart of duo_attention_tpu/ops/flash.py (``full_cache_attention``,
 plain PyTorch version, which runs the float32 oracle of ops/attention_ref.py
 on the same masks, and a CUDA kernel in ``csrc/flash.cu`` or
 ``csrc/flash_q4.cu`` (a prefill kernel for S > 1 and a decode kernel for
-S == 1; the decode kernels split the key range over blocks by a plan made
-from host integers, the bucket or the streaming window, and merge). The
+S == 1; the decode kernels split the keys over blocks and merge: the bf16
+full-head decode by a partition each block works out on the device from the
+lengths (``decode_partition``), the others by a plan made from host
+integers, the bucket or the streaming window). The
 wrapper takes the plain version for CPU tensors and launches the kernel for
 CUDA tensors; a launch failure raises. Counters:
 ``<wrapper>.prefill_launches`` and ``<wrapper>.decode_launches`` count
@@ -40,8 +42,8 @@ from .quant import dequantize_int4_paired
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P],
-    "decode_partial_floats": [_I],
+    "full_cache_attention": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
+    "decode_partial_floats": [_I, _I],
     "streaming_cache_attention": [
         _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
@@ -67,14 +69,12 @@ _PLAIN_ROWS = 512
 # gives each split's partial a lane of a warp). scripts/q4_decode_splits.py
 # times other split sizes at the main path's shapes (PERF.md).
 Q4_DECODE_TILE_KEYS, Q4_DECODE_WAVE_BLOCKS, Q4_DECODE_ONE_MERGE = 128, 132, 32
-# The bf16 decode kernel's split plan (``decode_split_plan``): a block walks
-# its keys in tiles of DECODE_TILE_KEYS; a span up to DECODE_ONE_BLOCK_SPAN is
-# one block's work; past it the plan aims at DECODE_TARGET_BLOCKS blocks per
-# launch (two for each of the H100's 132 SMs) with at least
-# DECODE_MIN_SPLIT_KEYS keys and at most DECODE_MAX_SPLITS splits a head.
-DECODE_TILE_KEYS = 128
-DECODE_ONE_BLOCK_SPAN, DECODE_MIN_SPLIT_KEYS, DECODE_MAX_SPLITS = 512, 256, 64
-DECODE_TARGET_BLOCKS = 264
+# The bf16 decode kernel's partition (``decode_partition``): the keys of every
+# (sequence, KV head), cut into tiles of DECODE_TILE_KEYS, are laid end to end
+# and shared out evenly over DECODE_BLOCKS_PER_SM blocks on each SM (the
+# kernel's shared memory lets two stay resident); inside a block DECODE_WARPS
+# warps take DECODE_CHUNK_KEYS keys at a time in turn.
+DECODE_TILE_KEYS, DECODE_CHUNK_KEYS, DECODE_WARPS, DECODE_BLOCKS_PER_SM = 128, 16, 4, 2
 # The streaming decode kernel's split plan (``stream_decode_split_plan``): a
 # warp takes STREAM_DECODE_TILE_KEYS keys (one tile) of its block's split, a
 # block at most STREAM_DECODE_MAX_WARPS warps, and a split aims at
@@ -99,23 +99,73 @@ def _span(bucket: int, T: int) -> int:
     return T if bucket <= 0 else min(bucket, T)
 
 
-def decode_split_plan(span: int, heads: int) -> tuple[int, int]:
-    """(nsplit, split_keys) for the bf16 decode kernel over ``span`` keys and
-    ``heads`` = B * Hkv (sequence, KV head) pairs: split s walks keys
-    [s * split_keys, (s + 1) * split_keys).
+def decode_grid(B: int, Hkv: int, span: int, sms: int) -> int:
+    """Blocks of a bf16 decode launch: DECODE_BLOCKS_PER_SM on each of the
+    card's ``sms`` SMs, or fewer where the bucket leaves fewer tiles over the
+    B * Hkv (sequence, KV head) pairs. Made from host integers alone, never
+    from the lengths on the device, so launching reads nothing back and a
+    decode step captures into a CUDA graph that replays as lengths change."""
+    return max(1, min(DECODE_BLOCKS_PER_SM * sms, B * Hkv * -(-max(span, 1) // DECODE_TILE_KEYS)))
 
-    Made from the span alone (the engine's bucket, a host integer), never from
-    the cache lengths on the device, so launching reads nothing back and a
-    decode step can be captured into a CUDA graph; a sequence shorter than the
-    span leaves its last splits empty. ``split_keys`` is a multiple of the
-    kernel's tile and ``nsplit * split_keys >= span``."""
-    tile = DECODE_TILE_KEYS
-    nsplit = 1
-    if span > DECODE_ONE_BLOCK_SPAN:
-        wanted = -(-DECODE_TARGET_BLOCKS // max(heads, 1))
-        nsplit = max(1, min(wanted, DECODE_MAX_SPLITS, span // DECODE_MIN_SPLIT_KEYS))
-    split_keys = -(-max(span, 1) // (nsplit * tile)) * tile
-    return -(-max(span, 1) // split_keys), split_keys
+
+def decode_row_keys(cs, valid, span: int) -> list:
+    """Keys each sequence's full heads read at decode: min(cs + 1, span), or
+    none where ``valid`` (None: every row) is 0. The kernel computes the same
+    from the device's lengths."""
+    valid = [1] * len(cs) if valid is None else valid
+    return [min(int(c) + 1, span) if int(v) > 0 else 0 for c, v in zip(cs, valid)]
+
+
+def _tile_starts(row_keys) -> list:
+    """Tiles of one KV head of the rows before each row: [B + 1]."""
+    starts = [0]
+    for n in row_keys:
+        starts.append(starts[-1] + -(-n // DECODE_TILE_KEYS))
+    return starts
+
+
+def decode_partition(row_keys, Hkv: int, nblocks: int) -> list:
+    """The segments each block of the bf16 decode kernel reads, worked out as
+    every block works them out on the device: [nblocks] lists of (b, hk,
+    key_lo, key_hi).
+
+    The (b, hk, tile) space of every pair's keys (``decode_row_keys``), in
+    that order, is cut at p * total // used for p = 0..used, used =
+    min(nblocks, total tiles): each block gets an equal share, to a tile, and
+    none is left empty but those past ``used``. A block's range may cross
+    (b, hk) boundaries: it writes one partial a pair it touches, at scratch
+    slot block + b * Hkv + hk."""
+    starts = _tile_starts(row_keys)
+    total = Hkv * starts[-1]
+    used = min(nblocks, total)
+    blocks = []
+    for p in range(used):
+        t, t1 = p * total // used, (p + 1) * total // used
+        segs, b = [], 0
+        while t < t1:
+            while Hkv * starts[b + 1] <= t:
+                b += 1
+            nt = starts[b + 1] - starts[b]
+            hk, tile0 = divmod(t - Hkv * starts[b], nt)
+            n = min(t1 - t, nt - tile0)
+            segs.append((b, hk, tile0 * DECODE_TILE_KEYS, min((tile0 + n) * DECODE_TILE_KEYS, row_keys[b])))
+            t += n
+        blocks.append(segs)
+    return blocks + [[] for _ in range(nblocks - used)]
+
+
+def decode_merge_blocks(row_keys, Hkv: int, nblocks: int, b: int, hk: int) -> range:
+    """The blocks whose partials the merge combines for pair (b, hk), in the
+    order it combines them, found as the merge kernel finds them: the blocks
+    whose share holds the pair's first and last tile, and every one between.
+    Empty for a pair with no keys."""
+    starts = _tile_starts(row_keys)
+    total, n = Hkv * starts[-1], starts[b + 1] - starts[b]
+    if n == 0:
+        return range(0)
+    used = min(nblocks, total)
+    first = Hkv * starts[b] + hk * n
+    return range(((first + 1) * used - 1) // total, ((first + n) * used - 1) // total + 1)
 
 
 def q4_decode_split_plan(span: int, heads: int) -> tuple[int, int]:
@@ -123,9 +173,9 @@ def q4_decode_split_plan(span: int, heads: int) -> tuple[int, int]:
     ``heads`` = B * Hkv (sequence, KV head) pairs: split s walks keys
     [s * split_keys, (s + 1) * split_keys).
 
-    Made from the span alone (the engine's bucket), as ``decode_split_plan``
-    is, so a decode step captures into a CUDA graph; a sequence shorter than
-    the span leaves its last splits empty, and the kernel skips them. Splits
+    Made from the span alone (the engine's bucket), so a decode step
+    captures into a CUDA graph; a sequence shorter than the span leaves its
+    last splits empty, and the kernel skips them. Splits
     are whole tiles (``split_keys`` a multiple of 128: a pair row of two keys
     never straddles two splits) and ``nsplit * split_keys >= span``; as
     many splits as one wave of Q4_DECODE_WAVE_BLOCKS blocks over all pairs
@@ -227,52 +277,57 @@ def _plain_tiles(q, k_cat, v_cat, mask_fn):
 # ---------------------------------------------------------------------------
 
 
-def full_cache_attention_plain(q, k, v, cs, *, bucket: int = 0):
+def full_cache_attention_plain(q, k, v, cs, *, bucket: int = 0, valid=None):
     """Plain version: the float32 oracle with mask ``slot <= qpos`` over the
-    first ``span`` slots."""
+    first ``span`` slots; a row whose ``valid`` is 0 sees no slot and is 0."""
     if q.is_cuda:
         full_cache_attention_plain.cuda_calls += 1
     B, S = q.shape[:2]
     span = _span(bucket, k.shape[2])
     cs = position_vector(cs, B, q.device)
+    live = None if valid is None else position_vector(valid, B, q.device) > 0
     return _plain_tiles(
         q, k[:, :, :span], v[:, :, :span],
-        lambda b, rows: full_mask(cs[b] + rows, span),
+        lambda b, rows: full_mask(cs[b] + rows, span) & (True if live is None else live[b]),
     )
 
 
 full_cache_attention_plain.cuda_calls = 0
 
-
-def full_cache_attention(q, k, v, cs, *, bucket: int = 0):
+def full_cache_attention(q, k, v, cs, *, bucket: int = 0, valid=None):
     """Attention of incoming queries over the full-head cache.
 
     q [B, S, Hq, D] (post-RoPE); k/v [B, Hkv, T, D] already holding the chunk
     at [cs, cs+S); cs int, 0-d or [B] tensor (each sequence's cache length
     before the chunk). Slot j is visible to query position qpos iff
     j <= qpos. bucket: a bound >= max(cs) + S on the slots read (0: the
-    whole buffer). Returns [B, S, Hq, D].
+    whole buffer). valid: None (every row) or an int, 0-d or [B] tensor, the
+    real queries of each row; a row whose valid is 0 reads no key and gives 0
+    (the kernels take it at decode only). Returns [B, S, Hq, D].
     """
     if not q.is_cuda:
-        return full_cache_attention_plain(q, k, v, cs, bucket=bucket)
+        return full_cache_attention_plain(q, k, v, cs, bucket=bucket, valid=valid)
     B, S, Hq, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     _check_kernel_inputs("full_cache_attention", q, (k, v), Hkv)
     if tuple(k.shape) != (B, Hkv, T, D) or tuple(v.shape) != (B, Hkv, T, D):
         raise ValueError(f"full_cache_attention: k {tuple(k.shape)} v {tuple(v.shape)} for q {tuple(q.shape)}")
+    if valid is not None and S != 1:
+        raise ValueError("full_cache_attention: the prefill kernel takes no valid counts")
     cs_t, cs_stride = device_positions(cs, B, q.device)
+    valid_t, valid_stride = (None, 0) if valid is None else device_positions(valid, B, q.device)
     span = _span(bucket, T)
     out = torch.empty_like(q)
     lib = _lib()
-    part, nsplit, split_keys = None, 0, 0
-    if S == 1:
-        nsplit, split_keys = decode_split_plan(span, B * Hkv)
-        if nsplit > 1:  # the splits' (acc, m, l); one split writes the output itself
-            part = _scratch("part", B * Hq * nsplit * lib.decode_partial_floats(D), torch.float32, q.device)
+    part, nblocks = None, 0
+    if S == 1:  # a (acc, m, l) partial a block and a pair it touches: slot block + b * Hkv + hk
+        nblocks = decode_grid(B, Hkv, span, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        part = _scratch("part", (nblocks + B * Hkv) * lib.decode_partial_floats(Hq // Hkv, D), torch.float32,
+                        q.device)
     err = lib.full_cache_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride, out.data_ptr(),
-        B, S, Hq, Hkv, T, span, D, D**-0.5,
-        None if part is None else part.data_ptr(), nsplit, split_keys,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cs_t.data_ptr(), cs_stride,
+        None if valid_t is None else valid_t.data_ptr(), valid_stride, out.data_ptr(),
+        B, S, Hq, Hkv, T, span, D, D**-0.5, None if part is None else part.data_ptr(), nblocks,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "full_cache_attention")

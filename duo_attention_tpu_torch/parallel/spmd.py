@@ -34,12 +34,12 @@ def _check(name: str, q: torch.Tensor, *bufs: torch.Tensor) -> None:
                          "KV heads, its batch rows the cache's")
 
 
-def sharded_full_attention(mesh, q, k, v, cs, *, bucket: int = 0, plain: bool = False):
+def sharded_full_attention(mesh, q, k, v, cs, *, bucket: int = 0, plain: bool = False, valid=None):
     """``flash.full_cache_attention`` on the rank's full heads: q [B, S,
     hf_local * G, D], k/v [B, hf_local, T, D]."""
     _check("sharded_full_attention", q, k, v)
     fn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
-    return fn(q, k, v, cs, bucket=bucket)
+    return fn(q, k, v, cs, bucket=bucket, valid=valid)
 
 
 def sharded_full_attention_q4(mesh, q, k_packed, k_scales, v_packed, v_scales, cs, *, bucket: int = 0,

@@ -10,9 +10,10 @@
   runs per scheduler iteration, between decode bursts (Sarathi-style
   chunked-prefill scheduling, a bounded stall).
 * **Completion** frees the slot (stop token or token budget). A freed slot
-  keeps its KV and its device length, which may pass the pool's bucket: the
-  kernels read no key past the bucket, its row's output is discarded, and
-  the next admission overwrites it.
+  keeps its KV and its device length, which may pass the pool's bucket; the
+  step's ``n_valid`` (the active mask) tells the bf16 full-head decode to
+  read none of its keys, its row's output is discarded, and the next
+  admission overwrites it.
 
 On the card the pool step is captured once per (bucket, sampled) into a CUDA
 graph (``engine.capture_step``) on the pool cache, which persists:
@@ -157,7 +158,7 @@ class ServingEngine:
         self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
         self.lengths = np.zeros(max_batch_size, np.int64)  # host mirror
         # a freed slot's device length, which it keeps until its next
-        # admission (the decode kernels read its full-head rows up to it)
+        # admission (the INT4 decode reads its full-head rows up to it)
         self.stale = np.zeros(max_batch_size, np.int64)
         self._kv_sizes = None  # (pool bytes, full-head and streaming bytes a row a position), once traced
         # per-slot sampling state: host mirrors (greedy rows have temp 0) and
@@ -412,8 +413,9 @@ class ServingEngine:
         bytes the decode kernels read over the burst's steps, for live rows
         (``attn_full_live_bytes``: a row at length n reads n + t + 1
         positions at step t; the bucket covers them all) and for freed ones
-        (``attn_full_dead_bytes``: a freed row reads its stale length, up to
-        the bucket, at every step)."""
+        (``attn_full_dead_bytes``: none in a bf16 pool, whose decode kernel
+        skips the rows the step's ``n_valid`` marks; an INT4 pool's decode
+        reads a freed row's stale length, up to the bucket, at every step)."""
         if self._kv_sizes is None:
             c, n = self.cache, self._b
             full = sum(t.numel() * t.element_size() for name in c.BUFFERS if "full" in name
@@ -429,7 +431,7 @@ class ServingEngine:
                 rids.append(self.slots[i].rid)
                 held += n * full + min(n, window) * ring
                 live_pos += steps * (n + 1) + steps * (steps - 1) // 2
-            else:
+            elif self.kv_quant == "int4":
                 dead_pos += steps * min(int(self.stale[i]), bucket)
         return dict(rids=rids, kv_pool_bytes=pool, kv_live_bytes=held,
                     attn_full_live_bytes=live_pos * full, attn_full_dead_bytes=dead_pos * full)

@@ -10,7 +10,11 @@ parent). The cases are chip_smoke.py phase 3's main ones at head_dim 128 (4
 KV heads, 4 query heads each, B = 1): the bf16 full-head prefill (a 4,096-row
 chunk at cs = 12,288) and decode (cs = 16,000, bucket 16,384), the streaming
 prefill and decode (sink 64, recent 256, ring 4,608), and the INT4 full-head
-prefill and decode, plus the decode at B = 4. Each case's output is checked
+prefill and decode, plus the decode at B = 4, and the bf16 full-head decode
+at the serving pool's shape (16 rows, 5 live at 4k-28k keys, 11 freed at
+stale lengths; hf 1, 4 and 8; bucket 32,768; a tree whose
+``full_cache_attention`` takes ``valid`` is told which rows are live, an older
+one reads every row). Each case's output is checked (the pool's live rows)
 against the tree's plain version with its tolerance first. A time is the
 device ms of one call replayed from a CUDA graph (``utils.cuda_graph_time_ms``),
 the median of ``--rounds`` rounds. Prints the card's name and power limit and
@@ -21,6 +25,7 @@ repo. Needs a card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -86,6 +91,35 @@ def main():
             key = f"{name} {label}"
             cases[key] = dict(device_ms=statistics.median(times), rounds=times)
             print(f"  {key:52s} {cases[key]['device_ms']:.4f} ms  (rounds {', '.join(f'{t:.4f}' for t in times)})")
+    # the serving pool's shape: live rows from the seed, freed rows at stale lengths
+    takes_valid = "valid" in inspect.signature(flash.full_cache_attention).parameters
+    B = 16
+    live = torch.zeros(B, dtype=torch.int32)
+    live[torch.randperm(B, generator=torch.Generator().manual_seed(17))[:5]] = 1
+    cs = torch.where(live > 0, torch.randint(4096, 28672, (B,), generator=torch.Generator().manual_seed(18)),
+                     torch.randint(0, 2 * T, (B,), generator=torch.Generator().manual_seed(19)))
+    cs, live = cs.to(torch.int32).cuda(), live.cuda()
+    for hf in (1, 4, 8):
+        q = randn(B, 1, hf * G, D, mul=4.0)
+        kp, vp = randn(B, hf, T, D), randn(B, hf, T, D)
+        kw = dict(bucket=T, valid=live) if takes_valid else dict(bucket=T)
+        call = lambda: flash.full_cache_attention(q, kp, vp, cs, **kw)  # noqa: E731
+        want = flash.full_cache_attention_plain(q, kp, vp, cs, bucket=T)
+        on = live > 0
+        err = (call()[on].float() - want[on].float()).abs()
+        if not bool((err <= flash.kernel_tolerance(want[on])).all()):
+            print(f"FAIL: the pool decode at hf {hf} disagrees with its plain version ({float(err.max())})",
+                  file=sys.stderr)
+            return 1
+        times = [cuda_graph_time_ms(call) for _ in range(args.rounds)]
+        key = f"full_cache_attention decode pool B=16 hf={hf}"
+        # the live rows' K and V at their lengths, q and out, over 3.35 TB/s
+        nbytes = 2 * (2 * B * hf * G * D) + 2 * (2 * hf * D * int((cs[on] + 1).sum()))
+        cases[key] = dict(device_ms=statistics.median(times), rounds=times, valid=takes_valid,
+                          bound_ms=nbytes / 3.35e12 * 1e3)
+        print(f"  {key:52s} {cases[key]['device_ms']:.4f} ms  (rounds {', '.join(f'{t:.4f}' for t in times)}; "
+              f"bound {cases[key]['bound_ms']:.4f} ms)")
+        del q, kp, vp
     out = REPO / "chiprun_out" / f"attention_kernel_times_{args.tag}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(root=str(Path(args.root).resolve()), tag=args.tag, nvidia_smi=smi, cases=cases),

@@ -7,8 +7,10 @@ These need a GPU and nvcc; elsewhere they skip. On a machine with a card
 
 chip_smoke.py holds the kernels to the plain versions at the main path's
 shapes; these cover the shapes it does not reach: ragged query tiles, query
-groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, decode
-split plans with one, full and empty splits, capture into a CUDA graph,
+groups of 1 to 8, no sink, small rings that wrap, per-sequence lengths, the
+decode's partition with one block a pair and many, the serving pool's shape
+(rows with no query among long live ones, a graph replayed after the lengths
+and the valid rows change, its only kernels), capture into a CUDA graph,
 odd and even token parity in the INT4 cache, a poisoned cache past the INT4
 frontier, the INT4 decode at query groups of 1 to 8 with most of its splits
 empty and replayed from a graph, the streaming decode before the sink is
@@ -96,12 +98,12 @@ def assert_bf16_close(got, want):
     (1, 65, 4, 4, 512, 0, 512),  # the second warpgroup of the tile holds one row; G = 1
     (4, 256, 16, 2, 2048, [0, 100, 1024, 1792], 2048),  # B = 4, G = 8
     (1, 192, 4, 1, 1024, 832, 0),  # bucket 0: the whole buffer; the chunk ends at its end
-    (1, 1, 4, 4, 512, 511, 512),  # decode, G = 1, one split, the last slot
-    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, G = 4, every split full
+    (1, 1, 4, 4, 512, 511, 512),  # decode, G = 1, a block a tile, the last slot
+    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, G = 4, every tile full
     (1, 1, 16, 4, 16384, 16001, 16384),  # decode, an odd tail: the last tile holds two keys
-    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, G = 8, B = 3, mixed lengths: empty splits
+    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, G = 8, B = 3, mixed lengths: shares cross rows
     (2, 1, 8, 2, 4096, [700, 4095], 0),  # decode, bucket 0: the plan comes from the buffer
-    (1, 1, 12, 4, 1536, 0, 1536),  # decode, G = 3, one key in all: two of three splits empty
+    (1, 1, 12, 4, 1536, 0, 1536),  # decode, G = 3, one key in all: one block of the grid has work
 ])
 def test_full_cache_attention_kernel(dev, B, S, Hq, Hkv, T, cs, bucket):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -148,7 +150,7 @@ def test_streaming_cache_attention_kernel(dev, B, S, Hq, Hs, sink, recent, chunk
 @pytest.mark.parametrize("S", [1, 192])
 def test_attention_kernels_capture_into_a_cuda_graph(dev, S):
     """Launching reads nothing back from the device (lengths stay there; the
-    decode split plan comes from the bucket): both wrappers are captured on a
+    decode's grid comes from the bucket): both wrappers are captured on a
     side stream, twice each, and the replay gives the eager result."""
     gen = torch.Generator(device=dev).manual_seed(8)
     B, Hq, Hkv, T, sink, recent, R = 2, 8, 2, 4096, 64, 256, 512
@@ -172,6 +174,70 @@ def test_attention_kernels_capture_into_a_cuda_graph(dev, S):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert_bf16_close(got[0], flash.full_cache_attention_plain(q, k, v, cs, bucket=T))
+
+
+def _pool_rows(gen, hf, B=16, live=5, T=32768):
+    """The serving pool's full-head decode at longdoc's shape: B rows, ``live``
+    of them at 4k-28k keys, the rest freed at stale lengths (some past the
+    bucket) with valid 0; query groups of 4, bucket 32,768."""
+    q = randn(gen, B, 1, 4 * hf, 128, mul=Q_PEAK)
+    k, v = randn(gen, B, hf, T, 128), randn(gen, B, hf, T, 128)
+    rows = torch.randperm(B, generator=torch.Generator().manual_seed(hf))
+    valid = torch.zeros(B, dtype=torch.int32)
+    valid[rows[:live]] = 1
+    cs = torch.where(valid > 0, torch.randint(4096, 28672, (B,), generator=torch.Generator().manual_seed(hf)),
+                     torch.randint(0, 2 * T, (B,), generator=torch.Generator().manual_seed(hf + 1)))
+    return q, k, v, cs.to(torch.int32).to(q.device), valid.to(q.device)
+
+
+def _check_pool_rows(got, q, k, v, cs, valid, bucket):
+    want = flash.full_cache_attention_plain(q, k, v, cs, bucket=bucket, valid=valid)
+    torch.cuda.synchronize()
+    live = valid > 0
+    assert_bf16_close(got[live], want[live])
+    assert bool((got[~live] == 0).all()), "a row with no query must give 0"
+
+
+@pytest.mark.parametrize("hf", [1, 8])
+def test_full_cache_attention_decode_at_the_pool_shape(dev, hf):
+    """16 rows, 5 live at 4k-28k and 11 freed at stale lengths, bucket
+    32,768: the live rows within kernel_tolerance of the plain version, the
+    freed ones exactly 0; the profiler sees the partitioned kernel and its
+    merge and nothing else."""
+    gen = torch.Generator(device=dev).manual_seed(60 + hf)
+    q, k, v, cs, valid = _pool_rows(gen, hf)
+    call = lambda: flash.full_cache_attention(q, k, v, cs, bucket=32768, valid=valid)  # noqa: E731
+    got = call()
+    _check_pool_rows(got, q, k, v, cs, valid, 32768)
+    before = flash.full_cache_attention.decode_launches
+    kernels = device_kernels(call)
+    assert flash.full_cache_attention.decode_launches == before + 1
+    assert len(kernels) == 2 and all("decode_kernel<" in n.replace(" ", "") or "decode_merge_kernel" in n
+                                     for n in kernels), kernels
+
+
+def test_full_cache_attention_decode_graph_replays_as_lengths_change(dev):
+    """A decode captured once replays right after the lengths and the valid
+    rows change in place (the partition is made on the device), and each
+    replay equals the eager call bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    q, k, v, cs, valid = _pool_rows(gen, 4)
+    cs_buf, valid_buf = cs.clone(), valid.clone()
+    call = lambda: flash.full_cache_attention(q, k, v, cs_buf, bucket=32768, valid=valid_buf)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for step in range(3):
+        if step:  # rows freed and admitted, every length moved
+            cs_buf.copy_(torch.roll(cs_buf, 3) + 17 * step)
+            valid_buf.copy_(torch.roll(valid_buf, 5))
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, call())
+        _check_pool_rows(got, q, k, v, cs_buf, valid_buf, 32768)
 
 
 def test_streaming_decode_is_one_launch_and_replays(dev):
@@ -728,6 +794,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         flash.full_cache_attention(randn(gen, 1, 4, 8, 128)[:, :, ::2], k, k, 0)
     with pytest.raises(ValueError):  # 16 query heads per KV head at decode
         flash.full_cache_attention(randn(gen, 1, 1, 16, 128), k[:, :1], k[:, :1], 0)
+    with pytest.raises(ValueError):  # valid counts at prefill
+        flash.full_cache_attention(randn(gen, 1, 4, 4, 128), k, k, 0, valid=torch.ones(1, device=dev))
     with pytest.raises(ValueError):  # row of another shape
         inplace.write_row(k, randn(gen, 1, 1, 1, 128), 0)
     # the INT4 and int8 kernels
@@ -1028,11 +1096,11 @@ def test_two_way_gate_gradients_kernel_path_equal_plain_path(dev):
     (1, 65, 4, 4, 512, 0, 512),  # the second warpgroup holds one row
     (4, 256, 16, 2, 2048, [0, 100, 1024, 1792], 2048),  # B = 4, G = 8
     (1, 4096, 8, 4, 16384, 12000, 16384),  # a chunk of the constructed circuit's shape
-    (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8, one split
+    (1, 1, 16, 2, 512, 300, 512),  # decode, G = 8, a block a tile
     (3, 1, 8, 4, 768, [0, 766, 5], 768),  # decode, per-sequence lengths
-    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, every split full
+    (1, 1, 16, 4, 32768, 32767, 32768),  # decode, every tile full
     (1, 1, 16, 4, 16384, 16001, 16384),  # decode, an odd tail
-    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, mixed lengths: empty splits
+    (3, 1, 16, 2, 8192, [5, 4096, 8191], 8192),  # decode, mixed lengths: shares cross rows
     (1, 1, 12, 4, 1536, 0, 1536),  # decode, G = 3, one key in all
 ])
 def test_full_cache_attention_kernel_at_head_dim_64(dev, B, S, Hq, Hkv, T, cs, bucket):

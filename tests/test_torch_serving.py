@@ -108,6 +108,34 @@ def test_batched_cache_lengths_advance_only_active(setup):
     assert lengths[1] == 0 and lengths[2] == 0
 
 
+def test_freed_slot_is_read_by_no_full_head(setup):
+    """Once request 0 is done while request 1 decodes, its slot keeps its
+    device length, but the step's n_valid marks it: the burst counts no
+    full-head byte read from it, and the full-head attention over the pool's
+    cache gives its row 0 and the live row what it gives without valid."""
+    from duo_attention_tpu_torch.ops import flash
+
+    tp, tcfg, tduo = setup[:3]
+    eng = ServingEngine(tp, tcfg, tduo, max_batch_size=2, dtype=torch.float32, device="cpu", decode_burst=2)
+    for i, (p, n) in enumerate(zip(prompts_of(tcfg, 7, (10, 40)), (8, 20))):
+        eng.submit(Request(rid=i, prompt_ids=p, max_new_tokens=n))
+    for _ in range(3):  # request 0 admitted and decoding; request 1 admitted in two chunks
+        eng.step()
+    assert eng.slots[0] is not None and eng.slots[1] is not None
+    eng.step()  # request 0's eighth token
+    assert eng.slots[0] is None and eng.slots[1] is not None and int(eng.cache.length[0]) == int(eng.stale[0]) > 0
+    assert eng._burst_counts(2, 256)["attn_full_dead_bytes"] == 0
+    G, hf = tcfg.num_kv_groups, tduo.num_full_kv_heads[0]
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 1, hf * G, tcfg.head_dim, generator=gen)
+    k, v, cs = eng.cache.k_full[0], eng.cache.v_full[0], eng.cache.length
+    valid = torch.tensor([0, 1], dtype=torch.int32)
+    got = flash.full_cache_attention_plain(q, k, v, cs, bucket=256, valid=valid)
+    assert bool((got[0] == 0).all())
+    assert torch.equal(got[1], flash.full_cache_attention_plain(q, k, v, cs, bucket=256)[1])
+    assert torch.equal(got, flash.full_cache_attention(q, k, v, cs, bucket=256, valid=valid))
+
+
 def test_burst_decode_matches_single_step(setup):
     """decode_burst=N is a pure scheduling change: same tokens out."""
     tp, tcfg, tduo = setup[:3]

@@ -123,13 +123,16 @@ def test_serving_spans_nest_and_count(model):
     assert [e["dur_s"] for e in admitted] == [a.seconds for a in admits]
 
 
-def test_dead_bytes_count_the_freed_rows_stale_lengths(model):
-    """attn_full_dead_bytes is 0 while no slot has been freed; once request
-    0 has finished while request 1 decodes, it is the freed row's device
-    length (stopped at the bucket) at every step of each burst."""
+@pytest.mark.parametrize("kv_quant", ["none", "int4"])
+def test_dead_bytes_count_the_freed_rows_stale_lengths(model, kv_quant):
+    """attn_full_dead_bytes is 0 while no slot has been freed. Once request 0
+    has finished while request 1 decodes, its row keeps its device length;
+    the full-head decode of a float32 or bf16 pool reads none of it (the
+    step's n_valid marks it), so the count stays 0, while the INT4 decode
+    reads that stale length (stopped at the bucket) at every step of each
+    burst."""
     cfg = model[1]
-    full, _ = position_bytes(cfg)
-    eng = engine(model, burst=2)
+    eng = engine(model, burst=2, kv_quant=kv_quant)
     # request 0 (10 tokens, 5 out): admitted with its first token, then 2 bursts of 2;
     # request 1 (30 tokens) is admitted in 2 chunks meanwhile, into slot 1
     submit(eng, cfg, (10, 30), (5, 12))
@@ -140,9 +143,12 @@ def test_dead_bytes_count_the_freed_rows_stale_lengths(model):
     assert [b.counts["attn_full_dead_bytes"] for b in bursts[:2]] == [0, 0]
     stale = 10 + 2 + 2
     assert int(eng.stale[0]) == stale == int(eng.cache.length[0])
+    full = eng._kv_sizes[1]  # full-head bytes a position, as the counter takes them
+    if kv_quant == "none":
+        assert full == position_bytes(cfg)[0]
     for b in bursts[2:]:  # the bucket (the cache's 256 positions) covers the stale length
         assert b.counts["rids"] == [1]
-        assert b.counts["attn_full_dead_bytes"] == b.counts["steps"] * stale * full
+        assert b.counts["attn_full_dead_bytes"] == (b.counts["steps"] * stale * full if kv_quant == "int4" else 0)
     assert bursts[2].counts["attn_full_live_bytes"] == ((30 + 1) + (30 + 2)) * full
 
 
