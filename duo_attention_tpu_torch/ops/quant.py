@@ -19,7 +19,10 @@ Counterpart of duo_attention_tpu/ops/quant.py.
   in plain torch and each product is ``gemm.w8a8_matmul``. Where x needs a
   gradient the linears are differentiable by JAX's straight-through
   estimator (``_W8A8STE``): the backward is that of ``x @ (wq * w_scale)``,
-  the activation quantization taken as the identity.
+  the activation quantization taken as the identity. Each eager
+  quantization of x in plain torch is an ``engine.quantize_act`` span
+  (``tracing``) while spans are recorded; none opens inside a captured
+  CUDA graph, so a replayed decode step's quantization is not a span.
 
 Weights here are ``[out_features, in_features]`` (PyTorch's layout); the JAX
 package keeps ``[in, out]``. ``models/from_jax.py`` transposes.
@@ -31,6 +34,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from ..utils import resolve_device
 from .gemm import SMALL_M_MAX, w8a8_matmul, w8a8_matmul_plain, w8a8_small_group
 
@@ -147,13 +151,23 @@ def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor, w_sca
     return out.reshape(*lead, wq.shape[0])
 
 
+def _quantize_span(x: torch.Tensor):
+    """The ``engine.quantize_act`` span of one eager quantization of x: one
+    flag check while spans are not recorded, and ``tracing.NULL`` during a
+    CUDA graph capture."""
+    if not tracing.active() or (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return tracing.NULL
+    return tracing.span("engine.quantize_act", device=x.device)
+
+
 def _group_forward(x: torch.Tensor, weights, out_dtype, plain: bool) -> Tuple[torch.Tensor, ...]:
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if x.is_cuda and not plain and x2.shape[0] <= SMALL_M_MAX:
         outs = w8a8_small_group(x2, weights, out_dtype)
     else:
-        xq, xs = quantize_act_per_token(x2)
+        with _quantize_span(x2):
+            xq, xs = quantize_act_per_token(x2)
         fn = w8a8_matmul_plain if plain else w8a8_matmul
         outs = [fn(xq, xs, wq, ws, out_dtype) for wq, ws in weights]
     return tuple(out.reshape(*lead, out.shape[-1]) for out in outs)

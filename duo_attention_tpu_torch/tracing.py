@@ -1,7 +1,8 @@
 """Spans and counters of the port's phases, on the profiler's clock.
 
 A span is one phase of the program: a scheduler iteration, an admission
-chunk, a decode burst, a training step and its parts. It holds its name,
+chunk, a decode burst, a training step and its parts, an eager activation
+quantization of the W8A8 path (``ops/quant.py``). It holds its name,
 its host start and end (``time.time_ns()``, the Unix-epoch nanoseconds the
 torch profiler stamps its events in), the span it opened inside, the
 request it belongs to (``rid``), a small dict of counts and, optionally,
