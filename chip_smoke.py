@@ -1007,7 +1007,7 @@ def phase_kernels_w8a8kv4(rec):
             gemm_case(label, N, K, M, torch.bfloat16)
     torch.cuda.empty_cache()
     for label, ns, K in SMALL_CASES:
-        for M in (1, 4, 8):
+        for M in (1, 4, 8, 16):
             _small_case(rec, gen, label, ns, K, M, main=(label, M) == ("gate+up", 1))
     for label, ns, K in LOOP_SMALL_CASES:
         _small_case(rec, gen, label, ns, K, 1)
@@ -1758,7 +1758,8 @@ def _kernel_kind(name):
             "prefill_q4_kernel": "full_cache_attention_q4.prefill",
             "decode_q4_kernel": "full_cache_attention_q4.decode",
             "write_q4_token_kernel": "write_q4_token",
-            "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_mma_kernel": "w8a8_matmul.small"}
+            "w8a8_tiled_kernel": "w8a8_matmul.tiled", "w8a8_small_mma_kernel": "w8a8_matmul.small",
+            "w8a8_quantize_rows_kernel": "w8a8_matmul.quantize"}
     compact = name.replace(" ", "")
     for key, kind in ours.items():
         if key in compact:

@@ -36,19 +36,26 @@
 //     next tile's slabs loaded under this one's epilogue) was no faster, so
 //     it is not the ring's fill. The epilogue stores straight from the
 //     accumulators, two bytes or four an element, not through shared memory.
-//   * small M (decode, M = batch <= 8): bound by bytes, every weight is read
+//   * small M (decode, M = batch <= 16): bound by bytes, every weight is read
 //     once (K*N bytes; the int8 weights of one 8B decode step are 7.5 GB).
 //     One launch takes the one to three weights that share an x (wq, wk and
-//     wv; gate and up) and the bfloat16 or float32 x itself, quantizing it
-//     per row inside the kernel (`w8a8_small_mma_kernel`, below), so a
-//     projection costs one launch and no elementwise kernels. A persistent
+//     wv; gate and up) and, up to 8 rows, the bfloat16 or float32 x itself,
+//     quantizing it per row inside the kernel (`w8a8_small_mma_kernel`,
+//     below), so a projection costs one launch and no elementwise kernels;
+//     past 8 rows x is quantized once by a launch of its own
+//     (`w8a8_quantize_rows_kernel`), which the product follows as its
+//     programmatic dependent, streaming weights meanwhile. A persistent
 //     grid, one block an SM, each walking a contiguous range of 16-column
 //     tiles across the group's matrices; the weights stream through a ring of
 //     shared-memory stages by bulk copies started before x is read; the
-//     products run on `mma.sync` m16n8k32 s8 with x as the 8-wide operand.
-//     An int8-input mode (x already quantized, with its scales) is the same
-//     kernel without the quantizing prologue; past 8 rows of x a launch runs
-//     further row groups (grid.y), which read the weights again.
+//     products run on `mma.sync` m16n8k32 s8 with x as the 8-wide operand,
+//     once per weight fragment up to 8 rows and twice (two 8-row operands)
+//     up to 16, so a serving pool of 16 rows reads its weights once. x too
+//     large to stage whole (16 rows at the down projection's K) comes in
+//     K-chunks, each tile's sums kept across them. An int8-input mode (x
+//     already quantized, with its scales) is the same kernel without the
+//     quantizing prologue; past 16 rows of x a launch runs further row
+//     groups (grid.y), which read the weights again.
 //
 // Launches go on the caller's stream and allocate nothing (the tensor maps
 // are kernel parameters).
@@ -314,9 +321,9 @@ int launch_tiled(const int8_t* x, const float* xs, const int8_t* w, const float*
 // Small-M route: one persistent launch for the projections that share an x
 // ---------------------------------------------------------------------------
 
-constexpr int SM_TILE_N = 16;  // output columns a tile: the 16 rows of mma m16n8k32's A operand
-constexpr int SM_ROWS = 8;     // x rows a block takes: mma's n = 8
-constexpr int SM_WARPS = 8;    // consumer warps; warp SM_WARPS is the producer
+constexpr int SM_TILE_N = 16;    // output columns a tile: the 16 rows of mma m16n8k32's A operand
+constexpr int SM_MAX_ROWS = 16;  // x rows a block takes at most: two n = 8 operands of mma
+constexpr int SM_WARPS = 8;      // consumer warps; warp SM_WARPS is the producer
 constexpr int SM_THREADS = 32 * (SM_WARPS + 1);
 constexpr int SM_CONSUMERS = 32 * SM_WARPS;
 constexpr int SM_MAX_MATS = 3;
@@ -325,25 +332,35 @@ constexpr int SM_XV = 16;  // 16-byte vectors of x a lane holds at once in the p
 // takes as many stages as fit beside x, up to SM_MAX_RING bytes. At the 8B
 // model's decode shapes 1 KB slabs were within 3% of the best at M <= 4, and
 // 4 KB slabs leave no room for two stages beside x at the down projection at
-// M = 8 (PERF.md, scripts/w8a8_small_variants.py, which builds other values).
+// M = 8; at M = 16 these values were the best at gate+up and down and within
+// 8% elsewhere (PERF.md, scripts/w8a8_small_variants.py, which builds other
+// values).
 constexpr int SM_SLAB = 1024;
 constexpr int SM_MAX_RING = 200000;
-// the reduction buffer (two tiles' partial sums of every consumer warp), the
-// absmax partials and the row scales; then 16 bytes of barriers a stage
-constexpr int SM_FIXED = 2 * SM_WARPS * 128 * 4 + SM_WARPS * 4 + SM_ROWS * 4;
+// x is staged whole where that leaves the ring SM_MIN_STAGES stages (every
+// decode shape of the 8B model up to 8 rows); otherwise in the fewest
+// K-chunks, each a whole number of slabs, that do.
+constexpr int SM_MIN_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;
 // named barriers: 1 among the consumer warps; 2 the producer's mbarriers are ready (all warps)
 constexpr int BAR_CONSUMERS = 1, BAR_READY = 2;
 
 // Row pitches in shared memory, odd multiples of 16 bytes, so the 8 rows an
-// ldmatrix phase reads fall in 8 different bank groups. x (int8): K rounded
-// up to 128, plus 16. A ring stage: SM_SLAB bytes of k of 16 weight rows,
-// plus 16.
-__host__ __device__ __forceinline__ int x_pitch(int K) { return ((K + 127) & ~127) + 16; }
+// ldmatrix phase reads fall in 8 different bank groups. x (int8): the chunk's
+// k rounded up to 128, plus 16. A ring stage: SM_SLAB bytes of k of 16 weight
+// rows, plus 16.
+__host__ __device__ __forceinline__ int x_pitch(int chunk) { return ((chunk + 127) & ~127) + 16; }
 constexpr int SM_SPITCH = SM_SLAB + 16;
 constexpr int SM_STAGE_BYTES = SM_TILE_N * SM_SPITCH;
-__host__ __device__ __forceinline__ int small_smem(int stages, int rows, int K) {
-  return stages * (SM_STAGE_BYTES + 16) + rows * x_pitch(K) + SM_FIXED;
+// int32 sums of one tile at R rows of x: a consumer warp's share, or the block's sums kept across K-chunks
+__host__ __device__ constexpr int tile_ints(int R) { return SM_TILE_N * R; }
+// The ring's stages (and 16 bytes of mbarriers each), x (rows of the chunk's
+// pitch), the reduction buffer (two tiles' sums of every consumer warp), the
+// sums of acc_tiles tiles kept across K-chunks, the absmax partials and the
+// row scales.
+__host__ __device__ __forceinline__ int small_smem(int stages, int rows, int chunk, int R, int acc_tiles) {
+  return stages * (SM_STAGE_BYTES + 16) + rows * x_pitch(chunk) + (2 * SM_WARPS + acc_tiles) * tile_ints(R) * 4 +
+         2 * SM_MAX_ROWS * 4;
 }
 
 struct SmallArgs {
@@ -356,6 +373,8 @@ struct SmallArgs {
   int N[SM_MAX_MATS];
   int tiles[SM_MAX_MATS];        // ceil(N_i / SM_TILE_N)
   int nmat, M, K, stages, rows_cap, total_tiles;
+  int chunk;      // k of x staged at once: K, or a multiple of SM_SLAB below it
+  int acc_tiles;  // tiles whose sums the block keeps across K-chunks (0 with x whole)
 };
 
 // The m16n8k32 integer product: c (16 x 8 int32) += a (16 x 32 int8, row) b (32 x 8 int8, col).
@@ -472,91 +491,116 @@ __device__ __forceinline__ auto quantize(const uint4& r, float scale, float inv)
   else return quantize4(v, scale, inv);
 }
 
-// The block's x rows into shared memory as int8, and their scales. int8 x
-// (XT = int8_t) is copied with the scales it came with. Otherwise each row is
-// quantized as ops/quant.py::quantize_act_per_token does it: absmax = max
-// |x|, scale = absmax / 127 + 1e-12 and q = clamp(rint(x / scale), -127,
-// 127), IEEE divisions (see quantize4) and round-half-even in float32. Warp w
-// takes row w % rows and the (w / rows)-th of the SM_WARPS / rows parts of
-// its 16-byte vectors; a max is exact in any order. A lane loads up to SM_XV
-// vectors at once into registers (one round trip to L2 for them all); the
-// quantizing pass walks the chunks backwards, so the last chunk loaded for
-// the maximum is quantized from registers: with at most SM_XV vectors a lane
-// (every decode shape of the 8B model but the down projection at M > 2) x is
-// read once.
+// K-chunk c of the block's x rows (k from c * chunk, up to chunk of it below
+// K) into shared memory as int8, and at c = 0 their scales. int8 x (XT =
+// int8_t) is copied, with the scales it came with. Otherwise (at most 8 rows:
+// past them x comes quantized, see w8a8_quantize_rows_kernel) each row is
+// quantized as ops/quant.py::quantize_act_per_token does it: absmax = max |x|
+// over the whole row (taken at c = 0), scale = absmax / 127 + 1e-12 and q =
+// clamp(rint(x / scale), -127, 127), IEEE divisions (see quantize4) and
+// round-half-even in float32. The work goes by (row, part) pairs: up to
+// SM_WARPS / 2 rows, SM_WARPS / rows parts share a row's 16-byte vectors, and
+// warp w takes row w % rows, part w / rows, the parts' maxima meeting in
+// shared memory; from SM_WARPS / 2 + 1 rows on a warp takes whole rows, w
+// and w + SM_WARPS (int8 x past 8 rows). A max is exact in any order. A lane loads up to SM_XV
+// vectors at once into registers (one round trip to L2 for them all); with x
+// whole (one chunk) the quantizing pass walks the loads backwards, so the
+// last loaded for the maximum is quantized from registers: with at most
+// SM_XV vectors a lane (every decode shape of the 8B model but the down
+// projection past 2 rows) x is read once. In K-chunks every chunk is read
+// again as it is quantized.
 template <typename XT>
-__device__ __forceinline__ void stage_x(const SmallArgs& a, int m0, int rows, int8_t* xq, float* part,
+__device__ __forceinline__ void stage_x(const SmallArgs& a, int m0, int rows, int c, int8_t* xq, float* part,
                                         float* xscale, int warp, int lane) {
   constexpr int V = 16 / sizeof(XT);  // values a vector
-  const int K = a.K, pitch = x_pitch(K), nvec = K / V;
-  const int r = warp % rows, parts = SM_WARPS / rows, p = warp / rows;
-  const int first = p * 32 + lane, step = parts * 32;
-  const int mine = p < parts && first < nvec ? (nvec - first + step - 1) / step : 0;
-  const int chunks = (mine + SM_XV - 1) / SM_XV;
-  const uint4* xr = reinterpret_cast<const uint4*>(static_cast<const XT*>(a.x) + (m0 + r) * a.x_stride);
-  int8_t* qr = xq + r * pitch;
+  const int K = a.K, C = a.chunk, pitch = x_pitch(C), k0 = c * C, kc = min(C, K - k0);
+  const int parts = rows <= SM_WARPS / 2 ? SM_WARPS / rows : 1, pairs = rows * parts, step = parts * 32;
   uint4 raw[SM_XV];
-  auto load_chunk = [&](int c) {
+  // the lane's vectors of its pair's part of n vectors from xr: first + j * step, j < mine
+  auto count = [&](int first, int n) { return first < n ? (n - first + step - 1) / step : 0; };
+  auto load = [&](const uint4* xr, int first, int mine, int ch) {
 #pragma unroll
     for (int u = 0; u < SM_XV; ++u) {
-      const int j = c * SM_XV + u;
+      const int j = ch * SM_XV + u;
       if (j < mine) raw[u] = xr[first + j * step];
     }
   };
-  if constexpr (V == 16) {
-    for (int c = 0; c < chunks; ++c) {
-      load_chunk(c);
+  // with parts > 1 each warp takes one turn, a pair or none, and they all meet at the barrier
+  for (int i = warp; i < (parts > 1 ? SM_WARPS : pairs); i += SM_WARPS) {
+    const int r = i % rows, first = (i / rows) * 32 + lane;
+    const bool has = i < pairs;
+    const uint4* xr = reinterpret_cast<const uint4*>(static_cast<const XT*>(a.x) + (m0 + r) * a.x_stride);
+    const uint4* xc = xr + k0 / V;  // the chunk's vectors
+    int8_t* qr = xq + r * pitch;
+    const int mine = has ? count(first, kc / V) : 0, loads = (mine + SM_XV - 1) / SM_XV;
+    if constexpr (V == 16) {
+      for (int ch = 0; ch < loads; ++ch) {
+        load(xc, first, mine, ch);
 #pragma unroll
-      for (int u = 0; u < SM_XV; ++u) {
-        const int j = c * SM_XV + u;
-        if (j < mine) *reinterpret_cast<uint4*>(qr + 16 * (first + j * step)) = raw[u];
-      }
-    }
-    if (warp == 0 && lane < rows) xscale[lane] = a.x_scale[m0 + lane];
-  } else {
-    float amax = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      load_chunk(c);
-#pragma unroll
-      for (int u = 0; u < SM_XV; ++u) {
-        if (c * SM_XV + u < mine) {
-          float v[V];
-          unpack(raw[u], v);
-#pragma unroll
-          for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+        for (int u = 0; u < SM_XV; ++u) {
+          const int j = ch * SM_XV + u;
+          if (j < mine) *reinterpret_cast<uint4*>(qr + 16 * (first + j * step)) = raw[u];
         }
       }
-    }
+    } else {
+      float scale;
+      bool cached = false;  // the chunk's last load is still in raw (x whole)
+      if (c == 0) {
+        const int amine = has ? count(first, K / V) : 0, aloads = (amine + SM_XV - 1) / SM_XV;
+        float amax = 0.f;
+        for (int ch = 0; ch < aloads; ++ch) {
+          load(xr, first, amine, ch);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) part[warp] = amax;  // 0 in a warp past the row's parts
-    named_barrier(BAR_CONSUMERS, SM_CONSUMERS);
-    float row_max = 0.f;
-    for (int q = 0; q < parts; ++q) row_max = fmaxf(row_max, part[q * rows + r]);
-    const float scale = __fadd_rn(__fdiv_rn(row_max, 127.f), 1e-12f), inv = __frcp_rn(scale);
-    if (p == 0 && lane == 0) xscale[r] = scale;
-    for (int c = chunks - 1; c >= 0; --c) {
-      if (c != chunks - 1) load_chunk(c);
+          for (int u = 0; u < SM_XV; ++u) {
+            if (ch * SM_XV + u < amine) {
+              float v[V];
+              unpack(raw[u], v);
 #pragma unroll
-      for (int u = 0; u < SM_XV; ++u) {
-        const int j = c * SM_XV + u;
-        if (j < mine) {
-          auto q = quantize<V>(raw[u], scale, inv);
-          *reinterpret_cast<decltype(q)*>(qr + V * (first + j * step)) = q;
+              for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[e]));
+            }
+          }
+        }
+        cached = C >= K;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+        float row_max = amax;
+        if (parts > 1) {
+          if (lane == 0) part[i] = amax;  // 0 in a warp past the pairs
+          named_barrier(BAR_CONSUMERS, SM_CONSUMERS);
+          row_max = 0.f;
+          for (int q = 0; q < parts; ++q) row_max = fmaxf(row_max, part[q * rows + r]);
+        }
+        scale = __fadd_rn(__fdiv_rn(row_max, 127.f), 1e-12f);
+        if (i < rows && lane == 0) xscale[r] = scale;  // part 0's
+      } else {
+        scale = xscale[r];
+      }
+      const float inv = __frcp_rn(scale);
+      for (int ch = loads - 1; ch >= 0; --ch) {
+        if (!cached || ch != loads - 1) load(xc, first, mine, ch);
+#pragma unroll
+        for (int u = 0; u < SM_XV; ++u) {
+          const int j = ch * SM_XV + u;
+          if (j < mine) {
+            auto q = quantize<V>(raw[u], scale, inv);
+            *reinterpret_cast<decltype(q)*>(qr + V * (first + j * step)) = q;
+          }
         }
       }
     }
   }
-  // k past K up to the last 32-byte step reads zeros: the weights' bytes
-  // there are stale, and zero times anything is zero
-  if ((K & 31) && warp == 0 && lane < rows) *reinterpret_cast<uint4*>(xq + lane * pitch + K) = make_uint4(0, 0, 0, 0);
+  if (V == 16 && c == 0 && warp == 0 && lane < rows) xscale[lane] = a.x_scale[m0 + lane];
+  // k past the chunk up to its last 32-byte step reads zeros: the weights'
+  // bytes there are stale, and zero times anything is zero
+  if ((kc & 31) && warp == 0 && lane < rows) *reinterpret_cast<uint4*>(xq + lane * pitch + kc) = make_uint4(0, 0, 0, 0);
 }
 
 // out_i[m, n] = (float(sum_k x_q[m, k] w_i[n, k]) * x_scale[m]) * ws_i[n] for
-// the block's rows m0 .. m0 + 7 and its range of column tiles.
+// the block's R rows of x, m0 .. m0 + R - 1 (R = 8 up to 8 rows, else 16:
+// int8 x), and its range of column tiles.
 //
-// Bound by bytes: every weight byte is read once, 2 * M int8 operations a
-// byte, so the tensor cores idle whatever M is. The block's range is
+// Bound by bytes: every weight byte is read once whatever M is up to 16, 2 * M
+// int8 operations a byte, so the tensor cores idle. The block's range is
 // contiguous over the group's tiles (16 columns of one matrix each; the
 // ranges of the blocks differ by at most one tile), and it streams those
 // tiles' weights through a ring of `stages` slabs (16 rows x SM_SLAB bytes
@@ -564,22 +608,46 @@ __device__ __forceinline__ void stage_x(const SmallArgs& a, int m0, int rows, in
 // the mbarriers and starts the copies at once; the consumer warps stage x
 // (quantizing it) into shared memory meanwhile, and wait for the mbarriers'
 // set-up only after that. Each consumer warp takes every SM_WARPS-th 32-byte
-// step of a slab: ldmatrix for the 16 x 32 weight tile and the 8 x 32 x tile
-// (rows past M repeat the last one and are not stored), one mma.sync
-// m16n8k32 s8, int32 sums exact in any order. At a tile's end the warps' sums
-// meet in shared memory and 128 threads write the tile's outputs.
-template <typename XT, typename OutT>
+// step of a slab: ldmatrix for the 16 x 32 weight tile, one A operand, and for
+// the R x 32 x tile (rows past M repeat the last one and are not stored), one
+// or two n = 8 B operands, one or two mma.sync m16n8k32 s8 from the one A:
+// at R = 16 each weight byte feeds twice the products, which costs nothing
+// in a kernel bound by bytes. int32 sums are exact in any order. At a tile's
+// end the warps' sums meet in shared memory and 16 R threads write the
+// tile's outputs.
+//
+// Where x does not fit whole beside SM_MIN_STAGES ring stages (16 rows of the
+// down projection's K = 14,336 are 229 KB of int8, the SM's whole shared
+// memory), the walk is chunk-major: for each K-chunk of x, every tile of the
+// block over that chunk's slabs, the tiles' sums kept in shared memory (each
+// by the thread that writes its output) and the outputs written at the last
+// chunk. Each chunk of x is staged as the walk reaches it, once every warp is
+// past the previous chunk's products (high-precision x: its absmax taken
+// over the whole row first); the producer, which never reads x, streams on
+// meanwhile. Each weight byte is still read once.
+//
+// Why x past 8 rows comes quantized: every block stages all of x, so each of
+// the ~132 blocks would quantize all 16 rows again, ~10 operations a value
+// on 8 warps. At 16 rows that cost more than the launch it saves (PERF.md §6,
+// route sweep: a decode step's products 4.70 ms quantizing inside, 3.45 ms
+// apart; the down projection 0.0550 against 0.0291 ms). The quantizing
+// launch lets this one start at once, and only the consumer warps wait for
+// its end (griddepcontrol.wait) before they stage x.
+template <typename XT, typename OutT, int R>
 __global__ void __launch_bounds__(SM_THREADS, 1) w8a8_small_mma_kernel(const __grid_constant__ SmallArgs a) {
+  constexpr int H = R / 8;           // n = 8 operands of x a k-step
+  constexpr int TI = tile_ints(R);   // a tile's sums: 128 H
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int K = a.K, S = a.stages, pitch = x_pitch(K);
-  const int m0 = blockIdx.y * SM_ROWS, rows = min(SM_ROWS, a.M - m0);
+  const int K = a.K, S = a.stages, C = a.chunk, pitch = x_pitch(C), nchunks = (K + C - 1) / C;
+  const int m0 = blockIdx.y * R, rows = min(R, a.M - m0);
   const uint32_t ring = smem_addr(smem);
   int8_t* xq = reinterpret_cast<int8_t*>(smem + S * SM_STAGE_BYTES);
-  int* red = reinterpret_cast<int*>(smem + S * SM_STAGE_BYTES + a.rows_cap * pitch);  // [2][SM_WARPS][128]
-  float* part = reinterpret_cast<float*>(red + 2 * SM_WARPS * 128);          // [SM_WARPS]
-  float* xscale = part + SM_WARPS;                                           // [SM_ROWS]
-  const uint32_t full = smem_addr(xscale + SM_ROWS), empty = full + 8 * S;
+  int* red = reinterpret_cast<int*>(smem + S * SM_STAGE_BYTES + a.rows_cap * pitch);  // [2][SM_WARPS][TI]
+  int* kept = red + 2 * SM_WARPS * TI;                                                // [acc_tiles][TI]
+  float* part = reinterpret_cast<float*>(kept + a.acc_tiles * TI);                    // [SM_MAX_ROWS]
+  float* xscale = part + SM_MAX_ROWS;                                                 // [SM_MAX_ROWS]
+  const uint32_t full = smem_addr(xscale + SM_MAX_ROWS), empty = full + 8 * S;
   // this block's tiles (total_tiles * gridDim.x < 2^31, the host checks); each in slabs of k
   const int t_begin = a.total_tiles * blockIdx.x / gridDim.x;
   const int t_end = a.total_tiles * (blockIdx.x + 1) / gridDim.x;
@@ -597,80 +665,192 @@ __global__ void __launch_bounds__(SM_THREADS, 1) w8a8_small_mma_kernel(const __g
     }
     __syncwarp();
     named_barrier_arrive(BAR_READY, SM_THREADS);
-    for (int i = 0, t = t_begin; t < t_end; ++t) {
-      const int m = g.mat(t), n0 = g.n0(t, m), nrows = min(SM_TILE_N, Group::pick(m, g.N[0], g.N[1], g.N[2]) - n0);
-      const int8_t* wrow = Group::pick(m, g.w[0], g.w[1], g.w[2]) + (size_t)(n0 + lane) * K;
-      for (int kb = 0; kb < K; kb += SM_SLAB, ++i) {
-        const int s = i % S, bytes = min(SM_SLAB, K - kb);
-        if (i >= S) mbar_wait(empty + 8 * s, (i / S + 1) & 1);
-        if (lane == 0) mbar_arrive_expect_tx(full + 8 * s, nrows * bytes);
-        __syncwarp();
-        if (lane < nrows) weight_load(ring + s * SM_STAGE_BYTES + lane * SM_SPITCH, wrow + kb, bytes, full + 8 * s);
+    for (int i = 0, c = 0; c < nchunks; ++c) {
+      const int k1 = min(K, (c + 1) * C);
+      for (int t = t_begin; t < t_end; ++t) {
+        const int m = g.mat(t), n0 = g.n0(t, m), nrows = min(SM_TILE_N, Group::pick(m, g.N[0], g.N[1], g.N[2]) - n0);
+        const int8_t* wrow = Group::pick(m, g.w[0], g.w[1], g.w[2]) + (size_t)(n0 + lane) * K;
+        for (int kb = c * C; kb < k1; kb += SM_SLAB, ++i) {
+          const int s = i % S, bytes = min(SM_SLAB, k1 - kb);
+          if (i >= S) mbar_wait(empty + 8 * s, (i / S + 1) & 1);
+          if (lane == 0) mbar_arrive_expect_tx(full + 8 * s, nrows * bytes);
+          __syncwarp();
+          if (lane < nrows) weight_load(ring + s * SM_STAGE_BYTES + lane * SM_SPITCH, wrow + kb, bytes, full + 8 * s);
+        }
       }
     }
     return;
   }
 
-  stage_x<XT>(a, m0, rows, xq, part, xscale, warp, lane);
+  // Launched as the dependent of the row quantization (past 8 rows), x is
+  // that launch's output: wait for it to finish. The producer, which reads
+  // only weights, has been streaming meanwhile. Without a dependency this
+  // returns at once.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  stage_x<XT>(a, m0, rows, 0, xq, part, xscale, warp, lane);
   named_barrier(BAR_READY, SM_THREADS);  // x is staged, and the ring's mbarriers are set up
 
   // ldmatrix addresses: A (x4) rows (l >> 3 & 1) * 8 + (l & 7) at byte (l >> 4) * 16;
-  // B (x2) row min(l & 7, rows - 1) at byte (l >> 3 & 1) * 16
+  // B (x4 at R = 16, else x2) row min(8 * (l >> 4) + (l & 7), rows - 1) at byte (l >> 3 & 1) * 16
   const uint32_t a_lane = ((((lane >> 3) & 1) * 8 + (lane & 7)) * SM_SPITCH) + (lane >> 4) * 16;
-  const uint32_t b_lane = smem_addr(xq) + min(lane & 7, rows - 1) * pitch + ((lane >> 3) & 1) * 16;
-  int i = 0;
-  for (int t = t_begin; t < t_end; ++t) {
-    int c[4] = {0, 0, 0, 0};
-    for (int kb = 0; kb < K; kb += SM_SLAB, ++i) {
-      const int s = i % S, steps = (min(SM_SLAB, K - kb) + 31) / 32;
-      mbar_wait(full + 8 * s, (i / S) & 1);
-      const uint32_t st = ring + s * SM_STAGE_BYTES + a_lane, xk = b_lane + kb;
-#pragma unroll 4
-      for (int q = warp; q < steps; q += SM_WARPS) {
-        uint32_t a0, a1, a2, a3, b0, b1;
-        ldmatrix_x4(st + 32 * q, a0, a1, a2, a3);
-        ldmatrix_x2(xk + 32 * q, b0, b1);
-        mma_s8_16832(c, a0, a1, a2, a3, b0, b1);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * s);
+  const uint32_t b_lane = smem_addr(xq) + min(8 * (lane >> 4) + (lane & 7), rows - 1) * pitch + ((lane >> 3) & 1) * 16;
+  for (int i = 0, done = 0, c = 0; c < nchunks; ++c) {
+    const int k0 = c * C, k1 = min(K, k0 + C);
+    if (c > 0) {
+      // every warp is past chunk c - 1's products: its last tile's barrier
+      stage_x<XT>(a, m0, rows, c, xq, part, xscale, warp, lane);
+      named_barrier(BAR_CONSUMERS, SM_CONSUMERS);
     }
-    // c[e] of lane l is column n0 + l / 4 + 8 * (e >> 1), x row 2 * (l % 4) + (e & 1)
-    int* rb = red + ((t - t_begin) & 1) * SM_WARPS * 128;
-    *reinterpret_cast<int4*>(rb + warp * 128 + lane * 4) = make_int4(c[0], c[1], c[2], c[3]);
-    named_barrier(BAR_CONSUMERS, SM_CONSUMERS);
-    if (tid < 128) {
-      int acc = 0;
+    for (int t = t_begin; t < t_end; ++t, ++done) {
+      int acc[H][4] = {};
+      for (int kb = k0; kb < k1; kb += SM_SLAB, ++i) {
+        const int s = i % S, steps = (min(SM_SLAB, k1 - kb) + 31) / 32;
+        mbar_wait(full + 8 * s, (i / S) & 1);
+        const uint32_t st = ring + s * SM_STAGE_BYTES + a_lane, xk = b_lane + (kb - k0);
+#pragma unroll 4
+        for (int q = warp; q < steps; q += SM_WARPS) {
+          uint32_t a0, a1, a2, a3, b[2 * H];
+          ldmatrix_x4(st + 32 * q, a0, a1, a2, a3);
+          if constexpr (H == 2) ldmatrix_x4(xk + 32 * q, b[0], b[1], b[2], b[3]);
+          else ldmatrix_x2(xk + 32 * q, b[0], b[1]);
 #pragma unroll
-      for (int w = 0; w < SM_WARPS; ++w) acc += rb[w * 128 + tid];
-      const int mat = g.mat(t), N = Group::pick(mat, g.N[0], g.N[1], g.N[2]);
-      const int l = tid >> 2, e = tid & 3;
-      const int n = g.n0(t, mat) + (l >> 2) + 8 * (e >> 1), m = 2 * (l & 3) + (e & 1);
-      if (m < rows && n < N)
-        store_out(static_cast<OutT*>(Group::pick(mat, g.out[0], g.out[1], g.out[2])) + (size_t)(m0 + m) * N + n,
-                  epilogue(acc, xscale[m], Group::pick(mat, g.ws[0], g.ws[1], g.ws[2])[n]));
+          for (int h = 0; h < H; ++h) mma_s8_16832(acc[h], a0, a1, a2, a3, b[2 * h], b[2 * h + 1]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      // acc[h][e] of lane l is column n0 + l / 4 + 8 * (e >> 1), x row 8 * h + 2 * (l % 4) + (e & 1)
+      int* rb = red + (done & 1) * SM_WARPS * TI;
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        *reinterpret_cast<int4*>(rb + warp * TI + h * 128 + lane * 4) = make_int4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+      named_barrier(BAR_CONSUMERS, SM_CONSUMERS);
+      if (tid < TI) {
+        int sum = 0;
+#pragma unroll
+        for (int w = 0; w < SM_WARPS; ++w) sum += rb[w * TI + tid];
+        int* keep = kept + (t - t_begin) * TI + tid;  // this thread's output of the tile, across the chunks
+        if (c > 0) sum += *keep;
+        if (c + 1 < nchunks) {
+          *keep = sum;
+        } else {
+          const int mat = g.mat(t), N = Group::pick(mat, g.N[0], g.N[1], g.N[2]);
+          const int l = (tid >> 2) & 31, e = tid & 3;
+          const int n = g.n0(t, mat) + (l >> 2) + 8 * (e >> 1), m = 8 * (tid >> 7) + 2 * (l & 3) + (e & 1);
+          if (m < rows && n < N)
+            store_out(static_cast<OutT*>(Group::pick(mat, g.out[0], g.out[1], g.out[2])) + (size_t)(m0 + m) * N + n,
+                      epilogue(sum, xscale[m], Group::pick(mat, g.ws[0], g.ws[1], g.ws[2])[n]));
+        }
+      }
     }
   }
 }
 
-template <typename XT, typename OutT>
-int launch_small_kernel(const SmallArgs& a, int blocks, cudaStream_t stream) {
+// `dependent`: launched as the programmatic dependent of the launch before it
+// on the stream (the row quantization), so its blocks start, and its
+// producers stream weights, while that launch runs.
+template <typename XT, typename OutT, int R>
+int launch_small_kernel(const SmallArgs& a, int blocks, int dependent, cudaStream_t stream) {
   static int configured = -1;  // the device the attribute was set on (a host call a launch saved)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev != configured)
-    err = cudaFuncSetAttribute(w8a8_small_mma_kernel<XT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(w8a8_small_mma_kernel<XT, OutT, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_LIMIT);
   if (err != cudaSuccess) return static_cast<int>(err);
   configured = dev;
-  const dim3 grid(blocks, (a.M + SM_ROWS - 1) / SM_ROWS);
-  w8a8_small_mma_kernel<XT, OutT><<<grid, SM_THREADS, small_smem(a.stages, a.rows_cap, a.K), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, (a.M + R - 1) / R);
+  cfg.blockDim = dim3(SM_THREADS);
+  cfg.dynamicSmemBytes = small_smem(a.stages, a.rows_cap, a.chunk, R, a.acc_tiles);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, w8a8_small_mma_kernel<XT, OutT, R>, a));
 }
 
+// R = 16 takes int8 x only (the host refuses the rest)
 template <typename XT>
-int launch_small(const SmallArgs& a, int out_f32, int blocks, cudaStream_t stream) {
-  return out_f32 ? launch_small_kernel<XT, float>(a, blocks, stream) : launch_small_kernel<XT, bf16>(a, blocks, stream);
+int launch_small(const SmallArgs& a, int R, int out_f32, int blocks, int dependent, cudaStream_t stream) {
+  if (R == 8)
+    return out_f32 ? launch_small_kernel<XT, float, 8>(a, blocks, dependent, stream)
+                   : launch_small_kernel<XT, bf16, 8>(a, blocks, dependent, stream);
+  if constexpr (sizeof(XT) == 1)
+    return out_f32 ? launch_small_kernel<XT, float, SM_MAX_ROWS>(a, blocks, dependent, stream)
+                   : launch_small_kernel<XT, bf16, SM_MAX_ROWS>(a, blocks, dependent, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Row quantization: x [M, K] bfloat16 or float32 -> int8 [M, K] and scales [M]
+// ---------------------------------------------------------------------------
+
+constexpr int QR_THREADS = 256;
+
+// Row blockIdx.x of x quantized as ops/quant.py::quantize_act_per_token (and
+// as stage_x): absmax over the row, scale = absmax / 127 + 1e-12, q =
+// rint(x / scale) through quantize4, each operation in float32. Thread t
+// takes vectors t + j * QR_THREADS, up to SM_XV a load; the quantizing pass
+// walks the loads backwards, so the last is quantized from registers (at
+// K = 14,336 in bfloat16 the row is read once). It lets the launch after it,
+// the small-M product, start at once (that launch waits for this one to end
+// before it reads x).
+template <typename XT>
+__global__ void __launch_bounds__(QR_THREADS) w8a8_quantize_rows_kernel(const XT* __restrict__ x, long long x_stride,
+                                                                         int K, int8_t* __restrict__ xq,
+                                                                         float* __restrict__ xs) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int V = 16 / sizeof(XT);
+  __shared__ float part[QR_THREADS / 32];
+  const int r = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + r * x_stride);
+  int8_t* qr = xq + (size_t)r * K;
+  const int nvec = K / V, mine = tid < nvec ? (nvec - tid + QR_THREADS - 1) / QR_THREADS : 0;
+  const int loads = (mine + SM_XV - 1) / SM_XV;
+  uint4 raw[SM_XV];
+  auto load = [&](int ch) {
+#pragma unroll
+    for (int u = 0; u < SM_XV; ++u) {
+      const int j = ch * SM_XV + u;
+      if (j < mine) raw[u] = xr[tid + j * QR_THREADS];
+    }
+  };
+  float amax = 0.f;
+  for (int ch = 0; ch < loads; ++ch) {
+    load(ch);
+#pragma unroll
+    for (int u = 0; u < SM_XV; ++u) {
+      if (ch * SM_XV + u < mine) {
+        float v[V];
+        unpack(raw[u], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (lane == 0) part[warp] = amax;
+  __syncthreads();
+  float row_max = 0.f;
+#pragma unroll
+  for (int w = 0; w < QR_THREADS / 32; ++w) row_max = fmaxf(row_max, part[w]);
+  const float scale = __fadd_rn(__fdiv_rn(row_max, 127.f), 1e-12f), inv = __frcp_rn(scale);
+  if (tid == 0) xs[r] = scale;
+  for (int ch = loads - 1; ch >= 0; --ch) {
+    if (ch != loads - 1) load(ch);
+#pragma unroll
+    for (int u = 0; u < SM_XV; ++u) {
+      const int j = ch * SM_XV + u;
+      if (j < mine) {
+        auto q = quantize<V>(raw[u], scale, inv);
+        *reinterpret_cast<decltype(q)*>(qr + V * (tid + j * QR_THREADS)) = q;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -696,14 +876,19 @@ int w8a8_tiled(const void* x, const void* x_scale, const void* w, const void* w_
 // [N_i] f32 and outputs out_i [M, N_i] (bf16, or f32 when out_f32), all of one
 // x [M, K] whose row m starts at element m * x_stride: x_kind 0 int8 with
 // x_scale [M] f32, 1 bfloat16 and 2 float32 (quantized per row in the
-// kernel). min(max_blocks, tiles) blocks over the group's 16-column tiles
-// (one an SM: the caller passes the SM count), times ceil(M / 8) row groups;
-// the ring takes as many stages as fit beside min(M, 8) rows of x, and the
-// launch is refused if that is fewer than two. K a multiple of 16; x's rows
-// 16-byte aligned.
+// kernel, up to 8 rows; past them x comes quantized, from
+// w8a8_quantize_rows). min(max_blocks, tiles) blocks over the group's
+// 16-column tiles (one an SM: the caller passes the SM count), times
+// ceil(M / R) row groups, R = 8 up to 8 rows and 16 past it; x comes whole
+// where that leaves the ring SM_MIN_STAGES stages beside min(M, R) rows of
+// it, else in the fewest K-chunks that do, and the launch is refused if even
+// one-slab chunks leave fewer than two (a block's kept sums too large). K a
+// multiple of 16; x's rows 16-byte aligned. `dependent`: launched as the
+// programmatic dependent of the launch before it on the stream.
 int w8a8_small(const void* x, long long x_stride, int x_kind, const void* x_scale, int nmat, const void* w0,
                const void* w1, const void* w2, const void* s0, const void* s1, const void* s2, void* o0, void* o1,
-               void* o2, int N0, int N1, int N2, int M, int K, int out_f32, int max_blocks, void* stream) {
+               void* o2, int N0, int N1, int N2, int M, int K, int out_f32, int max_blocks, int dependent,
+               void* stream) {
   SmallArgs a = {};
   a.x = x;
   a.x_stride = x_stride;
@@ -713,7 +898,7 @@ int w8a8_small(const void* x, long long x_stride, int x_kind, const void* x_scal
   void* os[SM_MAX_MATS] = {o0, o1, o2};
   const int ns[SM_MAX_MATS] = {N0, N1, N2};
   if (nmat < 1 || nmat > SM_MAX_MATS || M <= 0 || K <= 0 || K % 16 != 0 || x_kind < 0 || x_kind > 2 ||
-      (x_kind == 0 && x_scale == nullptr) || max_blocks <= 0)
+      (x_kind == 0 && x_scale == nullptr) || (x_kind != 0 && M > 8) || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   a.nmat = nmat;
   a.total_tiles = 0;
@@ -729,16 +914,41 @@ int w8a8_small(const void* x, long long x_stride, int x_kind, const void* x_scal
   }
   a.M = M;
   a.K = K;
-  a.rows_cap = M < SM_ROWS ? M : SM_ROWS;
-  const int room = SMEM_LIMIT - small_smem(0, a.rows_cap, K);
-  a.stages = (room < SM_MAX_RING ? room : SM_MAX_RING) / (SM_STAGE_BYTES + 16);
+  const int R = M <= 8 ? 8 : SM_MAX_ROWS;
+  a.rows_cap = M < R ? M : R;
   const int blocks = max_blocks < a.total_tiles ? max_blocks : a.total_tiles;
-  if (a.stages < 2 || (long long)a.total_tiles * blocks >= (1ll << 31))
+  if ((long long)a.total_tiles * blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int most_tiles = (a.total_tiles + blocks - 1) / blocks;  // the longest range a block walks
+  for (int n = 1;; ++n) {  // n K-chunks, each a whole number of slabs
+    a.chunk = n == 1 ? K : ((K + n - 1) / n + SM_SLAB - 1) / SM_SLAB * SM_SLAB;
+    a.acc_tiles = a.chunk < K ? most_tiles : 0;
+    const int room = SMEM_LIMIT - small_smem(0, a.rows_cap, a.chunk, R, a.acc_tiles);
+    a.stages = (room < 0 ? 0 : room < SM_MAX_RING ? room : SM_MAX_RING) / (SM_STAGE_BYTES + 16);
+    if (a.stages >= SM_MIN_STAGES || a.chunk <= SM_SLAB) break;
+  }
+  if (a.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_kind == 0) return launch_small<int8_t>(a, R, out_f32, blocks, dependent, s);
+  if (x_kind == 1) return launch_small<bf16>(a, R, out_f32, blocks, dependent, s);
+  return launch_small<float>(a, R, out_f32, blocks, dependent, s);
+}
+
+// Row quantization: x [M, K] (row m at element m * x_stride; x_kind 1
+// bfloat16, 2 float32) -> xq [M, K] int8 (row stride K) and xs [M] f32,
+// bitwise quant.quantize_act_per_token. One block a row. K a multiple of 16;
+// x's rows 16-byte aligned.
+int w8a8_quantize_rows(const void* x, long long x_stride, int x_kind, int M, int K, void* xq, void* xs,
+                       void* stream) {
+  if (M <= 0 || K <= 0 || K % 16 != 0 || (x_kind != 1 && x_kind != 2) || xq == nullptr || xs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_kind == 0) return launch_small<int8_t>(a, out_f32, blocks, s);
-  if (x_kind == 1) return launch_small<bf16>(a, out_f32, blocks, s);
-  return launch_small<float>(a, out_f32, blocks, s);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sc = static_cast<float*>(xs);
+  if (x_kind == 1)
+    w8a8_quantize_rows_kernel<bf16><<<M, QR_THREADS, 0, s>>>(static_cast<const bf16*>(x), x_stride, K, q, sc);
+  else
+    w8a8_quantize_rows_kernel<float><<<M, QR_THREADS, 0, s>>>(static_cast<const float*>(x), x_stride, K, q, sc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -181,6 +181,13 @@ def all_logits(params: Params, hidden: torch.Tensor, plain: bool = False) -> tor
     return _head_logits(params, hidden, plain)
 
 
+def has_int8_products(params: Params) -> bool:
+    """Whether some product of a forward runs W8A8: a layer holds an int8
+    projection, or the head is int8 (``lm_head_q8``, or a tied ``embed_q8``)."""
+    return (any(k.endswith("_q8") for layer in params["layers"] for k in layer) or "lm_head_q8" in params
+            or ("embed_q8" in params and "lm_head" not in params))
+
+
 def _proj(layer: Params, x: torch.Tensor, name: str, plain: bool = False) -> torch.Tensor:
     """bf16 or W8A8 projection, chosen by which params the layer holds."""
     if name + "_q8" in layer:

@@ -37,6 +37,7 @@ def counters() -> Dict[str, Tuple[object, str]]:
         "write_q4_token": (inplace.write_q4_token, "launches"),
         "w8a8_matmul.tiled": (gemm.w8a8_matmul, "tiled_launches"),
         "w8a8_matmul.small": (gemm.w8a8_matmul, "small_launches"),
+        "w8a8_matmul.quantize": (gemm.w8a8_matmul, "quantize_launches"),
     }
     plain = (flash.full_cache_attention_plain, flash.streaming_cache_attention_plain,
              flash.full_cache_attention_q4_plain, inplace.write_row_plain, inplace.write_streaming_rows_plain,

@@ -14,12 +14,14 @@ Counterpart of duo_attention_tpu/ops/quant.py.
   per-token dynamic scales, int8 x int8 -> int32, then
   ``(float(acc) * x_scale) * w_scale``. ``w8a8_linear_group`` takes the
   projections that share an input (wq, wk, wv; gate, up) together: on the
-  card at M <= ``gemm.SMALL_M_MAX`` one kernel quantizes x and multiplies it
-  by each weight (``gemm.w8a8_small_group``); otherwise x is quantized once
-  in plain torch and each product is ``gemm.w8a8_matmul``. Where x needs a
-  gradient the linears are differentiable by JAX's straight-through
-  estimator (``_W8A8STE``): the backward is that of ``x @ (wq * w_scale)``,
-  the activation quantization taken as the identity. Each eager
+  card at M <= ``gemm.SMALL_M_MAX`` the small-M kernel multiplies x by each
+  weight, reading each once, and quantizes x itself up to 8 rows (past them
+  one launch of ``gemm.quantize_rows`` goes first; ``gemm.w8a8_small_group``);
+  otherwise x is quantized once in plain torch and each product is
+  ``gemm.w8a8_matmul``. Where x needs a gradient the linears are
+  differentiable by JAX's straight-through estimator (``_W8A8STE``): the
+  backward is that of ``x @ (wq * w_scale)``, the activation quantization
+  taken as the identity. Each eager
   quantization of x in plain torch is an ``engine.quantize_act`` span
   (``tracing``) while spans are recorded; none opens inside a captured
   CUDA graph, so a replayed decode step's quantization is not a span.
@@ -209,8 +211,9 @@ def w8a8_linear_group(x: torch.Tensor, weights: Sequence[Tuple[torch.Tensor, tor
     Each output is bitwise ``w8a8_linear(x, wq_i, w_scale_i)``: x is
     quantized per token once, then multiplied by each weight. A CUDA x of at
     most ``gemm.SMALL_M_MAX`` tokens takes the small-M kernel, which does
-    both in one launch for the whole group; more tokens are quantized in
-    plain torch, then each product is ``gemm.w8a8_matmul`` (the tiled kernel).
+    both in one launch for the whole group (past 8 tokens x is quantized by
+    a launch of its own first); more tokens are quantized in plain torch,
+    then each product is ``gemm.w8a8_matmul`` (the tiled kernel).
     ``plain=True`` (or a CPU x) runs the plain versions. When x requires a
     gradient (and grad mode is on) the same forward runs inside ``_W8A8STE``,
     whose backward is the straight-through estimator."""

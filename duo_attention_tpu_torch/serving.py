@@ -58,6 +58,7 @@ from .cache import init_cache, init_cache_q4, kv_memory_bytes, ring_slot_positio
 from .config import DuoConfig, ModelConfig
 from .engine import DuoEngine, _next_bucket, capture_step, capture_stream
 from .models import llama
+from .ops import gemm
 from .ops.sampling import SamplingParams, prng_key, sample_tokens_rowkeys, split
 from .parallel import mesh as pmesh
 from .utils import resolve_device
@@ -161,6 +162,8 @@ class ServingEngine:
         # admission (the INT4 decode reads its full-head rows up to it)
         self.stale = np.zeros(max_batch_size, np.int64)
         self._kv_sizes = None  # (pool bytes, full-head and streaming bytes a row a position), once traced
+        # how many times a pool step's products read each int8 weight (0 with none)
+        self._weight_passes = gemm.weight_passes(self._b) if llama.has_int8_products(params) else 0
         # per-slot sampling state: host mirrors (greedy rows have temp 0) and
         # the device buffers the pool step reads
         self.samp_temp = np.zeros(max_batch_size, np.float32)
@@ -415,7 +418,9 @@ class ServingEngine:
         positions at step t; the bucket covers them all) and for freed ones
         (``attn_full_dead_bytes``: none in a bf16 pool, whose decode kernel
         skips the rows the step's ``n_valid`` marks; an INT4 pool's decode
-        reads a freed row's stale length, up to the bucket, at every step)."""
+        reads a freed row's stale length, up to the bucket, at every step);
+        ``w8a8_weight_passes``, how many times a step reads each int8
+        weight (``gemm.weight_passes`` at the rank's rows; 0 with none)."""
         if self._kv_sizes is None:
             c, n = self.cache, self._b
             full = sum(t.numel() * t.element_size() for name in c.BUFFERS if "full" in name
@@ -434,7 +439,8 @@ class ServingEngine:
             elif self.kv_quant == "int4":
                 dead_pos += steps * min(int(self.stale[i]), bucket)
         return dict(rids=rids, kv_pool_bytes=pool, kv_live_bytes=held,
-                    attn_full_live_bytes=live_pos * full, attn_full_dead_bytes=dead_pos * full)
+                    attn_full_live_bytes=live_pos * full, attn_full_dead_bytes=dead_pos * full,
+                    w8a8_weight_passes=self._weight_passes)
 
     def _maybe_finish(self, slot: int):
         req = self.slots[slot]

@@ -11,8 +11,9 @@ takes beside x), and times ``quant.w8a8_linear_group`` on the card
 cold: each call finds its weights outside the 50 MB L2, as a decode step
 does, by rotating over copies of them (at least 256 MB in all) inside one
 captured CUDA graph. The cases are the 8B model's decode groups (wq+wk+wv,
-wo, gate+up, down, the head) at M = 1, 2, 4 and 8; a variant whose kernel
-refuses a case (not two stages of its slab beside x) shows "-". The first
+wo, gate+up, down, the head) at M = 1, 2, 4, 8 and 16 (the serving pool's
+rows: two 8-row operands a k-step, and the down projection's x in K-chunks);
+a variant whose kernel refuses a case shows "-". The first
 variant is the source as committed. Every variant is held bitwise to the
 plain version once a case. Prints the card's name and power limit and one
 row a case: device ms of each variant (the mean of two runs, in turns) and
@@ -88,7 +89,7 @@ def main():
             copies = [[(torch.randint(-127, 128, (n, K), generator=gen, device=dev, dtype=torch.int8),
                         torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4) for n in ns]
                       for _ in range(n_copies)]
-            for M in (1, 2, 4, 8):
+            for M in (1, 2, 4, 8, 16):
                 x = (torch.randn((M, K), generator=gen, device=dev) * 2).to(torch.bfloat16)
                 want = quant.w8a8_linear_group(x, copies[0], out_dtype, plain=True)
                 nbytes = sum(ns) * K + 2 * M * K + 4 * sum(ns) + M * sum(ns) * (4 if label == "head" else 2)
@@ -109,7 +110,7 @@ def main():
                                     quant.w8a8_linear_group(x, ws, out_dtype)
 
                             runs[name].append(cuda_graph_time_ms(calls, calls=2) / n_copies)
-                        except RuntimeError:  # the kernel refused: not two stages of this slab beside x
+                        except RuntimeError:  # the kernel refused: not two stages of this slab
                             pass
                         finally:
                             _build._loaded.pop("gemm", None)

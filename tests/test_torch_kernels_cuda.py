@@ -18,10 +18,11 @@ full, across the ring's wrap, with no sink, a tiny window and a wide one, and
 replayed from a graph, the K/V pair writes (bf16 and INT4) and the streaming
 write from strided rows, every route and tile boundary of the int8 matrix
 product and its model shapes at M = 17 and 4096, the fused small-M linear
-(quantization inside the kernel) at M = 1 to 8 for groups of one to three
+(quantization inside the kernel) at M = 1 to 16 for groups of one to three
 weights, ragged widths, K = 14,336 and row-strided inputs, fewer blocks
-than tiles and the longest K its ring takes, as one launch that a CUDA
-graph replays, the engine's captured decode step against the
+than tiles, x staged whole and in K-chunks, every decode group of
+Mistral-7B at the pool's row counts from bf16, float32 and int8 x, as one
+launch that a CUDA graph replays, the engine's captured decode step against the
 eager loop in both formats (greedy and sampled), the serving pool's
 captured steps against its eager step and a freed slot past the bucket in
 both formats, sampling under capture, the serving pool's shapes (the
@@ -660,11 +661,12 @@ def _small_group_inputs(gen, M, ns, K, x_dtype, strided):
 
 
 @pytest.mark.parametrize("group", range(len(SMALL_GROUPS)))
-@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("M", range(1, 17))
 def test_w8a8_small_group_kernel_is_bitwise_the_plain_group(dev, M, group):
     """The fused small-M route (x quantized per row inside the kernel, every
     weight of the group in one launch) against the plain group (plain-torch
-    quantization once, then w8a8_matmul_plain each), bitwise, at M = 1 to 8."""
+    quantization once, then w8a8_matmul_plain each), bitwise, at M = 1 to 16:
+    one 8-row operand a k-step up to 8 rows, two past it."""
     ns, K, x_dtype, out_dtype, strided = SMALL_GROUPS[group]
     gen = torch.Generator(device=dev).manual_seed(20 + M)
     x, weights = _small_group_inputs(gen, M, ns, K, x_dtype, strided)
@@ -678,7 +680,7 @@ def test_w8a8_small_group_kernel_is_bitwise_the_plain_group(dev, M, group):
         assert g.dtype == out_dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
 @pytest.mark.parametrize("shape", list(GEMM_SHAPES))
 def test_w8a8_small_route_at_the_model_shapes(dev, shape, M):
     """Both modes of the small-M kernel at every weight shape of the 8B model,
@@ -699,7 +701,7 @@ def test_w8a8_small_route_at_the_model_shapes(dev, shape, M):
 
 @pytest.mark.parametrize("blocks", [7, 16])
 @pytest.mark.parametrize("group", [1, 3])
-@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("M", [1, 8, 16])
 def test_w8a8_small_route_with_fewer_blocks_than_tiles(dev, monkeypatch, M, group, blocks):
     """The kernel's persistent walk when the blocks split the group's tiles
     unevenly (as on a card of 7 or 16 SMs; 21 and 66 tiles here): every column
@@ -714,20 +716,106 @@ def test_w8a8_small_route_with_fewer_blocks_than_tiles(dev, monkeypatch, M, grou
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_w8a8_small_route_sizes_its_ring_beside_x(dev):
-    """The kernel fits two ring stages beside 8 rows of x up to K = 23,808,
-    bitwise the plain version there, and refuses the launch past it."""
+def test_w8a8_small_route_sizes_its_ring_beside_x(dev, monkeypatch):
+    """x comes whole where that leaves the ring four stages, else in
+    K-chunks: at K = 23,808 and 23,824 (at most two stages beside 8 whole
+    rows, none beside 16) both row counts are bitwise the plain version. A
+    launch whose blocks cannot keep their tiles' sums across the chunks (one
+    block over the 256 tiles of a down projection at 16 rows) is refused."""
     gen = torch.Generator(device=dev).manual_seed(70)
-    x, weights = _small_group_inputs(gen, 8, (40,), 23808, torch.bfloat16, False)
-    (got,) = quant.w8a8_linear_group(x, weights)
-    (want,) = quant.w8a8_linear_group(x, weights, plain=True)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    x, weights = _small_group_inputs(gen, 8, (40,), 23824, torch.bfloat16, False)
+    for M in (8, 16):
+        for K in (23808, 23824):
+            x, weights = _small_group_inputs(gen, M, (40,), K, torch.bfloat16, False)
+            (got,) = quant.w8a8_linear_group(x, weights)
+            (want,) = quant.w8a8_linear_group(x, weights, plain=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (M, K)
+    monkeypatch.setitem(gemm._sm_counts, torch.cuda.current_device(), 1)
+    x, weights = _small_group_inputs(gen, 16, (4096,), 14336, torch.bfloat16, False)
     before = gemm.w8a8_matmul.small_launches
     with pytest.raises(RuntimeError):
         quant.w8a8_linear_group(x, weights)
     assert gemm.w8a8_matmul.small_launches == before
+
+
+# Mistral-7B's decode groups: (output widths, K, output dtype), the head in float32 as the model runs it
+MISTRAL_GROUPS = {"wq+wk+wv": ((4096, 1024, 1024), 4096, torch.bfloat16), "wo": ((4096,), 4096, torch.bfloat16),
+                  "gate+up": ((14336, 14336), 4096, torch.bfloat16), "down": ((4096,), 14336, torch.bfloat16),
+                  "head": ((32000,), 4096, torch.float32)}
+
+
+@pytest.mark.parametrize("blocks", ["one an SM", 7])
+@pytest.mark.parametrize("x_kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("M", [1, 8, 9, 12, 16])
+@pytest.mark.parametrize("group", list(MISTRAL_GROUPS))
+def test_w8a8_small_route_at_the_mistral_decode_groups(dev, monkeypatch, group, M, x_kind, blocks):
+    """Every decode group of Mistral-7B on the small-M route at the serving
+    pool's row counts, bitwise: from bf16 or float32 x the group in one launch
+    against quantize_act_per_token and w8a8_matmul_plain each, from int8 x
+    each weight through the int8-input mode. One block an SM (132 on an H100:
+    the down projection at 9-16 rows walks 2 K-chunks) and 7 blocks, fewer
+    than the tiles (there it walks 3, keeping 37 tiles' sums)."""
+    ns, K, out_dtype = MISTRAL_GROUPS[group]
+    if blocks != "one an SM":
+        monkeypatch.setitem(gemm._sm_counts, torch.cuda.current_device(), blocks)
+    gen = torch.Generator(device=dev).manual_seed(80 + M)
+    x, weights = _small_group_inputs(gen, M, ns, K, torch.float32 if x_kind == "f32" else torch.bfloat16, False)
+    xq, xs = quant.quantize_act_per_token(x)
+    want = [gemm.w8a8_matmul_plain(xq, xs, wq, ws, out_dtype) for wq, ws in weights]
+    counters = ("small_launches", "tiled_launches", "quantize_launches")
+    before = [getattr(gemm.w8a8_matmul, c) for c in counters]
+    if x_kind == "int8":
+        got = [gemm.w8a8_matmul(xq, xs, wq, ws, out_dtype) for wq, ws in weights]
+    else:
+        got = quant.w8a8_linear_group(x, weights, out_dtype)
+    launched = tuple(getattr(gemm.w8a8_matmul, c) - b for c, b in zip(counters, before))
+    apart = x_kind != "int8" and M > gemm.QUANTIZE_IN_KERNEL_MAX
+    assert launched == (len(weights) if x_kind == "int8" else 1, 0, int(apart))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == out_dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", [(1, 48), (9, 4096), (16, 4096), (16, 14336), (3, 40000), (16, 1040)])
+def test_quantize_rows_kernel_is_bitwise_quantize_act_per_token(dev, M, K, x_dtype):
+    """The row quantization ahead of the small-M product past 8 rows:
+    int8 values and float32 scales bitwise quant.quantize_act_per_token,
+    from row-strided x with a zero row and rows on .5 ties, at K from 48 to
+    40,000 (more than one load of registers a thread)."""
+    gen = torch.Generator(device=dev).manual_seed(90 + M)
+    x, _ = _small_group_inputs(gen, M, (16,), K, x_dtype, True)
+    before = gemm.w8a8_matmul.quantize_launches
+    xq, xs = gemm.quantize_rows(x)
+    assert gemm.w8a8_matmul.quantize_launches == before + 1
+    want_q, want_s = quant.quantize_act_per_token(x)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, want_q) and torch.equal(xs.view(torch.int32), want_s.reshape(-1).view(torch.int32))
+
+
+def test_w8a8_small_group_past_8_rows_quantizes_apart_and_replays(dev):
+    """Past QUANTIZE_IN_KERNEL_MAX rows a group is the row quantization, then
+    the product as its programmatic dependent: the profiler sees those two
+    kernels and no other, and a CUDA graph that captured them quantizes the
+    x it finds at each replay, bitwise the plain group."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    M = gemm.QUANTIZE_IN_KERNEL_MAX + 8
+    x, weights = _small_group_inputs(gen, M, (14336, 14336), 4096, torch.bfloat16, False)
+    quant.w8a8_linear_group(x, weights)
+    torch.cuda.synchronize()
+    kernels = device_kernels(lambda: quant.w8a8_linear_group(x, weights))
+    assert len(kernels) == 2, kernels
+    assert sorted("w8a8_small_mma_kernel" in k for k in kernels) == [False, True], kernels
+    assert sorted("w8a8_quantize_rows_kernel" in k for k in kernels) == [False, True], kernels
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = quant.w8a8_linear_group(x, weights)
+    for scale in (1.0, -0.25, 3.0):
+        x.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = quant.w8a8_linear_group(x, weights, plain=True)
+        assert all(torch.equal(g, w) for g, w in zip(outs, want))
 
 
 def test_w8a8_small_group_is_one_launch_and_replays(dev):
@@ -1403,13 +1491,13 @@ def test_attention_kernels_at_a_ranks_head_counts(dev, Hkv, S, cs):
     assert_bf16_close(got, flash.streaming_cache_attention_plain(q, *bufs, csa, csa + S, sink, recent))
 
 
-@pytest.mark.parametrize("M", [1, 8, 17, 300])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 300])
 @pytest.mark.parametrize("K", [2048, 7168])
 def test_w8a8_int8_input_with_a_cross_rank_scale(dev, K, M):
     """A row shard's product (ops/quant.py::w8a8_linear_row_split): x
     quantized with a per-token scale taken over a wider row than the rank's
     slice (the all_reduce MAX), the int8-input mode of the small-M kernel (M
-    <= 8) or the tiled one, float32 output, at wo's and w_down's local depths
+    <= SMALL_M_MAX) or the tiled one, float32 output, at wo's and w_down's local depths
     at TP = 2: bitwise the plain product."""
     gen = torch.Generator(device=dev).manual_seed(13)
     x = randn(gen, M, K, mul=2.0).float()

@@ -152,6 +152,25 @@ def test_dead_bytes_count_the_freed_rows_stale_lengths(model, kv_quant):
     assert bursts[2].counts["attn_full_live_bytes"] == ((30 + 1) + (30 + 2)) * full
 
 
+@pytest.mark.parametrize("fmt", ["w8a8", "bf16"])
+def test_decode_reports_w8a8_weight_passes(model, fmt):
+    """serve.decode's w8a8_weight_passes: how many times a pool step reads
+    each int8 weight. A pool of 16 rows, SMALL_M_MAX, takes the small-M
+    kernel's one pass over the weights: 1; a model without int8 weights: 0."""
+    from duo_attention_tpu_torch.ops import gemm, quant
+
+    params, cfg = model
+    if fmt == "w8a8":
+        params = quant.quantize_params_w8a8(params)
+    eng = engine((params, cfg), slots=16, burst=2)
+    submit(eng, cfg, (12, 7), (4, 3))
+    with tracing.recording():
+        eng.run()
+    bursts = by_name(tracing.spans(), "serve.decode")
+    assert bursts and gemm.SMALL_M_MAX == 16
+    assert {b.counts["w8a8_weight_passes"] for b in bursts} == {1 if fmt == "w8a8" else 0}
+
+
 def test_live_bytes_match_a_hand_count(model):
     """kv_live_bytes: each live row's full heads at its length and its
     streaming heads at sink + recent at most; attn_full_live_bytes: n + t + 1
