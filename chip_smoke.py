@@ -184,12 +184,12 @@ result):
         (4 experts a rank), bf16: the prefill logits of a 2,000-token prompt
         within phase 5's bound of the one-process run's, the router pinned to
         its experts (_PinnedRouting);
-     and parallel/mesh.py's dry runs (dryrun_step) on 2 ranks of the card,
+     and parallel/dryrun.py's dry runs (dryrun_step) on 2 ranks of the card,
      its pipeline and gate-training steps among them.
      A rank that fails or hangs fails the run.
  13. pipeline stages, gate-training layouts and the 1M-token decode
      (parallel/pipeline.py, ulysses.py, fsdp.py; train/trainer.py on a mesh;
-     parallel/mesh.py::dryrun_1m_decode). Stages and ranks share the one card:
+     parallel/dryrun.py::dryrun_1m_decode). Stages and ranks share the one card:
      none of their times is a PP, SP or TP speed figure.
      13a (run beside phases 4 and 6, on their weights): PipelinedEngine, PP = 2
         (16 + 16 layers), both stages on the card, phase 4's prompt and 64
@@ -614,7 +614,7 @@ def phase_kernels(rec):
     import torch.nn.functional as F
 
     from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
-    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.engine import bucket_for_length
     from duo_attention_tpu_torch.ops import flash, inplace
 
     dev = torch.device("cuda")
@@ -661,7 +661,7 @@ def phase_kernels(rec):
         Hq = Hkv * G
         name = "full_cache_attention." + ("decode" if S == 1 else "prefill")
         csv = vec(cs, B)
-        bucket = min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
+        bucket = bucket_for_length(int(csv.max()) + S, MAX_CACHE)
         q = randn(B, S, Hq, D, mul=Q_PEAK)
         kb, vb = k[:B, :Hkv].contiguous(), v[:B, :Hkv].contiguous()
         extra = {}
@@ -977,7 +977,7 @@ def phase_kernels_w8a8kv4(rec):
     import torch.nn.functional as F
 
     from duo_attention_tpu_torch.cache import full_mask
-    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.engine import bucket_for_length
     from duo_attention_tpu_torch.ops import flash, gemm, inplace, quant
     from duo_attention_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
@@ -1103,7 +1103,7 @@ def phase_kernels_w8a8kv4(rec):
     for case, B, S, cs, *fixed_bucket in q4_cases:
         name = "full_cache_attention_q4." + ("decode" if S == 1 else "prefill")
         csv = torch.as_tensor(cs, dtype=torch.int32, device=dev).reshape(-1).expand(B).long()
-        bucket = fixed_bucket[0] if fixed_bucket else min(_next_bucket(int(csv.max()) + S), MAX_CACHE)
+        bucket = fixed_bucket[0] if fixed_bucket else bucket_for_length(int(csv.max()) + S, MAX_CACHE)
         q = randn(B, S, Hq, D, mul=Q_PEAK)
         bufs = [t[:B].contiguous() for t in (kq, ks, vq, vs)]
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
@@ -1283,7 +1283,7 @@ def phase_kernels_d64(rec):
     import torch.nn.functional as F
 
     from duo_attention_tpu_torch.cache import full_mask, ring_mask, sink_mask
-    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.engine import bucket_for_length
     from duo_attention_tpu_torch.ops import flash, inplace, quant
     from duo_attention_tpu_torch.utils import cuda_time_ms
 
@@ -1313,7 +1313,7 @@ def phase_kernels_d64(rec):
         csv = vec(cs, B)
         cs_arg = torch.as_tensor(cs, dtype=torch.int32, device=dev)
         q = randn(B, S, Hq, D, mul=Q_PEAK)
-        bucket = min(_next_bucket(int(csv.max()) + S), T)
+        bucket = bucket_for_length(int(csv.max()) + S, T)
         qpos = csv[:, None] + torch.arange(S, device=dev)
         mask = full_mask(qpos, bucket)[:, None]  # [B, 1, S, bucket]
         flops = 4 * D * Hq * int(mask.sum())
@@ -1851,8 +1851,8 @@ class _PinnedRouting:
 def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=6000, steps=8):
     import torch
 
-    from duo_attention_tpu_torch.cache import init_cache, init_cache_q4
-    from duo_attention_tpu_torch.engine import _next_bucket
+    from duo_attention_tpu_torch.cache import cache_constructor
+    from duo_attention_tpu_torch.engine import bucket_for_length
     from duo_attention_tpu_torch.models import llama
 
     cfg4 = dataclasses.replace(cfg, num_layers=layers)
@@ -1860,7 +1860,7 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
     params4 = dict(params, layers=params["layers"][:layers])
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt))
     dev = torch.device("cuda")
-    new_cache = init_cache_q4 if kv_quant == "int4" else init_cache
+    new_cache = cache_constructor(kv_quant)
 
     def run(plain, feed=None):
         """Prefill, then ``steps`` decode steps fed ``feed`` (or, when None,
@@ -1873,10 +1873,10 @@ def phase_kernel_vs_plain(params, cfg, duo, kv_quant="none", layers=4, prompt=60
                 chunk = np.pad(chunk, ((0, 0), (0, CHUNK - n)))
                 hidden, cache = llama.forward_chunk(
                     params4, cfg4, duo4, cache, torch.as_tensor(chunk, device=dev), n,
-                    full_bucket=min(_next_bucket(off + CHUNK), MAX_CACHE), plain=plain)
+                    full_bucket=bucket_for_length(off + CHUNK, MAX_CACHE), plain=plain)
             out = [llama.logits_at(params4, hidden, n - 1, plain=plain)]
             fed = []
-            bucket = min(_next_bucket(prompt + steps), MAX_CACHE)
+            bucket = bucket_for_length(prompt + steps, MAX_CACHE)
             for i in range(steps):
                 t = int(torch.argmax(out[-1])) if feed is None else feed[i]
                 fed.append(t)
@@ -2973,13 +2973,13 @@ def _tp_reference(cfg, duo, fmt, ids):
     import torch
 
     from duo_attention_tpu_torch import DuoEngine
-    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
 
     kv_quant, make = _tp_formats()[fmt]
     params = make(cfg, seed=0, device="cuda")
     engine = DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant)
-    tokens, gaps = pmesh._greedy_gaps(engine, ids, TP_NEW)
-    out = dict(logits=pmesh.stream_logits(engine, ids, tokens)[:, 0], tokens=tokens[0].tolist(), gaps=gaps)
+    tokens, gaps = pdry.greedy_gaps(engine, ids, TP_NEW)
+    out = dict(logits=pdry.stream_logits(engine, ids, tokens)[:, 0], tokens=tokens[0].tolist(), gaps=gaps)
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2999,6 +2999,7 @@ def _tp_rank(mesh, fmt, ids, ref_tokens, serve):
 
     from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
     from duo_attention_tpu_torch.ops import launches
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
     from duo_attention_tpu_torch.parallel import mesh as pmesh
 
     cfg, duo = _tp_setup()
@@ -3057,7 +3058,7 @@ def _tp_rank(mesh, fmt, ids, ref_tokens, serve):
                kernel_launches_per_step=kernels, device_ms_per_step=b["device_busy_ms"] / 2,
                idle_share=b["idle_share"], sharded_layers=sum(s.sharded for s in pmesh.plan_for(mesh, cfg, duo).layers))
     del cache
-    stream = pmesh.stream_logits(engine, ids, np.asarray(ref_tokens))[:, 0]
+    stream = pdry.stream_logits(engine, ids, np.asarray(ref_tokens))[:, 0]
     if mesh.rank == 0:
         out["logits"] = stream
     if serve:
@@ -3075,7 +3076,7 @@ def _tp_serve(mesh, single, params, cfg, duo, kv_quant):
     import torch
 
     from duo_attention_tpu_torch import Request, ServingEngine, kv_memory_bytes
-    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in TP_SERVE_LENS]
@@ -3098,9 +3099,9 @@ def _tp_serve(mesh, single, params, cfg, duo, kv_quant):
             require(len(served[i]) == TP_SERVE_NEW, f"12c: sampled request {i} served {len(served[i])} tokens")
             continue
         stream = np.asarray(served[i])
-        forced = pmesh.stream_logits(single, prompt[None], stream[None])[:, 0]  # [n, vocab]
+        forced = pdry.stream_logits(single, prompt[None], stream[None])[:, 0]  # [n, vocab]
         below = forced.max(axis=-1) - forced[np.arange(len(stream)), stream]  # each served token below the top
-        iso, gaps = pmesh._greedy_gaps(single, prompt[None], TP_SERVE_NEW)
+        iso, gaps = pdry.greedy_gaps(single, prompt[None], TP_SERVE_NEW)
         iso = iso[0].tolist()
         tie = next((t for t, g in enumerate(gaps) if g < NEAR_TIE), len(gaps))
         prefix = next((t for t, (a, b) in enumerate(zip(served[i], iso)) if a != b), len(iso))
@@ -3281,7 +3282,7 @@ def phase_tp():
     processes that build their own slices of the weights from the seed."""
     import torch
 
-    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
 
     cfg, duo = _tp_setup()
     out = {"note": "one H100 runs both ranks of TP = 2 (gloo): its times are not TP speed figures"}
@@ -3355,11 +3356,11 @@ def phase_tp():
     log(f"  12d: {d['phase_s']:.1f} s")
     t0 = time.perf_counter()
     try:
-        out["dryrun"] = pmesh.dryrun_step(TP, device="cuda", timeout_s=TP_TIMEOUT_S)
+        out["dryrun"] = pdry.dryrun_step(TP, device="cuda", timeout_s=TP_TIMEOUT_S)
     except (RuntimeError, TimeoutError, AssertionError) as e:
         raise SmokeFailure(f"phase 12 dry runs: {e}") from e
     out["dryrun"]["phase_s"] = time.perf_counter() - t0
-    log(f"  12 dry runs (parallel/mesh.py dryrun_step({TP}) on the card): {out['dryrun']['phase_s']:.1f} s")
+    log(f"  12 dry runs (parallel/dryrun.py dryrun_step({TP}) on the card): {out['dryrun']['phase_s']:.1f} s")
     return out
 
 
@@ -3446,7 +3447,7 @@ def phase_pipeline(params, cfg, duo, kv_quant="none"):
 
     from duo_attention_tpu_torch import DuoEngine, kv_memory_bytes
     from duo_attention_tpu_torch.ops import launches
-    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
     from duo_attention_tpu_torch.parallel.pipeline import PipelinedEngine
 
     q4 = kv_quant == "int4"
@@ -3483,8 +3484,8 @@ def phase_pipeline(params, cfg, duo, kv_quant="none"):
         # not bitwise: phase 5's bound on the prefill logits, and tokens equal up to the first near-tie
         out["logits"] = _hold_logits(f"13a {kv_quant} pipeline prefill", logits[0].float().cpu().numpy(),
                                      want_logits[0].float().cpu().numpy(), kv_quant)
-        _, gaps = pmesh._greedy_gaps(DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant), ids, NEW_TOKENS)
-        out["first_difference"] = pmesh._agree_until_tie(tokens, want_tokens, gaps, NEAR_TIE, "13a pipeline")
+        _, gaps = pdry.greedy_gaps(DuoEngine(params, cfg, duo, device="cuda", kv_quant=kv_quant), ids, NEW_TOKENS)
+        out["first_difference"] = pdry.agree_until_tie(tokens, want_tokens, gaps, NEAR_TIE, "13a pipeline")
     stage_kv = [kv_memory_bytes(c) for c in caches]
     reckoned = [_kv_bytes_reckoned(c, d, 1, q4=q4) for c, d in zip(pipe.stage_cfgs, pipe.stage_duos)]
     require(stage_kv == reckoned, f"13a stage KV bytes {stage_kv} != reckoned {reckoned}")
@@ -3717,7 +3718,7 @@ def _train13_counts(out):
 
 
 def phase_1m():
-    """13d: parallel/mesh.py::dryrun_1m_decode(4): one decode step against
+    """13d: parallel/dryrun.py::dryrun_1m_decode(4): one decode step against
     the true 1,048,576-slot INT4 cache on 4 gloo ranks sharing the card (1
     full and 1 streaming head of 128 a layer a rank), finite logits, every
     rank's KV bytes equal to their reckoning; then the same step in this
@@ -3726,18 +3727,18 @@ def phase_1m():
     ran on 2 ranks of the card in phase 12's dryrun_step(2).)"""
     import torch
 
-    from duo_attention_tpu_torch.parallel import mesh as pmesh
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
 
     t0 = time.perf_counter()
     try:
-        r = pmesh.dryrun_1m_decode(TP_1M, ctx=CTX_1M, device="cuda", timeout_s=TP_TIMEOUT_S)
+        r = pdry.dryrun_1m_decode(TP_1M, ctx=CTX_1M, device="cuda", timeout_s=TP_TIMEOUT_S)
     except (RuntimeError, TimeoutError, AssertionError) as e:
         raise SmokeFailure(f"13d dryrun_1m_decode: {e}") from e
     ranks_s = time.perf_counter() - t0
     require(r["kv_bytes"] == r["kv_bytes_reckoned"], f"13d KV bytes {r['kv_bytes']} != {r['kv_bytes_reckoned']}")
     t0 = time.perf_counter()
     reset_counts()
-    want = pmesh.one_process_1m_logits(CTX_1M, TP_1M, device="cuda")
+    want = pdry.one_process_1m_logits(CTX_1M, TP_1M, device="cuda")
     one_counts = read_counts()
     torch.cuda.empty_cache()
     out = dict(ranks_s=ranks_s, one_process_s=time.perf_counter() - t0, kv_bytes=r["kv_bytes"],

@@ -165,6 +165,17 @@ def init_cache_q4(cfg: ModelConfig, duo: DuoConfig, batch_size: int,
     return DuoCacheQ4(**bufs, length=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def cache_constructor(kv_quant: str):
+    """The constructor of the full-head cache format ``kv_quant`` names:
+    "none" gives ``init_cache`` (the cache's dtype), "int4" ``init_cache_q4``.
+    Anything else raises."""
+    if kv_quant == "none":
+        return init_cache
+    if kv_quant == "int4":
+        return init_cache_q4
+    raise ValueError(f"kv_quant must be 'none' or 'int4', got {kv_quant!r}")
+
+
 # ---------------------------------------------------------------------------
 # Writes (in place)
 # ---------------------------------------------------------------------------

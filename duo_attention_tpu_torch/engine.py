@@ -9,7 +9,7 @@ come to the host once per burst, where the stop-token early exit is decided.
 The power-of-two ``bucket`` bounds the full-head keys the attention reads, as
 on the TPU, and is fixed for a whole ``decode_tokens`` call.
 ``single_bucket=True`` pins every step to ``max_cache_size``, as the JAX
-engine's does (one captured graph per format, B and sampled instead of one
+engine's does (one captured graph per B and sampled instead of one
 per bucket): the prefill kernels stop at each query tile's causal end, and
 the decode kernels' splits past the live length exit at once, so the
 runtime still follows the true length (``PERF.md`` says how closely).
@@ -18,7 +18,7 @@ On the card a decode step is captured once into a CUDA graph and replayed
 once per token, the counterpart of the JAX engine's device-side ``lax.scan``
 over a burst: the host issues two launches a step (the token's copy into the
 burst's output and the replay), not the step's ~1,500-1,800 kernels. There is
-one graph per (format, B, bucket, sampled), captured on the cache it decodes
+one graph per (B, bucket, sampled), captured on the cache it decodes
 after an eager warm-up step that builds and loads every kernel; a new cache
 is captured anew. ``capture_step`` captures any step closure that reads and
 writes only tensors (``serving.ServingEngine`` captures its pool step with
@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from . import tracing
-from .cache import DuoCache, DuoCacheQ4, init_cache, init_cache_q4
+from .cache import DuoCache, DuoCacheQ4, cache_constructor
 from .config import DuoConfig, ModelConfig
 from .models import llama
 from .ops import launches
@@ -62,11 +62,14 @@ from .parallel import mesh as pmesh
 from .utils import resolve_device
 
 
-def _next_bucket(n: int, lo: int = 512) -> int:
-    b = lo
-    while b < n:
+def bucket_for_length(length: int, max_cache_size: int) -> int:
+    """The full-head keys a step may read for ``length`` tokens: the
+    smallest power of two >= max(length, 512), capped at ``max_cache_size``.
+    Every engine's bucket comes from here."""
+    b = 512
+    while b < length:
         b *= 2
-    return b
+    return min(b, max_cache_size)
 
 
 class StepGraph:
@@ -139,9 +142,7 @@ class DuoEngine:
         if not all(0 <= n <= cfg.num_kv_heads for n in duo.num_full_kv_heads):
             raise ValueError(f"num_full_kv_heads {duo.num_full_kv_heads} outside "
                              f"[0, {cfg.num_kv_heads}]")
-        if kv_quant not in ("none", "int4"):
-            raise ValueError(f"kv_quant must be 'none' or 'int4', got {kv_quant!r}")
-        self.kv_quant = kv_quant
+        self._init_cache = cache_constructor(kv_quant)  # the full-head format's constructor
         self.device = resolve_device(device)
         params_device = params["final_norm"].device  # W8A8 params may hold no "embed"
         if params_device.type != self.device.type:
@@ -154,7 +155,7 @@ class DuoEngine:
         # decode steps per host round trip (the stop-token check runs between bursts)
         self.decode_burst = max(int(decode_burst), 0)
         self.single_bucket = single_bucket
-        self._graphs = {}  # (kv_quant, B, bucket, sampled) -> StepGraph, on the card
+        self._graphs = {}  # (B, bucket, sampled) -> StepGraph, on the card
         self.mesh = mesh
         # the rank's cache layout: its KV heads and its slice of the batch
         self.shards = None
@@ -165,10 +166,10 @@ class DuoEngine:
         self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
 
     def new_cache(self) -> Union[DuoCache, DuoCacheQ4]:
-        init = init_cache_q4 if self.kv_quant == "int4" else init_cache
         if self.mesh is None:
-            return init(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
-        return init(self.cfg, self.duo, self.shards.batch, self.dtype, self.device, heads=self.shards.heads)
+            return self._init_cache(self.cfg, self.duo, self.batch_size, self.dtype, self.device)
+        return self._init_cache(self.cfg, self.duo, self.shards.batch, self.dtype, self.device,
+                                heads=self.shards.heads)
 
     def local_rows(self, ids: np.ndarray) -> np.ndarray:
         """The rows of a [batch_size, ...] host batch this rank's data group
@@ -190,7 +191,7 @@ class DuoEngine:
     def bucket_for(self, length: int) -> int:
         if self.single_bucket:
             return self.duo.max_cache_size
-        return min(_next_bucket(length), self.duo.max_cache_size)
+        return bucket_for_length(length, self.duo.max_cache_size)
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
@@ -259,7 +260,7 @@ class DuoEngine:
         if self.mesh is not None:
             tokens = self._gather(torch.as_tensor(tokens, device=self.device).long()).cpu().numpy().astype(np.int32)
         if stop_token_ids:
-            tokens = _truncate_at_stop(tokens, stop_token_ids)
+            tokens = truncate_at_stop(tokens, stop_token_ids)
         return tokens, cache
 
     def _sample(self, logits: torch.Tensor, key, temp, top_p, top_k) -> torch.Tensor:
@@ -361,7 +362,7 @@ class DuoEngine:
         out = torch.empty((token.shape[0], steps), dtype=torch.long, device=self.device)
         if steps == 0:
             return out, token
-        key = (self.kv_quant, token.shape[0], bucket, samp is not None)
+        key = (token.shape[0], bucket, samp is not None)
         inputs = (token.to(torch.long), *(samp or ()))
         graph = self._graphs.get(key)
         first = 0
@@ -398,7 +399,9 @@ def _burst_plan(burst: int, n: int) -> list:
     return plan
 
 
-def _truncate_at_stop(tokens: np.ndarray, stop_ids) -> np.ndarray:
+def truncate_at_stop(tokens: np.ndarray, stop_ids) -> np.ndarray:
+    """Each row of ``tokens`` [B, n] cut after its first stop id, the rest
+    filled with the first stop id."""
     out = tokens.copy()
     for b in range(out.shape[0]):
         for t in range(out.shape[1]):

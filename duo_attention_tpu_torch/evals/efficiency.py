@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from ..cache import init_cache, init_cache_q4, kv_memory_bytes
+from ..cache import cache_constructor, kv_memory_bytes
 from ..config import PRESETS, DuoConfig
 from ..engine import DuoEngine, capture_step, capture_stream
 from ..models import llama
@@ -123,8 +123,7 @@ def bench_serving(cfg, duo, batch, ctx_len, kv_quant="int4", steps=64, w8a8=True
     dev = resolve_device(device)
     if params is None:
         params = make_params(cfg, w8a8, dev)
-    init = init_cache_q4 if kv_quant == "int4" else init_cache
-    cache = init(cfg, duo, batch, torch.bfloat16, dev, decode_only=True)
+    cache = cache_constructor(kv_quant)(cfg, duo, batch, torch.bfloat16, dev, decode_only=True)
     # staggered lengths, clamped so every sequence keeps steps+slack of
     # cache headroom (and never goes negative for tiny test configs)
     base = max(ctx_len - steps - 8 - 600, 1)

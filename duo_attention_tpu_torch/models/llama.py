@@ -44,7 +44,6 @@ from ..ops.blockwise import blockwise_attention, causal_mask_fn, lambda_mask_fn
 from ..ops.norm import rms_norm
 from ..ops.quant import w8a8_linear, w8a8_linear_group, w8a8_linear_row_split
 from ..ops.rope import apply_rope, rope_tables
-from ..parallel import spmd
 from ..parallel.mesh import all_reduce, plan_for, sum_across, vocab_shard
 from ..parallel.ulysses import ulysses_attention
 from ..utils import resolve_device
@@ -278,8 +277,7 @@ def _moe_mlp(layer: Params, x: torch.Tensor, top_k: int, mesh=None) -> torch.Ten
 
 
 def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig,
-                         duo: DuoConfig, write_start, full_bucket: int, plain: bool, shard=None, mesh=None,
-                         valid=None):
+                         duo: DuoConfig, write_start, full_bucket: int, plain: bool, shard=None, valid=None):
     """Split-head attention of one layer; writes this chunk's K/V into the
     layer's cache buffers first (in place).
 
@@ -293,8 +291,8 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
     With a ``DuoCacheQ4`` the full heads are quantized to INT4 on the way in
     and attended through ``full_cache_attention_q4``. Under tensor
     parallelism ``shard`` (a ``parallel.mesh.LayerShard``) gives the rank's
-    KV heads, which q/k/v and the cache hold; a head-sharded layer attends
-    through ``parallel/spmd.py`` (``mesh`` given), a replicated one as here.
+    KV heads, which q/k/v and the cache hold: the ops run on them as on one
+    device, and the wo all_reduce that follows is ``_row_proj``'s.
     """
     if shard is None:
         hf = duo.num_full_kv_heads[layer_idx]
@@ -308,27 +306,18 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
     if hf > 0:
         k_in, v_in = k[:, :, :hf].transpose(1, 2), v[:, :, :hf].transpose(1, 2)  # views, [B, hf, S, D]
         q_f = q[:, :, : hf * G].contiguous()
+        # one launch for both rows at decode, read in place from the views
         if isinstance(cache, DuoCacheQ4):
-            # one launch for both rows at decode, read in place from the views
             kq, ks, vq, vs = write_full_q4_pair(cache.k_full_q[layer_idx], cache.k_full_s[layer_idx],
                                                 cache.v_full_q[layer_idx], cache.v_full_s[layer_idx],
                                                 k_in, v_in, write_start, plain)
-            if mesh is not None:
-                outs.append(spmd.sharded_full_attention_q4(mesh, q_f, kq, ks, vq, vs, cs, bucket=full_bucket,
-                                                           plain=plain))
-            else:
-                attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
-                outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
+            attn = flash.full_cache_attention_q4_plain if plain else flash.full_cache_attention_q4
+            outs.append(attn(q_f, kq, ks, vq, vs, cs, bucket=full_bucket))
         else:
-            # one launch for both rows at decode, read in place from the views
             kf, vf = write_full_pair(cache.k_full[layer_idx], cache.v_full[layer_idx], k_in, v_in,
                                      write_start, plain)
-            if mesh is not None:
-                outs.append(spmd.sharded_full_attention(mesh, q_f, kf, vf, cs, bucket=full_bucket, plain=plain,
-                                                        valid=valid))
-            else:
-                attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
-                outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket, valid=valid))
+            attn = flash.full_cache_attention_plain if plain else flash.full_cache_attention
+            outs.append(attn(q_f, kf, vf, cs, bucket=full_bucket, valid=valid))
     if hs > 0:
         bufs = write_streaming(
             cache.k_sink[layer_idx], cache.v_sink[layer_idx],
@@ -337,13 +326,8 @@ def _duo_layer_attention(layer_idx: int, q, k, v, cache: Cache, cfg: ModelConfig
             write_start, duo.sink_size, plain,
         )
         # total_after counts the chunk's padding too; the masks hide it
-        if mesh is not None:
-            outs.append(spmd.sharded_streaming_attention(mesh, q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S,
-                                                         duo.sink_size, duo.recent_size, plain=plain))
-        else:
-            attn = flash.streaming_cache_attention_plain if plain else flash.streaming_cache_attention
-            outs.append(attn(q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S,
-                             duo.sink_size, duo.recent_size))
+        attn = flash.streaming_cache_attention_plain if plain else flash.streaming_cache_attention
+        outs.append(attn(q[:, :, hf * G :].contiguous(), *bufs, cs, cs + S, duo.sink_size, duo.recent_size))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
@@ -388,24 +372,20 @@ def forward_chunk(params: Params, cfg: ModelConfig, duo: DuoConfig, cache: Cache
     # a decode step's [B] n_valid (the serving pool's active rows): the full heads skip the rows with none
     valid = n_valid if S == 1 and torch.is_tensor(n_valid) and n_valid.dim() == 1 else None
 
-    plan = None if mesh is None else plan_for(mesh, cfg, duo)
+    # the rank's head plan, one LayerShard a layer; None a layer: every head, no collective
+    shards = plan_for(mesh, cfg, duo).layers if mesh is not None else (None,) * len(params["layers"])
     x = embed_lookup(params, input_ids, mesh, cfg) if input_ids.dim() == 2 else input_ids
-    for li, layer in enumerate(params["layers"]):
+    for li, (layer, s) in enumerate(zip(params["layers"], shards)):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(layer, h, cfg, plain)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if plan is None:
-            attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, valid=valid)
-            x = x + _proj(layer, attn.reshape(B, S, cfg.num_heads * cfg.head_dim), "wo", plain)
-            x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain)
-            continue
-        s = plan.layers[li]
-        sharded = mesh if s.sharded else None  # a replicated layer's attention needs no collective
-        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, sharded,
-                                    valid)
-        x = x + _row_proj(layer, attn.reshape(B, S, -1), "wo", plain, sharded)
-        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain, mesh if s.mlp else None)
+        attn = _duo_layer_attention(li, q, k, v, cache, cfg, duo, write_start, full_bucket, plain, s, valid)
+        # a replicated layer's wo, and an MLP that is not split, need no collective
+        wo_mesh = mesh if s is not None and s.sharded else None
+        x = x + _row_proj(layer, attn.reshape(B, S, -1), "wo", plain, wo_mesh)
+        mlp_mesh = mesh if s is not None and s.mlp else None
+        x = x + _mlp(layer, rms_norm(x, layer["post_norm"], cfg.rms_norm_eps), cfg, plain, mlp_mesh)
     if "final_norm" in params:
         x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     cache.length.add_(n_valid)  # in place: a replayed decode step advances it too

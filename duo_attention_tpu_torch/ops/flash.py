@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from ..cache import full_mask, ring_mask, sink_mask
+from ..cache import DuoCacheQ4, full_mask, ring_mask, sink_mask
 from . import _build
 from .attention_ref import masked_attention
 from .inplace import device_positions, position_vector
@@ -436,6 +436,15 @@ def full_cache_attention_q4(q, k_packed, k_scales, v_packed, v_scales, cs, *, bu
 
 full_cache_attention_q4.prefill_launches = 0
 full_cache_attention_q4.decode_launches = 0
+
+
+def decode_reads_freed_rows(cache) -> bool:
+    """Whether the full-head decode of ``cache``'s format reads the keys of
+    a row the step's valid counts mark empty (a freed serving slot). The bf16
+    decode (``full_cache_attention``) takes the counts and skips such a row;
+    the INT4 decode (``full_cache_attention_q4``) takes none and reads the
+    row up to its length, capped at the bucket."""
+    return isinstance(cache, DuoCacheQ4)
 
 
 # ---------------------------------------------------------------------------

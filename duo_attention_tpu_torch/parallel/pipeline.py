@@ -26,8 +26,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..cache import init_cache, init_cache_q4, kv_memory_bytes
+from ..cache import cache_constructor, kv_memory_bytes
 from ..config import DuoConfig, ModelConfig
+from ..engine import bucket_for_length, truncate_at_stop
 from ..models import llama
 from ..utils import resolve_device
 
@@ -97,8 +98,7 @@ class PipelinedEngine:
     def __init__(self, params, cfg: ModelConfig, duo: DuoConfig, devices: Optional[Sequence] = None,
                  batch_size: int = 1, dtype=torch.bfloat16, kv_quant: str = "none"):
         self.devices = [resolve_device(d) for d in (devices if devices is not None else default_devices())]
-        if kv_quant not in ("none", "int4"):
-            raise ValueError(f"kv_quant must be 'none' or 'int4', got {kv_quant!r}")
+        self._init_cache = cache_constructor(kv_quant)  # the full-head format's constructor
         if len(duo.num_full_kv_heads) != cfg.num_layers:
             raise ValueError(f"pattern has {len(duo.num_full_kv_heads)} layers, model has {cfg.num_layers}")
         n = len(self.devices)
@@ -109,7 +109,6 @@ class PipelinedEngine:
         self.duo = duo
         self.batch_size = batch_size
         self.dtype = dtype
-        self.kv_quant = kv_quant
         # per-stage configs: the stage's layer count and its slice of the head split
         self.stage_cfgs = [dataclasses.replace(cfg, num_layers=bounds[s + 1] - bounds[s]) for s in range(n)]
         self.stage_duos = [dataclasses.replace(duo, num_full_kv_heads=tuple(duo.num_full_kv_heads[bounds[s]:
@@ -123,15 +122,11 @@ class PipelinedEngine:
         return len(set(map(str, self.devices))) < len(self.devices)
 
     def bucket_for(self, length: int) -> int:
-        b = 512
-        while b < length:
-            b *= 2
-        return min(b, self.duo.max_cache_size)
+        return bucket_for_length(length, self.duo.max_cache_size)
 
     def new_caches(self):
         """One cache a stage, on the stage's device."""
-        init = init_cache_q4 if self.kv_quant == "int4" else init_cache
-        return [init(c, d_, self.batch_size, self.dtype, dev)
+        return [self._init_cache(c, d_, self.batch_size, self.dtype, dev)
                 for c, d_, dev in zip(self.stage_cfgs, self.stage_duos, self.devices)]
 
     @torch.no_grad()
@@ -186,9 +181,7 @@ class PipelinedEngine:
         first) with ``length`` tokens in the caches, one host round trip a
         token. Stops once every row has emitted a stop token, pads with the
         first stop id and cuts each row after its first
-        (``engine._truncate_at_stop``)."""
-        from ..engine import _truncate_at_stop
-
+        (``engine.truncate_at_stop``)."""
         bucket = self.bucket_for(length + max_new_tokens)
         token = first_token.to(self.devices[0])
         out = []
@@ -203,7 +196,7 @@ class PipelinedEngine:
             pad = np.full((tokens.shape[0], max_new_tokens - tokens.shape[1]), stop_token_ids[0], tokens.dtype)
             tokens = np.concatenate([tokens, pad], axis=1)
         if stop_token_ids:
-            tokens = _truncate_at_stop(tokens, stop_token_ids)
+            tokens = truncate_at_stop(tokens, stop_token_ids)
         return tokens[:, :max_new_tokens], caches
 
     def kv_memory_bytes(self, caches) -> int:

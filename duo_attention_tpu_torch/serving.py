@@ -54,11 +54,11 @@ import numpy as np
 import torch
 
 from . import tracing
-from .cache import init_cache, init_cache_q4, kv_memory_bytes, ring_slot_positions
+from .cache import cache_constructor, kv_memory_bytes, ring_slot_positions
 from .config import DuoConfig, ModelConfig
-from .engine import DuoEngine, _next_bucket, capture_step, capture_stream
+from .engine import DuoEngine, bucket_for_length, capture_step, capture_stream
 from .models import llama
-from .ops import gemm
+from .ops import flash, gemm
 from .ops.sampling import SamplingParams, prng_key, sample_tokens_rowkeys, split
 from .parallel import mesh as pmesh
 from .utils import resolve_device
@@ -142,7 +142,6 @@ class ServingEngine:
         self.cfg = cfg
         self.duo = duo
         self.B = max_batch_size
-        self.kv_quant = kv_quant
         self.mesh = mesh
         # single-slot engine reused for admission prefill
         self._prefill_engine = DuoEngine(params, cfg, duo, batch_size=1, dtype=dtype, device=self.device,
@@ -153,8 +152,8 @@ class ServingEngine:
         if mesh is not None:
             shards = pmesh.cache_shardings(mesh, cfg, duo, max_batch_size)
             heads, self._b, self._lo = shards.heads, shards.batch, shards.batch_start
-        init = init_cache_q4 if kv_quant == "int4" else init_cache
-        self.cache = init(cfg, duo, self._b, dtype, self.device, decode_only=True, heads=heads)
+        self.cache = cache_constructor(kv_quant)(cfg, duo, self._b, dtype, self.device, decode_only=True,
+                                                 heads=heads)
         self.cache.length = torch.zeros((self._b,), dtype=torch.int32, device=self.device)
         self.captures = self.device.type == "cuda" and (mesh is None or mesh.capturable)
         self.lengths = np.zeros(max_batch_size, np.int64)  # host mirror
@@ -363,7 +362,7 @@ class ServingEngine:
         # burst: surplus tokens are trimmed on the host (as after a stop
         # token), so the step counts stay few.
         steps = max(min(self.decode_burst, self.duo.max_cache_size - 1 - maxlen), 1)
-        bucket = min(_next_bucket(maxlen + steps), self.duo.max_cache_size)
+        bucket = bucket_for_length(maxlen + steps, self.duo.max_cache_size)
         # the all-greedy pool skips the sampling sort entirely
         sample = bool(np.any(self.samp_temp[active_np] > 0.0))
         if sp:
@@ -416,9 +415,9 @@ class ServingEngine:
         bytes the decode kernels read over the burst's steps, for live rows
         (``attn_full_live_bytes``: a row at length n reads n + t + 1
         positions at step t; the bucket covers them all) and for freed ones
-        (``attn_full_dead_bytes``: none in a bf16 pool, whose decode kernel
-        skips the rows the step's ``n_valid`` marks; an INT4 pool's decode
-        reads a freed row's stale length, up to the bucket, at every step);
+        (``attn_full_dead_bytes``: where the pool's decode kernel reads
+        freed rows, ``flash.decode_reads_freed_rows``, a freed row's stale
+        length, up to the bucket, at every step; else none);
         ``w8a8_weight_passes``, how many times a step reads each int8
         weight (``gemm.weight_passes`` at the rank's rows; 0 with none)."""
         if self._kv_sizes is None:
@@ -429,6 +428,7 @@ class ServingEngine:
             self._kv_sizes = (kv_memory_bytes(c), full, ring)
         pool, full, ring = self._kv_sizes
         window = self.duo.sink_size + self.duo.recent_size
+        reads_freed = flash.decode_reads_freed_rows(self.cache)
         rids, held, live_pos, dead_pos = [], 0.0, 0, 0
         for i in range(self._lo, self._lo + self._b):
             if self.slots[i] is not None:
@@ -436,7 +436,7 @@ class ServingEngine:
                 rids.append(self.slots[i].rid)
                 held += n * full + min(n, window) * ring
                 live_pos += steps * (n + 1) + steps * (steps - 1) // 2
-            elif self.kv_quant == "int4":
+            elif reads_freed:
                 dead_pos += steps * min(int(self.stale[i]), bucket)
         return dict(rids=rids, kv_pool_bytes=pool, kv_live_bytes=held,
                     attn_full_live_bytes=live_pos * full, attn_full_dead_bytes=dead_pos * full,

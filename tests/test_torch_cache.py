@@ -48,6 +48,27 @@ def test_init_cache_shapes_and_bytes_match_jax(dtype, decode_only):
     assert tcache.kv_memory_bytes(tc) == jcache.kv_memory_bytes(jc)
 
 
+def test_one_constructor_a_cache_format():
+    """``cache_constructor`` maps each ``kv_quant`` to its cache, the full-head
+    decode reads freed rows of the INT4 cache alone, and every engine refuses
+    another format when it is built."""
+    from duo_attention_tpu_torch import ServingEngine
+    from duo_attention_tpu_torch.models.llama import init_params
+    from duo_attention_tpu_torch.ops import flash
+    from duo_attention_tpu_torch.parallel.pipeline import PipelinedEngine
+
+    tduo, _ = duo_pair(**SPLIT)
+    for kv_quant, kind, reads_freed in (("none", tcache.DuoCache, False), ("int4", tcache.DuoCacheQ4, True)):
+        cache = tcache.cache_constructor(kv_quant)(TINY_GQA, tduo, 1, torch.float32, "cpu")
+        assert type(cache) is kind and flash.decode_reads_freed_rows(cache) is reads_freed
+    params = init_params(TINY_GQA, seed=0, dtype=torch.float32, device="cpu")
+    for build in (lambda: tcache.cache_constructor("int8"),
+                  lambda: ServingEngine(params, TINY_GQA, tduo, device="cpu", kv_quant="int8"),
+                  lambda: PipelinedEngine(params, TINY_GQA, tduo, devices=["cpu"], kv_quant="int8")):
+        with pytest.raises(ValueError, match="kv_quant"):
+            build()
+
+
 def test_init_cache_rejects_unaligned_size():
     tduo, _ = duo_pair(**dict(SPLIT, max_cache_size=200))
     with pytest.raises(ValueError, match="multiple of 128"):

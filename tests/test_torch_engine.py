@@ -98,6 +98,25 @@ def test_burst_plan_properties():
     check()
 
 
+@pytest.mark.parametrize("cap", [128, 512, 4096, 1 << 20])
+def test_one_bucket_rule_matches_jax(cap):
+    """The port's one bucket rule is the JAX engine's (its ``_next_bucket``
+    capped at max_cache_size) at every length up to 4,100 and around every
+    power of two, and DuoEngine and PipelinedEngine read it."""
+    from duo_attention_tpu.engine import _next_bucket as j_next_bucket
+    from duo_attention_tpu_torch.engine import bucket_for_length
+    from duo_attention_tpu_torch.parallel.pipeline import PipelinedEngine
+
+    tcfg, _, tp, _ = models("tiny-llama", 6)
+    tduo, _ = duos(tcfg, 1, max_size=cap)
+    engines = (port_engine(tcfg, tp, tduo), PipelinedEngine(tp, tcfg, tduo, devices=["cpu"], dtype=torch.float32))
+    lengths = set(range(4101)) | {(1 << k) + d for k in range(1, 23) for d in (-1, 0, 1)}
+    for n in sorted(lengths):
+        want = min(j_next_bucket(n), cap)
+        assert bucket_for_length(n, cap) == want, n
+        assert all(e.bucket_for(n) == want for e in engines), n
+
+
 def test_overrun_poison():
     """Decoding past max_cache_size clamps the full-cache writes, so every
     token of the burst that overran comes back as -1."""

@@ -49,7 +49,7 @@ def test_the_training_slice_is_covered():
 
 
 def test_the_parallel_slice_is_covered():
-    for module in ("parallel/__init__", "parallel/mesh", "parallel/spmd"):
+    for module in ("parallel/__init__", "parallel/mesh", "parallel/dryrun"):
         assert f"duo_attention_tpu_torch/{module}.py" in FILES, module
 
 
@@ -67,6 +67,56 @@ def test_no_rank_worker_lives_in_a_test_module():
 @pytest.mark.parametrize("path", FILES)
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules((REPO / path).read_text()) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+# The layers below the engines (the kernels' wrappers, the cache, the model
+# step, the mesh and its sharding rules) and the modules above them, which
+# none of the lower ones may import, at any depth: a lower module that reaches
+# up makes every change above it a change of the layer below.
+PACKAGE = "duo_attention_tpu_torch"
+LOWER = sorted([p.relative_to(REPO).as_posix() for p in (REPO / PACKAGE / "ops").glob("*.py")]
+               + [f"{PACKAGE}/{m}.py" for m in ("cache", "config", "tracing", "utils", "models/llama",
+                                                "parallel/mesh", "parallel/ulysses", "parallel/fsdp")])
+HIGHER = ("engine", "serving", "evals", "train", "tokenizer", "patterns", "demo", "parallel.pipeline",
+          "parallel.dryrun", "models.constructed", "models.convert")
+
+
+def package_imports(path: str, source: str):
+    """Every module the file ``path`` (relative to the repo) imports, in any
+    scope, with relative imports resolved; ``from X import n`` gives X and
+    X.n, since n may be a module."""
+    package = path[: -len(".py")].split("/")[:-1]
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[: len(package) - node.level + 1] + ([node.module] if node.module else [])
+                module = ".".join(base)
+            else:
+                module = node.module
+            yield module
+            yield from (f"{module}.{alias.name}" for alias in node.names)
+
+
+def _higher(module: str) -> bool:
+    return any(module == f"{PACKAGE}.{name}" or module.startswith(f"{PACKAGE}.{name}.") for name in HIGHER)
+
+
+def test_the_layering_rule_catches_what_it_must():
+    src = ("from ..engine import DuoEngine\nfrom . import pipeline\nfrom .mesh import Mesh\n"
+           "def f():\n    from ..evals.niah import NIAHTester\n    from .. import serving\n"
+           "    from ..models import llama, convert\n")
+    got = [m for m in package_imports(f"{PACKAGE}/parallel/x.py", src) if _higher(m)]
+    assert got == [f"{PACKAGE}.engine", f"{PACKAGE}.engine.DuoEngine", f"{PACKAGE}.parallel.pipeline",
+                   f"{PACKAGE}.evals.niah", f"{PACKAGE}.evals.niah.NIAHTester", f"{PACKAGE}.serving",
+                   f"{PACKAGE}.models.convert"]
+
+
+@pytest.mark.parametrize("path", LOWER)
+def test_lower_layers_import_nothing_above_them(path):
+    bad = sorted({m for m in package_imports(path, (REPO / path).read_text()) if _higher(m)})
     assert not bad, f"{path} imports {bad}"
 
 

@@ -1532,13 +1532,14 @@ def test_one_rank_nccl_mesh_captures_and_equals_no_mesh(dev, kv_quant, tmp_path)
     its collectives issued) decodes from a captured CUDA graph, NCCL's
     collectives inside it, and gives bit for bit the no-mesh engine's tokens
     and the collectives parallel.mesh reckons a step."""
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
     from duo_attention_tpu_torch.parallel import mesh as pmesh
 
     params = _tp_test_params(kv_quant)
     prompt = np.random.default_rng(4).integers(0, TP_TEST_CFG.vocab_size, (1, 600))
     want, _ = DuoEngine(params, TP_TEST_CFG, TP_TEST_DUO, device="cuda", kv_quant=kv_quant).generate(prompt, 24)
-    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pmesh.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
-                                                                              prompt, 24), {"kv_quant": kv_quant})],),
+    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pdry.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
+                                                                             prompt, 24), {"kv_quant": kv_quant})],),
                              device="cuda", timeout_s=300, store_dir=str(tmp_path))
     np.testing.assert_array_equal(got[0]["tokens"], want)
     reckoned = pmesh.collectives_per_step(pmesh.Mesh(1, 1, 0, 0, 0, None, None, 0, "nccl", dev), TP_TEST_CFG,
@@ -1555,15 +1556,16 @@ def test_two_ranks_on_one_card_over_gloo(dev, kv_quant, tmp_path):
     then every decode step's) within chip_smoke.py's phase 5 bound of the
     one-device engine's; and the ranks' own greedy tokens equal up to the
     one-device run's first top-2 logit gap below 0.25."""
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
     from duo_attention_tpu_torch.parallel import mesh as pmesh
 
     params = _tp_test_params(kv_quant)
     prompt = np.random.default_rng(5).integers(0, TP_TEST_CFG.vocab_size, (1, 600))
     one = DuoEngine(params, TP_TEST_CFG, TP_TEST_DUO, device="cuda", kv_quant=kv_quant)
-    want, gaps = pmesh._greedy_gaps(one, prompt, 16)
-    ref = pmesh.stream_logits(one, prompt, want)[:, 0]  # [16, vocab]
-    ranks = pmesh.run_ranks(pmesh.run_jobs, 2, args=([(pmesh.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
-                                                                             prompt, 16),
+    want, gaps = pdry.greedy_gaps(one, prompt, 16)
+    ref = pdry.stream_logits(one, prompt, want)[:, 0]  # [16, vocab]
+    ranks = pmesh.run_ranks(pmesh.run_jobs, 2, args=([(pdry.generate_job, (params, TP_TEST_CFG, TP_TEST_DUO,
+                                                                            prompt, 16),
                                                         {"kv_quant": kv_quant, "force": want})],),
                             device="cuda", timeout_s=300, store_dir=str(tmp_path))
     got = ranks[0][0]
@@ -1571,7 +1573,7 @@ def test_two_ranks_on_one_card_over_gloo(dev, kv_quant, tmp_path):
     errs = np.abs(got["logits"][:, 0] - ref).max(axis=-1)
     bounds = (0.1 if kv_quant == "int4" else 0.05) * np.abs(ref).max(axis=-1) + 0.05
     assert (errs <= bounds).all(), (errs, bounds)
-    pmesh._agree_until_tie(got["tokens"], want, gaps, 0.25, "two ranks on one card")
+    pdry.agree_until_tie(got["tokens"], want, gaps, 0.25, "two ranks on one card")
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int4"])
@@ -1580,6 +1582,7 @@ def test_one_rank_nccl_serving_captures_and_equals_no_mesh(dev, kv_quant, tmp_pa
     steps with their collectives and serves three requests (one sampled)
     bit for bit as the no-mesh pool does."""
     from duo_attention_tpu_torch import Request, SamplingParams, ServingEngine
+    from duo_attention_tpu_torch.parallel import dryrun as pdry
     from duo_attention_tpu_torch.parallel import mesh as pmesh
 
     params = _tp_test_params(kv_quant)
@@ -1591,8 +1594,8 @@ def test_one_rank_nccl_serving_captures_and_equals_no_mesh(dev, kv_quant, tmp_pa
     for i, p in enumerate(prompts):
         pool.submit(Request(rid=i, prompt_ids=p, max_new_tokens=12, sampling=sampling.get(i)))
     want = {r.rid: list(r.generated) for r in pool.run()}
-    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pmesh.serve_job, (params, TP_TEST_CFG, TP_TEST_DUO, prompts,
-                                                                           12, sampling),
+    (got,) = pmesh.run_ranks(pmesh.run_jobs, 1, args=([(pdry.serve_job, (params, TP_TEST_CFG, TP_TEST_DUO, prompts,
+                                                                          12, sampling),
                                                         {"kv_quant": kv_quant, "max_batch_size": 2,
                                                          "decode_burst": 4})],),
                              device="cuda", timeout_s=300, store_dir=str(tmp_path))

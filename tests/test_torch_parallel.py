@@ -28,6 +28,7 @@ from duo_attention_tpu.parallel.mesh import shard_params as j_shard_params
 from duo_attention_tpu_torch import DuoEngine, SamplingParams, init_params, load_attn_pattern, sparsify_attention_heads
 from duo_attention_tpu_torch import cache as tcache
 from duo_attention_tpu_torch.ops import launches, quant
+from duo_attention_tpu_torch.parallel import dryrun as pdry
 from duo_attention_tpu_torch.parallel import mesh as pmesh
 from duo_attention_tpu_torch.patterns import num_full_kv_heads_per_layer
 from test_torch_model import duos, models
@@ -98,16 +99,16 @@ def mesh_a(gqa, tmp_path_factory):
     tduo, _ = duos(tcfg, (2, 2, 2), sink=8, recent=16, chunk=32, max_size=256)
     mixed, _ = duos(tcfg, (2, 1, 3), sink=8, recent=16, chunk=32, max_size=256)
     _, _, wp, _ = w8a8_models("tiny-gqa", 5)
-    jobs = [job(pmesh.generate_job, tp, tcfg, tduo, _prompt(tcfg, 2, 50, 0), 5, dtype=torch.float32),
-            job(pmesh.generate_job, tp, tcfg, mixed, _prompt(tcfg, 1, 40, 1), 4, dtype=torch.float32)]
-    jobs += [job(pmesh.generate_job, wp, tcfg, tduo, _prompt(tcfg, 1, 40, s), 5, dtype=torch.float32,
+    jobs = [job(pdry.generate_job, tp, tcfg, tduo, _prompt(tcfg, 2, 50, 0), 5, dtype=torch.float32),
+            job(pdry.generate_job, tp, tcfg, mixed, _prompt(tcfg, 1, 40, 1), 4, dtype=torch.float32)]
+    jobs += [job(pdry.generate_job, wp, tcfg, tduo, _prompt(tcfg, 1, 40, s), 5, dtype=torch.float32,
                  kv_quant="int4") for s in W8A8_SEEDS]
     serve_prompts = [_prompt(tcfg, 1, n, 7 + i)[0] for i, n in enumerate((17, 50, 33))]
-    jobs.append(job(pmesh.serve_job, tp, tcfg, mixed, serve_prompts, 6, max_batch_size=2, dtype=torch.float32))
-    jobs.append(job(pmesh.generate_job, tp, tcfg, tduo, _prompt(tcfg, 4, 40, 2), 7, sampling=SAMPLING,
+    jobs.append(job(pdry.serve_job, tp, tcfg, mixed, serve_prompts, 6, max_batch_size=2, dtype=torch.float32))
+    jobs.append(job(pdry.generate_job, tp, tcfg, tduo, _prompt(tcfg, 4, 40, 2), 7, sampling=SAMPLING,
                     dtype=torch.float32, decode_burst=3))
     stops = _split_stops(tp, tcfg, tduo)
-    jobs.append(job(pmesh.generate_job, tp, tcfg, tduo, _prompt(tcfg, 4, 40, 2), STOP_NEW, sampling=SAMPLING,
+    jobs.append(job(pdry.generate_job, tp, tcfg, tduo, _prompt(tcfg, 4, 40, 2), STOP_NEW, sampling=SAMPLING,
                     stop_token_ids=stops, dtype=torch.float32, decode_burst=3))
     t0 = time.perf_counter()
     out = pmesh.run_ranks(pmesh.run_jobs, 2, 2, args=(jobs,), device="cpu", timeout_s=SPAWN_TIMEOUT_S,
@@ -296,8 +297,8 @@ def mesh_b(tmp_path_factory):
                      prefill_chunk_size=512)
     lparams = init_params(lcfg, seed=0, dtype=torch.float32, device="cpu")
     tokens = np.zeros(2, np.int64)
-    jobs = [job(pmesh.generate_job, tp, tcfg, tduo, prompt, 4, dtype=torch.float32),
-            job(pmesh.decode_logits_job, lparams, lcfg, lduo, tokens, LONG_CTX - 576, kv_quant="int4")]
+    jobs = [job(pdry.generate_job, tp, tcfg, tduo, prompt, 4, dtype=torch.float32),
+            job(pdry.decode_logits_job, lparams, lcfg, lduo, tokens, LONG_CTX - 576, kv_quant="int4")]
     out = pmesh.run_ranks(pmesh.run_jobs, 4, 1, args=(jobs,), device="cpu", timeout_s=SPAWN_TIMEOUT_S,
                           store_dir=str(tmp_path_factory.mktemp("store_b")))
     return dict(ranks=out, moe=(tcfg, jcfg, jp, jduo, prompt), long=(lparams, lcfg, lduo, tokens))
@@ -342,23 +343,23 @@ def test_long_context_sharded_q4_decode(mesh_b):
 
 
 def test_dryrun_step_on_four_ranks(tmp_path):
-    """parallel.mesh.dryrun_step(4): the tp x dp chunk step and the
+    """parallel.dryrun.dryrun_step(4): the tp x dp chunk step and the
     expert-parallel step (float32 logits within 1e-4 of one device), 16
     greedy tokens, the trained-pattern NIAH cell and the sharded
     ServingEngine, all equal to one device, on a (data 2, tensor 2) mesh;
     then JAX's pipeline step (2 stages, the one-device tokens) and its
     gate-training step on the same ranks as a (data 2, seq 2) mesh."""
-    out = pmesh.dryrun_step(4, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
+    out = pdry.dryrun_step(4, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
     assert set(out) == {"step", "tp_equivalence", "tp_niah_cell", "serving_tp", "pipeline", "train"}
     assert out["tp_equivalence"]["agree"] == 16 and out["pipeline"]["agree"] == 2
     assert np.isfinite(out["train"]["loss"])
     assert out["tp_niah_cell"]["word_overlap"] == 1.0
-    assert pmesh.dryrun_tp_niah_cell(1, device="cpu") is None and pmesh.dryrun_serving_tp(2, device="cpu") is None
+    assert pdry.dryrun_tp_niah_cell(1, device="cpu") is None and pdry.dryrun_serving_tp(2, device="cpu") is None
 
 
 def _dryrun_1m_at(ctx, tmp_path):
-    out = pmesh.dryrun_1m_decode(4, ctx=ctx, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
-    want = pmesh.one_process_1m_logits(ctx, device="cpu")
+    out = pdry.dryrun_1m_decode(4, ctx=ctx, device="cpu", timeout_s=SPAWN_TIMEOUT_S, store_dir=str(tmp_path))
+    want = pdry.one_process_1m_logits(ctx, device="cpu")
     assert out["logits"].shape == (1, 512) and np.isfinite(out["logits"]).all()
     np.testing.assert_allclose(out["logits"], want, atol=1e-4, rtol=1e-4)
     # 1 full and 1 streaming head a layer on each of 4 ranks: INT4 K and V of ctx slots and their scales
@@ -368,7 +369,7 @@ def _dryrun_1m_at(ctx, tmp_path):
 
 
 def test_dryrun_1m_decode_at_131072(tmp_path):
-    """parallel.mesh.dryrun_1m_decode at 131,072 slots (the 1M geometry with
+    """parallel.dryrun.dryrun_1m_decode at 131,072 slots (the 1M geometry with
     a shorter span; tests/test_spmd.py runs 131,072 in tier-1 too): TP = 4,
     W8A8 with int8 embeddings, an INT4 cache of length ctx - 8, one decode
     step with the bucket at ctx: finite logits within 1e-4 of the one-process
